@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each timed and printed on its own line; any failure exits non-zero:
+
+  1. environment: card name and power limit, torch/CUDA versions; TF32 off
+     for convolutions and matmuls (parity is checked in full fp32);
+  2. build the CUDA kernel library from ``src/repro_torch/kernels/csrc``
+     (into ``build/repro_torch_kernels/``);
+  3. every kernel against its plain torch version on the card, at the
+     shapes of the paths below: max abs error, and CUDA-event times beside
+     the byte bound and the plain version's time;
+  4. the main path: ``build_sim("femnist", n_clients=1024, n_channels=8)``
+     on the card, 5 QCCF rounds of ``run_compiled`` at the full FEMNIST
+     CNN width (Z = 246,590), with ``aggregate`` launched once per round;
+     then a small-input reference (tiny task, U = 8, C = 4, the same draws
+     on the card and on the CPU) and a profile of one round;
+  5. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
+     parameters at q = 4, round-trip error against scale / (2^q - 1);
+  6. one JSON line with each kernel's launches, error and times.
+
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the repository's sources beside this file, it exits non-zero
+before printing any result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+FEMNIST_U, FEMNIST_C, ROUNDS = 1024, 8, 5
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def phase(name: str):
+    """Decorator: run, time and report one phase."""
+    def wrap(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            print(f"[phase] {name}: ok in {time.perf_counter() - t0:.3f} s", flush=True)
+            return out
+        return run
+    return wrap
+
+
+# ---------------------------------------------------------------- timing
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn()`` on the card: CUDA events around
+    ``iters`` back-to-back calls after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+SCOPES = ("kkt_solve", "fleet_local_sgd", "cuda_aggregate", "cuda_quantize",
+          "cuda_dequantize")
+
+
+def _is_device(e) -> bool:
+    """A kernel on the card (the profiler also lists the record_function
+    scopes as device-side annotations; those are ranges, not kernels)."""
+    return (str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False) and e.key not in SCOPES)
+
+
+def kernel_ms(fn, kernel: str, iters: int = 200) -> float:
+    """Mean device milliseconds of the CUDA kernel whose name contains
+    ``kernel``, from a torch.profiler trace of ``iters`` calls of ``fn``
+    (the kernel's own duration, free of the host's launch overhead). Fails
+    when the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if _is_device(e) and kernel in e.key]
+    count = sum(e.count for e in hits)
+    require(count > 0, f"the profiler trace holds no device kernel named {kernel!r}")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """Least time on the card in ms, and what bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- phases
+
+@phase("environment")
+def environment():
+    import torch
+
+    require(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    require((SRC / "repro_torch" / "kernels" / "csrc").is_dir(),
+            f"the port's sources are not beside this script ({SRC / 'repro_torch'})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("tf32 off for cuDNN convolutions and CUDA matmuls: parity in full fp32")
+    return card
+
+
+@phase("build")
+def build_kernels():
+    from repro_torch.kernels import build
+
+    path, seconds, log = build.build()
+    build.library()
+    print(f"kernel library {path.relative_to(ROOT)} built in {seconds:.2f} s "
+          f"(0 = reused)")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+
+def _agg_inputs(k: int, m: int, q_max: int, dtype, gen):
+    import torch
+
+    dev = "cuda"
+    q = torch.randint(1, q_max + 1, (k,), generator=gen, device=dev)
+    hi = ((torch.ones_like(q) << q) - 1)[:, None, None]
+    idx = (torch.rand((k, m, 128), generator=gen, device=dev) * (hi + 1)).long()
+    idx = torch.minimum(idx, hi).to(dtype)
+    signs = (torch.rand((k, m, 128), generator=gen, device=dev) < 0.5).to(torch.uint8)
+    scales = torch.rand((k,), generator=gen, device=dev) + 0.1
+    weights = torch.rand((k,), generator=gen, device=dev)
+    return idx, signs, scales, weights / weights.sum(), q
+
+
+@phase("kernels vs plain on the card")
+def kernels_vs_plain(zpad: int, wire_m: int):
+    import torch
+    from repro_torch.kernels import stochastic_quant as sq
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    report = {}
+
+    def agg_case(label, k, m, q_max, dtype):
+        idx, signs, scales, weights, q = _agg_inputs(k, m, q_max, dtype, gen)
+        got = sq.aggregate(idx, signs, scales, weights, q)
+        want = sq.aggregate_plain(idx, signs, scales, weights, q)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        tol = 1e-7 + 1e-6 * want.abs()
+        require(bool((err <= tol).all()),
+                f"aggregate {label}: max abs err {err.max().item():.3e} over rtol 1e-6 atol 1e-7")
+        print(f"aggregate {label}: K={k} M={m} {str(dtype)[6:]} max_abs_err={err.max().item():.3e}")
+        return (idx, signs, scales, weights, q), err.max().item()
+
+    # the fleet round's planes: S = 8 slots, Zpad / 128 rows, u8, q in 1..8
+    main_args, main_err = agg_case("u8 main-path shape", FEMNIST_C, zpad // 128, 8, torch.uint8)
+    agg_case("u16, q up to 16", FEMNIST_C, zpad // 128, 16, torch.uint16)
+    agg_case("K=1024, ragged M", 1024, 37, 8, torch.uint8)
+    idx, signs, scales, weights, q = main_args
+    k, n = idx.shape[0], idx[0].numel()
+    b_ms, b_by = bound(k * n * 2 + 4 * n + 4 * 3 * k, 3.0 * k * n)
+    report["aggregate"] = dict(
+        shape=f"K={k} M={zpad // 128} u8", max_abs_err=main_err, kernel="aggregate_kernel",
+        call=lambda: sq.aggregate(idx, signs, scales, weights, q),
+        plain_ms=cuda_ms(lambda: sq.aggregate_plain(idx, signs, scales, weights, q), 50),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+
+    # the wire entry point's planes: (M, 128) with M = 256-row tiles of Z
+    x = torch.randn((wire_m, 128), generator=gen, device="cuda") * 0.05
+    rbits = torch.randint(-(2**31), 2**31, x.shape, dtype=torch.int32, generator=gen,
+                          device="cuda").view(torch.uint32)
+    scale = x.abs().amax().reshape(1)
+    corrupt = torch.randint(0, 256, x.shape, generator=gen, device="cuda").to(torch.uint8)
+    q_err, d_err = 0.0, 0.0
+    for qb in (1, 4, 8):
+        i_k, s_k = sq.quantize(x, rbits, scale, qb)
+        i_p, s_p = sq.quantize_plain(x, rbits, scale, qb)
+        require(torch.equal(i_k, i_p) and torch.equal(s_k, s_p),
+                f"quantize q={qb}: kernel is not bit-equal to its plain version")
+        for planes, label in ((i_k, "own planes"), (corrupt, "corrupted plane")):
+            d_k = sq.dequantize(planes, s_k, scale, qb)
+            d_p = sq.dequantize_plain(planes, s_k, scale, qb)
+            require(torch.equal(d_k, d_p),
+                    f"dequantize q={qb} {label}: kernel is not bit-equal to its plain version")
+            # L * (scale * (1 / L)) may round one ulp above scale
+            require(bool((d_k.abs() <= scale * (1.0 + 2.0**-22)).all()),
+                    f"dequantize q={qb} {label}: value outside [-scale, scale]")
+        q_err = max(q_err, (i_k.float() - i_p.float()).abs().max().item())
+        d_err = max(d_err, (d_k - d_p).abs().max().item())
+        print(f"quantize/dequantize q={qb}: M={wire_m} bit-equal to plain "
+              "(own planes and a corrupted plane)")
+    n = x.numel()
+    i4, s4 = sq.quantize(x, rbits, scale, 4)
+    b_ms, b_by = bound(n * 10 + 4, 8.0 * n)
+    report["quantize"] = dict(
+        shape=f"M={wire_m} q=4", max_abs_err=q_err, kernel="quantize_kernel",
+        call=lambda: sq.quantize(x, rbits, scale, 4),
+        plain_ms=cuda_ms(lambda: sq.quantize_plain(x, rbits, scale, 4), 50),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    b_ms, b_by = bound(n * 6 + 4, 3.0 * n)
+    report["dequantize"] = dict(
+        shape=f"M={wire_m} q=4", max_abs_err=d_err, kernel="dequantize_kernel",
+        call=lambda: sq.dequantize(i4, s4, scale, 4),
+        plain_ms=cuda_ms(lambda: sq.dequantize_plain(i4, s4, scale, 4), 50),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    for name, r in report.items():
+        # ms: the kernel's own device time from a profiler trace; call_ms: the
+        # CUDA-event time of back-to-back wrapper calls, host launch included
+        call = r.pop("call")
+        r["call_ms"] = cuda_ms(call, 500)
+        r["ms"] = kernel_ms(call, r.pop("kernel"))
+        print(f"timing {name} ({r['shape']}): kernel {r['ms'] * 1e3:.2f} us "
+              f"(profiler), wrapper call {r['call_ms'] * 1e3:.2f} us (events), "
+              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+              f"plain {r['plain_ms'] * 1e3:.2f} us (events)")
+    return report
+
+
+@phase("main path: 5 QCCF rounds, FEMNIST U=1024 C=8")
+def main_path():
+    import numpy as np
+    import torch
+    from repro_torch.kernels import stochastic_quant as sq
+    from repro_torch.sim import build_sim
+
+    t0 = time.perf_counter()
+    sim = build_sim("femnist", n_clients=FEMNIST_U, n_channels=FEMNIST_C, seed=0,
+                    mu=1200.0, beta=150.0, batch_size=32)
+    torch.cuda.synchronize()
+    print(f"build_sim: {time.perf_counter() - t0:.2f} s (host data synthesis + upload); "
+          f"Z={sim.z} Zpad={sim._zpad} fleet x {tuple(sim.fleet.x.shape)} "
+          f"{sim.fleet.x.numel() * 4 / 1e9:.2f} GB, tau={sim.sysp.tau}")
+    require(sim.z == 246590, f"FEMNIST CNN width Z={sim.z}, want 246590")
+    sim.run_compiled(1)   # warm-up: cuDNN heuristics, allocator
+    sq.reset_launches()
+    res = sim.run_compiled(ROUNDS)
+    launches = dict(sq.launches)
+    sec = sim.run_seconds / ROUNDS
+    for n in range(ROUNDS):
+        q = res.q_levels[n]
+        print(f"round {n}: energy={res.energy[n]:.6e} J acc={res.accuracy[n]:.4f} "
+              f"loss={res.loss[n]:.4f} scheduled={int(res.n_scheduled[n])} "
+              f"q={sorted(q[q > 0].tolist())} lambda1={res.lambda1[n]:.4f} "
+              f"lambda2={res.lambda2[n]:.4f}")
+    print(f"seconds per round: {sec:.4f} ({ROUNDS} rounds in {sim.run_seconds:.3f} s, "
+          "eval on 1024 test images each round)")
+    for k in ("energy", "accuracy", "loss", "latency", "payload_bits", "rates",
+              "lambda1", "lambda2"):
+        require(bool(np.isfinite(getattr(res, k)).all()), f"non-finite {k}")
+    require(bool(torch.isfinite(sim.final_flat).all()), "non-finite final parameters")
+    require(res.q_levels.shape == (ROUNDS, FEMNIST_U), f"q_levels {res.q_levels.shape}")
+    require(bool((res.n_scheduled > 0).all()), "a round scheduled no client")
+    require(launches["aggregate"] == ROUNDS,
+            f"aggregate launched {launches['aggregate']} times in {ROUNDS} rounds")
+    print(f"launches in the main path: {launches}")
+    return sim, launches
+
+
+class _HostDraws:
+    """The default entropy source's three draws, made on the CPU from one
+    generator and moved to the run's device, so a CPU run and a card run
+    see the same numbers."""
+
+    def __init__(self, seed: int, device) -> None:
+        import torch
+        from repro_torch.sim.entropy import DeviceEntropy
+
+        self.inner = DeviceEntropy(seed, "cpu")
+        self.device = torch.device(device)
+
+    def rates(self, ridx, channel):
+        import dataclasses
+
+        host = dataclasses.replace(channel, distances=channel.distances.cpu())
+        return self.inner.rates(ridx, host).to(self.device)
+
+    def batch_indices(self, ridx, n_s, tau, b):
+        return self.inner.batch_indices(ridx, n_s.cpu(), tau, b).to(self.device)
+
+    def uniforms(self, ridx, s, zpad):
+        return self.inner.uniforms(ridx, s, zpad).to(self.device)
+
+
+@phase("small-input reference: tiny task U=8 C=4, card vs CPU, same draws")
+def small_reference():
+    import numpy as np
+    import torch
+    from repro_torch.models import cnn
+    from repro_torch.sim import build_sim
+
+    params = cnn.init_params(cnn.TINY_CNN, 0, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sim = build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=64, device=dev,
+                        init_params=params, entropy=_HostDraws(0, dev))
+        runs[dev] = (sim, sim.run_compiled(3))
+    (gs, g), (cs, c) = runs["cuda"], runs["cpu"]
+    require(np.array_equal(g.q_levels, c.q_levels), "q differs between card and CPU")
+    require(np.array_equal(g.rates, c.rates), "schedule differs between card and CPU")
+    for k, rtol in (("energy", 1e-5), ("lambda1", 1e-4), ("lambda2", 1e-4), ("loss", 1e-3)):
+        a, b = getattr(g, k), getattr(c, k)
+        require(np.allclose(a, b, rtol=rtol, atol=0), f"{k} card {a} vs CPU {b}")
+    require(np.abs(g.accuracy - c.accuracy).max() <= 1 / 64, "accuracy differs > 1/64")
+    # The card's SGD differs from the CPU's in the last bits (shown below);
+    # where a uniform sits at its rounding boundary that moves a coordinate
+    # one quantizer level. So most coordinates agree within 1e-5, and every
+    # one within the largest level w_k theta_k / (2^q_k - 1) of a scheduled
+    # slot in any round, read from a step-by-step replay of the CPU run.
+    level, replay = _one_level(params, rounds=3)
+    require(torch.equal(replay, cs.final_flat), "step replay differs from run_compiled")
+    diff = (gs.final_flat.cpu() - cs.final_flat).abs()
+    frac = (diff <= 1e-5).float().mean().item()
+    require(frac >= 0.997, f"only {frac:.5f} of coordinates within 1e-5")
+    require(diff.max().item() <= level + 1e-5,
+            f"final params differ by {diff.max().item():.3e}, above one level {level:.3e}")
+    print(f"card vs CPU: q and schedule identical over 3 rounds, energy max rel "
+          f"{np.max(np.abs(g.energy / c.energy - 1)):.2e}, final params max abs "
+          f"{diff.max().item():.2e} (one-level bound {level:.2e}), "
+          f"{frac:.5f} of coordinates within 1e-5")
+    _drift_source(gs, cs)
+
+
+def _one_level(params, rounds: int):
+    """Largest one-level step w_k theta_k / (2^q_k - 1) over the scheduled
+    slots of ``rounds`` CPU rounds of the small reference, and its final
+    parameters."""
+    import numpy as np
+    from repro_torch.sim import build_sim
+
+    sim = build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=64, device="cpu",
+                    init_params=params, entropy=_HostDraws(0, "cpu"))
+    d = sim.fleet.n_samples.double().numpy()
+    carry, level = sim._init_carry(), 0.0
+    for n in range(rounds):
+        carry, out = sim._round_body(carry, n, with_eval=False)
+        q = out["q_levels"].numpy()
+        a = q > 0
+        w = np.where(a, d, 0.0) / (d * a).sum()
+        theta = carry[3].double().numpy()     # this round's slot ranges where a
+        step = w * theta / np.maximum(2.0 ** q - 1.0, 1.0)
+        level = max(level, float(np.max(np.where(a, step, 0.0))))
+    return level, carry[0]
+
+
+def _drift_source(gs, cs):
+    """Where the card and the CPU part: one tau-step local SGD of four slots
+    from identical inputs differs in the last bits, while the eq.-4 wire
+    quantizer fed identical inputs is bit-equal on both."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.sim.engine import _quantize_wire
+    from repro_torch.sim.entropy import DeviceEntropy
+    from repro_torch.sim.fleet import fleet_local_sgd, gather_active
+
+    slots = torch.arange(4)
+    x_s, y_s, n_s = gather_active(cs.fleet, slots)
+    bidx = DeviceEntropy(7, "cpu").batch_indices(0, n_s, cs.sysp.tau, cs.batch_size)
+    flats = {}
+    for sim, dev in ((cs, "cpu"), (gs, "cuda")):
+        stacked, _, _ = fleet_local_sgd(sim.loss_fn, sim.sysp.tau, sim.unravel(sim.flat0),
+                                        x_s.to(dev), y_s.to(dev), bidx.to(dev), sim.lr)
+        flats[dev] = torch.cat([leaf.reshape(4, -1) for leaf in tree_util.leaves(stacked)],
+                               dim=1).cpu()
+    sgd = (flats["cuda"] - flats["cpu"]).abs()
+    gen = torch.Generator().manual_seed(7)
+    u01 = torch.rand((4, cs._zpad), generator=gen)
+    q = torch.tensor([1, 4, 8, 8])
+    wire_c = _quantize_wire(u01, flats["cpu"], q, 8, cs._zpad)
+    wire_g = _quantize_wire(u01.cuda(), flats["cpu"].cuda(), q.cuda(), 8, cs._zpad)
+    require(all(torch.equal(a, b.cpu()) for a, b in zip(wire_c, wire_g)),
+            "the wire quantizer differs between card and CPU on identical inputs")
+    print(f"drift source: one local SGD (4 slots, tau={cs.sysp.tau}) card vs CPU from "
+          f"identical inputs: max abs {sgd.max().item():.3e}, "
+          f"{(sgd > 0).float().mean().item():.4f} of coordinates differ; the wire "
+          f"quantizer on identical inputs is bit-equal on both")
+
+
+@phase("profile of one main-path round")
+def profile_round(sim):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_compiled(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if _is_device(e)]
+    total = sum(e.self_device_time_total for e in kernels)
+    print(f"profile: wall {wall * 1e3:.2f} ms, device kernel time {total / 1e3:.2f} ms "
+          f"(busy share {total / 1e3 / (wall * 1e3):.3f} under the profiler), "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    spans = {}
+    for e in prof.events():
+        if e.name in SCOPES and not str(e.device_type).endswith("CUDA"):
+            spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total
+    print("host spans of the scopes (ms, under the profiler): " + ", ".join(
+        f"{k}={v / 1e3:.2f}" for k, v in sorted(spans.items())))
+
+
+@phase("wire entry point: quantize_pytree_kernel, FEMNIST parameters, q=4")
+def wire_entry(sim):
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stochastic_quant as sq
+
+    params = sim.unravel(sim.final_flat)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sq.reset_launches()
+    deq, scale = ops.quantize_pytree_kernel(params, 4, generator=gen)
+    torch.cuda.synchronize()
+    launches = dict(sq.launches)
+    err = max((a - b).abs().max().item()
+              for a, b in zip(tree_util.leaves(deq), tree_util.leaves(params)))
+    step = scale.item() / (2**4 - 1)
+    require(err <= step * (1 + 1e-6), f"round-trip error {err} above scale/(2^q-1)={step}")
+    require(launches["quantize"] >= 1 and launches["dequantize"] >= 1,
+            f"wire entry point launches {launches}")
+    print(f"round trip max abs err {err:.4e} <= scale/(2^q-1) = {step:.4e}; "
+          f"launches {launches}")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    card = environment()
+    sys.path.insert(0, str(SRC))
+    build_kernels()
+    zpad = 1984 * 128              # FEMNIST Z = 246,590 in 64-row tiles
+    wire_m = 2048                  # FEMNIST Z in 256-row tiles of 128 lanes
+    report = kernels_vs_plain(zpad, wire_m)
+    sim, main_launches = main_path()
+    small_reference()
+    profile_round(sim)
+    wire_launches = wire_entry(sim)
+
+    source = "src/repro_torch/kernels/csrc/stochastic_quant.cu"
+    replaces = {
+        "aggregate": "src/repro/kernels/stochastic_quant.py:172",
+        "quantize": "src/repro/kernels/stochastic_quant.py:49",
+        "dequantize": "src/repro/kernels/stochastic_quant.py:97",
+    }
+    launches = {"aggregate": main_launches["aggregate"],
+                "quantize": wire_launches["quantize"],
+                "dequantize": wire_launches["dequantize"]}
+    kernels = [
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
+         "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for name, r in report.items()
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -1,0 +1,172 @@
+// Hopper (sm_90a) ports of the three Pallas TPU kernels of
+// src/repro/kernels/stochastic_quant.py: the eq.-4 stochastic quantizer,
+// the clamped dequantizer and the fused dequantize + eq.-2 aggregate.
+//
+// Built by repro_torch/kernels/build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// into a shared library with the plain C interface at the bottom of this
+// file, loaded with ctypes. The Python wrappers
+// (repro_torch/kernels/stochastic_quant.py) check device, dtype, shape and
+// contiguity, allocate every output, and pass the current stream; nothing
+// here allocates or synchronises.
+//
+// All three are elementwise or short per-element reductions on a flat
+// (M * 128) wire layout, so each is bound by device-memory bytes, not by
+// arithmetic (a few flops per byte moved against the H100's ~20 flop/byte
+// fp32 ridge). The design is the plain one: one thread per output element,
+// neighbouring threads on neighbouring bytes so every warp load coalesces.
+// The TPU's (block_m, 128) VMEM tiling has no role here; a ragged tail is
+// masked instead of padded.
+//
+// Rounding: every multiply and add is an explicit round-to-nearest
+// intrinsic, so nvcc cannot contract them into FMAs. Each kernel then does
+// the same IEEE fp32 operations in the same order as its plain torch
+// version (and the Pallas kernel), which keeps quantize/dequantize
+// bit-equal to them and aggregate equal up to the summation order the
+// plain version also uses.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+inline unsigned int n_blocks(int64_t n) {
+  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+}
+
+// Replaces _aggregate_kernel / aggregate (stochastic_quant.py:145-239).
+//   out[e] = sum_{k=0}^{K-1} coef[k] * (sign[k][e] ? -1 : +1) * idx[k][e]
+// with coef[k] = w_k * scale_k / (2^{q_k} - 1) computed by the wrapper. No
+// clamp on idx, as in the TPU kernel. The TPU walks the client axis as a
+// sequential grid dimension with the partial sum resident in VMEM
+// (output-block revisiting); here each thread walks k = 0..K-1 in its own
+// register, the same order, so any K and any M work with no padding.
+// Byte bound: K * n * (sizeof(IdxT) + 1) read + 4 n written; at the fleet
+// round's S = 8, Zpad = 253,952 (u8) that is 5.1 MB, ~1.5 us at 3.35 TB/s.
+template <typename IdxT>
+__global__ void aggregate_kernel(const IdxT* __restrict__ idx,
+                                 const uint8_t* __restrict__ signs,
+                                 const float* __restrict__ coef,
+                                 float* __restrict__ out,
+                                 int64_t k, int64_t n) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float acc = 0.0f;
+  for (int64_t j = 0; j < k; ++j) {
+    const float mag = static_cast<float>(idx[j * n + e]);
+    const float val = signs[j * n + e] ? -mag : mag;
+    acc = __fadd_rn(acc, __fmul_rn(__ldg(coef + j), val));
+  }
+  out[e] = acc;
+}
+
+// Replaces _quant_kernel / quantize (stochastic_quant.py:35-84).
+//   u = (rbits >> 8) * 2^-24, scaled = min(|x| * L / safe, L),
+//   idx = min(floor(scaled) + [u < frac], L) as u8, sign = x < 0.
+// The range scalar stays on the device (a 1-element fp32 tensor), read once
+// per thread from the read-only cache.
+// Byte bound: 4 (x) + 4 (rbits) read + 1 + 1 written = 10 B per element;
+// 262,144 elements (one 256-row tile stack of the FEMNIST CNN) -> 2.6 MB,
+// ~0.8 us at 3.35 TB/s.
+__global__ void quantize_kernel(const float* __restrict__ x,
+                                const uint32_t* __restrict__ rbits,
+                                const float* __restrict__ scale_p,
+                                uint8_t* __restrict__ idx,
+                                uint8_t* __restrict__ signs,
+                                int64_t n, float levels) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const float scale = __ldg(scale_p);
+  const float safe = scale > 0.0f ? scale : 1.0f;
+  const float xv = x[e];
+  const float scaled = fminf(__fmul_rn(fabsf(xv), __fdiv_rn(levels, safe)), levels);
+  const float lower = floorf(scaled);
+  const float frac = __fsub_rn(scaled, lower);
+  const float u = __fmul_rn(static_cast<float>(rbits[e] >> 8), 5.9604644775390625e-08f);
+  const float q = fminf(__fadd_rn(lower, u < frac ? 1.0f : 0.0f), levels);
+  idx[e] = static_cast<uint8_t>(q);
+  signs[e] = xv < 0.0f ? 1 : 0;
+}
+
+// Replaces _dequant_kernel / dequantize (stochastic_quant.py:87-124).
+//   mag = min(idx, L) * (scale * (1 / L)), negated where the sign is set.
+// The clamp keeps a corrupted index plane inside [-scale, scale]. The step
+// multiplies by the fp32 reciprocal of L, as the Pallas kernel does once
+// XLA has rewritten its division by the constant L.
+// Byte bound: 1 + 1 read + 4 written = 6 B per element; 262,144 elements
+// -> 1.6 MB, ~0.5 us at 3.35 TB/s.
+__global__ void dequantize_kernel(const uint8_t* __restrict__ idx,
+                                  const uint8_t* __restrict__ signs,
+                                  const float* __restrict__ scale_p,
+                                  float* __restrict__ out,
+                                  int64_t n, float levels, float inv_levels) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const float step = __fmul_rn(__ldg(scale_p), inv_levels);
+  const float mag = __fmul_rn(fminf(static_cast<float>(idx[e]), levels), step);
+  out[e] = signs[e] ? -mag : mag;
+}
+
+// The library keeps its own (static) CUDA runtime, whose current device is
+// not the caller's: select the tensors' device before each launch.
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+template <typename IdxT>
+int launch_aggregate(const void* idx, const void* signs, const void* coef,
+                     void* out, int64_t k, int64_t n, int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  aggregate_kernel<IdxT><<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const IdxT*>(idx), static_cast<const uint8_t*>(signs),
+      static_cast<const float*>(coef), static_cast<float*>(out), k, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int sq_aggregate_u8(const void* idx, const void* signs, const void* coef,
+                    void* out, int64_t k, int64_t n, int device, void* stream) {
+  return launch_aggregate<uint8_t>(idx, signs, coef, out, k, n, device, stream);
+}
+
+int sq_aggregate_u16(const void* idx, const void* signs, const void* coef,
+                     void* out, int64_t k, int64_t n, int device, void* stream) {
+  return launch_aggregate<uint16_t>(idx, signs, coef, out, k, n, device, stream);
+}
+
+int sq_quantize(const void* x, const void* rbits, const void* scale, void* idx,
+                void* signs, int64_t n, float levels, int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  quantize_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const uint32_t*>(rbits),
+      static_cast<const float*>(scale), static_cast<uint8_t*>(idx),
+      static_cast<uint8_t*>(signs), n, levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sq_dequantize(const void* idx, const void* signs, const void* scale,
+                  void* out, int64_t n, float levels, float inv_levels, int device,
+                  void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dequantize_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(signs),
+      static_cast<const float*>(scale), static_cast<float*>(out), n, levels, inv_levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* sq_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
