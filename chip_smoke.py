@@ -7,11 +7,15 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
 
   1. environment: card name and power limit, torch/CUDA versions; TF32 off
      for convolutions and matmuls (parity is checked in full fp32);
-  2. build the CUDA kernel library from ``src/repro_torch/kernels/csrc``
-     (into ``build/repro_torch_kernels/``);
+  2. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+     (one nvcc per source, all at once, into ``build/repro_torch_kernels/``);
   3. every kernel against its plain torch version on the card, at the
-     shapes of the paths below: max abs error, and CUDA-event times beside
-     the byte bound and the plain version's time;
+     shapes of the paths below: max abs error, and times beside the bound,
+     the plain version's time and, for flash attention, the time of
+     ``scaled_dot_product_attention`` on the same inputs (timed only; the
+     port never calls it). Flash attention is checked in bf16 and fp32 at
+     Llama-3-8B's serve shape, StarCoder2-7B's heads with its 4096 window
+     at S = 8192, and a non-causal ragged shape;
   4. the main path: ``build_sim("femnist", n_clients=1024, n_channels=8)``
      on the card, 5 QCCF rounds of ``run_compiled`` at the full FEMNIST
      CNN width (Z = 246,590), with ``aggregate`` launched once per round;
@@ -19,7 +23,16 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      on the card and on the CPU) and a profile of one round;
   5. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
      parameters at q = 4, round-trip error against scale / (2^q - 1);
-  6. one JSON line with each kernel's launches, error and times.
+  6. the serve path (after the FEMNIST sim is freed): ``serve.generate`` on
+     Llama-3-8B at full width and depth (32 layers, random bf16 weights from
+     a seed) with ``attn_impl="flash"``, batch 4, a 4096-token context from
+     ``np.random.default_rng(0)`` and 32 new tokens; the flash kernel runs
+     once per layer of the prefill. Then a two-layer prefill at full width
+     through the kernel and through the plain version, a profile of one
+     prefill and four decode steps, and a small-input reference (reduced
+     Llama-3-8B, fp32, context 2560, the same weights on the card and on the
+     CPU: identical greedy tokens, logits within 1e-4);
+  7. one JSON line with each kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the repository's sources beside this file, it exits non-zero
@@ -27,6 +40,8 @@ before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -37,7 +52,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 dense tensor cores
 FEMNIST_U, FEMNIST_C, ROUNDS = 1024, 8, 5
+SERVE_ARCH, SERVE_BATCH, SERVE_CONTEXT, SERVE_NEW = "llama3_8b", 4, 4096, 32
 
 
 class SmokeFailure(Exception):
@@ -82,7 +99,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 SCOPES = ("kkt_solve", "fleet_local_sgd", "cuda_aggregate", "cuda_quantize",
-          "cuda_dequantize")
+          "cuda_dequantize", "cuda_flash_attention")
 
 
 def _is_device(e) -> bool:
@@ -112,10 +129,10 @@ def kernel_ms(fn, kernel: str, iters: int = 200) -> float:
     return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
     """Least time on the card in ms, and what bounds it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -147,13 +164,16 @@ def environment():
 def build_kernels():
     from repro_torch.kernels import build
 
-    path, seconds, log = build.build()
-    build.library()
-    print(f"kernel library {path.relative_to(ROOT)} built in {seconds:.2f} s "
-          f"(0 = reused)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    built = build.build()
+    print(f"{len(built)} kernel libraries in {time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    for name, (path, seconds, log) in built.items():
+        build.library(name)
+        print(f"kernel library {path.relative_to(ROOT)} built in {seconds:.2f} s "
+              f"(0 = reused)")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
 
 
 def _agg_inputs(k: int, m: int, q_max: int, dtype, gen):
@@ -261,7 +281,6 @@ def kernels_vs_plain(zpad: int, wire_m: int):
 def main_path():
     import numpy as np
     import torch
-    from repro_torch.kernels import stochastic_quant as sq
     from repro_torch.sim import build_sim
 
     t0 = time.perf_counter()
@@ -273,9 +292,9 @@ def main_path():
           f"{sim.fleet.x.numel() * 4 / 1e9:.2f} GB, tau={sim.sysp.tau}")
     require(sim.z == 246590, f"FEMNIST CNN width Z={sim.z}, want 246590")
     sim.run_compiled(1)   # warm-up: cuDNN heuristics, allocator
-    sq.reset_launches()
+    _reset_all_launches()
     res = sim.run_compiled(ROUNDS)
-    launches = dict(sq.launches)
+    launches = _all_launches()
     sec = sim.run_seconds / ROUNDS
     for n in range(ROUNDS):
         q = res.q_levels[n]
@@ -418,23 +437,7 @@ def _drift_source(gs, cs):
 
 @phase("profile of one main-path round")
 def profile_round(sim):
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.run_compiled(1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kernels = [e for e in events if _is_device(e)]
-    total = sum(e.self_device_time_total for e in kernels)
-    print(f"profile: wall {wall * 1e3:.2f} ms, device kernel time {total / 1e3:.2f} ms "
-          f"(busy share {total / 1e3 / (wall * 1e3):.3f} under the profiler), "
-          f"{sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    _, prof = _profiled("FEMNIST round", lambda: sim.run_compiled(1), top=12)
     spans = {}
     for e in prof.events():
         if e.name in SCOPES and not str(e.device_type).endswith("CUDA"):
@@ -448,14 +451,13 @@ def wire_entry(sim):
     import torch
     from repro_torch import tree as tree_util
     from repro_torch.kernels import ops
-    from repro_torch.kernels import stochastic_quant as sq
 
     params = sim.unravel(sim.final_flat)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    sq.reset_launches()
+    _reset_all_launches()
     deq, scale = ops.quantize_pytree_kernel(params, 4, generator=gen)
     torch.cuda.synchronize()
-    launches = dict(sq.launches)
+    launches = _all_launches()
     err = max((a - b).abs().max().item()
               for a, b in zip(tree_util.leaves(deq), tree_util.leaves(params)))
     step = scale.item() / (2**4 - 1)
@@ -467,6 +469,283 @@ def wire_entry(sim):
     return launches
 
 
+# ---------------------------------------------------------- flash attention
+
+# Tolerances of the flash kernel against its plain version on the same
+# inputs. fp32: both sum in fp32, in another order (64-key tiles and FMAs
+# against 512-key blocks and matmuls). bf16: the fp32 results then round to
+# bf16, and may land on neighbouring values: one ulp, <= 2^-7 relative.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0**-7, 1e-6)}   # (rtol, atol)
+FLASH_SHAPES = [
+    # name, B, S, T, H, KV, hd, causal, window
+    ("llama3_8b serve", 4, 4096, 4096, 32, 8, 128, True, 0),
+    ("starcoder2_7b window", 1, 8192, 8192, 36, 4, 128, True, 4096),
+    ("non-causal ragged", 2, 1000, 1537, 16, 2, 112, False, 0),
+]
+
+
+def visible_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(q, k) pairs the mask admits: the work these inputs need."""
+    import numpy as np
+
+    q = np.arange(s, dtype=np.int64)
+    hi = np.minimum(q, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@phase("flash attention kernel vs plain on the card")
+def flash_vs_plain():
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    report = None
+    for name, b, s, t, h, kv, hd, causal, window in FLASH_SHAPES:
+        base = [0.3 * torch.randn(shape, generator=gen, device="cuda")
+                for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd))]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in base)
+            kw = dict(causal=causal, window=window)
+            out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+            want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs()
+            rtol, atol = FLASH_TOL[str(dtype)[6:]]
+            require(bool((err <= atol + rtol * want.float().abs()).all()),
+                    f"flash {name} {dtype}: max abs err {err.max().item():.3e} over "
+                    f"rtol {rtol:g} atol {atol:g}")
+            lse_err = (lse - want_lse).abs()
+            require(bool((lse_err <= 2e-5 + 2e-5 * want_lse.abs()).all()),
+                    f"flash {name} {dtype}: lse max abs err {lse_err.max().item():.3e}")
+            pairs = visible_pairs(s, t, causal, window)
+            esz = q.element_size()
+            b_ms, b_by = bound((q.numel() + k.numel() + v.numel() + out.numel()) * esz,
+                               4.0 * b * h * hd * pairs,
+                               BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            call = lambda: fa.flash_attention(q, k, v, **kw)
+            k_ms = kernel_ms(call, "flash_fwd_kernel", iters=5)
+            p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2, warmup=1)
+            print(f"flash {name} B={b} S={s} T={t} H={h}/{kv} hd={hd} causal={causal} "
+                  f"window={window} {str(dtype)[6:]}: max_abs_err={err.max().item():.3e} "
+                  f"(tol rtol {rtol:g} atol {atol:g}), lse err {lse_err.max().item():.3e}; "
+                  f"kernel {k_ms:.3f} ms (profiler), bound {b_ms:.3f} ms ({b_by}), "
+                  f"plain {p_ms:.3f} ms (events)", flush=True)
+            if name == "llama3_8b serve" and dtype == torch.bfloat16:
+                # the library yardstick: one PyTorch call, same bf16 tensors,
+                # timed here only
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                lib_ms = cuda_ms(sdpa, 20)
+                print(f"  scaled_dot_product_attention (is_causal, enable_gqa): {lib_ms:.3f} ms "
+                      "(events)")
+                report = dict(max_abs_err=err.max().item(), ms=k_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            del q, k, v, out, lse, want, want_lse, err
+        del base
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------- serve path
+
+def _reset_all_launches():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stochastic_quant as sq
+
+    sq.reset_launches()
+    fa.reset_launches()
+
+
+def _all_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stochastic_quant as sq
+
+    return {**sq.launches, **fa.launches}
+
+
+@phase("serve path: llama3_8b full width and depth, flash prefill, B=4, context 4096, "
+       "32 new tokens")
+def serve_path():
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), attn_impl="flash")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, 0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_util.leaves(params))
+    print(f"init_params: {n_params} parameters, matrices in {cfg.dtype}, "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "allocated on the card")
+    # the analytic count leaves out the final norm's d_model scales
+    require(n_params == cfg.param_count() + cfg.d_model,
+            f"{n_params} parameters, want {cfg.param_count()} + {cfg.d_model}")
+    ctx = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_CONTEXT))
+    warm = serve.generate(cfg, params, ctx, 1)   # allocator, cuBLAS handles
+    print(f"warm-up generate (1 new token): prefill {warm.prefill_seconds:.3f} s")
+    _reset_all_launches()
+    gen = serve.generate(cfg, params, ctx, SERVE_NEW)
+    launches = _all_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(launches["flash_attention"] == cfg.n_layers,
+            f"flash_attention launched {launches['flash_attention']} times in one prefill of "
+            f"{cfg.n_layers} layers")
+    require(tuple(gen.tokens.shape) == (SERVE_BATCH, SERVE_NEW + 1),
+            f"tokens {tuple(gen.tokens.shape)}")
+    require(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()), "token out of range")
+    require(bool(torch.isfinite(gen.logits).all()), "non-finite logits")
+    require(bool(torch.equal(gen.tokens[:, 0], warm.tokens[:, 0])),
+            "the two prefills' greedy tokens differ")
+    tok_s = SERVE_NEW * SERVE_BATCH / gen.decode_seconds
+    print(f"prefill {SERVE_BATCH} x {SERVE_CONTEXT} tokens: {gen.prefill_seconds:.4f} s "
+          f"({SERVE_BATCH * SERVE_CONTEXT / gen.prefill_seconds:.0f} tok/s); decode "
+          f"{SERVE_NEW} tokens x {SERVE_BATCH} requests: {gen.decode_seconds:.4f} s "
+          f"({tok_s:.2f} tok/s, {gen.decode_seconds / SERVE_NEW * 1e3:.2f} ms/step); "
+          f"peak memory {peak:.2f} GB (max_memory_allocated)")
+    print(f"launches in the serve path: {launches}")
+    print(f"req0 tokens: {gen.tokens[0, :16].tolist()}")
+    return cfg, params, ctx, launches, dict(prefill_s=gen.prefill_seconds, decode_tok_s=tok_s,
+                                            peak_gb=peak)
+
+
+# The two-layer prefill's logits through the kernel and through the plain
+# version: the graphs differ only in attention, whose fp32 results agree to
+# ~1e-7 and so round to the same or a neighbouring bf16 value (one ulp,
+# <= 2^-7 relative). Those ulps pass through two layers of bf16 matmuls and
+# norms into fp32 logits of magnitude ~1; we hold the logits to 2^-6 of
+# their largest magnitude, a few bf16 ulps at that scale. A planted fault
+# (the plain version with the GQA head map shifted by one KV head) must
+# land above that limit, or the check could not tell a wrong attention.
+TWO_LAYER_REL = 2.0**-6
+
+
+@phase("two-layer prefill at full width: kernel vs plain flash on the card")
+def two_layer_prefill(cfg, params, ctx):
+    from unittest import mock
+
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = {**params, "layers": tree_util.map(lambda t: t[:2], params["layers"])}
+    batch = {"tokens": torch.as_tensor(ctx, device="cuda")}
+    fa.reset_launches()
+    got, _ = decode.prefill(cfg2, p2, batch, SERVE_CONTEXT)
+    require(fa.launches["flash_attention"] == 2, f"kernel launches {fa.launches}")
+    with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
+        want, _ = decode.prefill(cfg2, p2, batch, SERVE_CONTEXT)
+
+    def shifted_heads(q, k, v, **kw):
+        # planted fault: query head h reads KV head h // g - 1 (mod KV)
+        return fa.flash_attention_plain(q, k.roll(1, dims=2), v.roll(1, dims=2), **kw)
+
+    with mock.patch.object(fa, "flash_attention", shifted_heads):
+        wrong, _ = decode.prefill(cfg2, p2, batch, SERVE_CONTEXT)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all() and torch.isfinite(want).all()), "non-finite logits")
+    err = (got - want).abs().max().item()
+    fault = (wrong - want).abs().max().item()
+    scale = want.abs().max().item()
+    limit = TWO_LAYER_REL * scale
+    require(err <= limit, f"two-layer logits differ by {err:.3e}, above 2^-6 x {scale:.3f}")
+    require(fault > limit,
+            f"a shifted GQA head map moves the logits by only {fault:.3e} <= {limit:.3e}: "
+            "the two-layer check cannot tell a wrong attention")
+    print(f"two-layer prefill logits (fp32, B={SERVE_BATCH}, V={cfg.vocab}): kernel vs plain "
+          f"max abs {err:.3e}, mean abs {(got - want).abs().mean().item():.3e}, "
+          f"max |logit| {scale:.3f}, tolerance {limit:.3e}; argmax equal on "
+          f"{(got.argmax(-1) == want.argmax(-1)).sum().item()}/{SERVE_BATCH} rows; "
+          f"planted fault (GQA head map shifted) vs plain max abs {fault:.3e}")
+
+
+@phase("profile of one serve prefill and 4 decode steps")
+def profile_serve(cfg, params, ctx):
+    import torch
+    from repro_torch.models import decode
+
+    batch = {"tokens": torch.as_tensor(ctx, device="cuda")}
+    (logits, cache), _ = _profiled(
+        "prefill", lambda: decode.prefill(cfg, params, batch, SERVE_CONTEXT + 4))
+
+    def steps(tok):
+        for _ in range(4):
+            tok = decode.decode_step(cfg, params, cache, tok)[0].argmax(-1)
+
+    _profiled("decode x4", lambda: steps(logits.argmax(-1)))
+
+
+def _profiled(label: str, fn, top: int = 8):
+    """Run ``fn`` once under the profiler; print wall time, device kernel
+    time, busy share and the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if _is_device(e)]
+    total = sum(e.self_device_time_total for e in kernels)
+    print(f"profile {label}: wall {wall * 1e3:.2f} ms, device kernel time {total / 1e3:.2f} ms "
+          f"(busy share {total / 1e3 / (wall * 1e3):.3f} under the profiler), "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return out, prof
+
+
+# The small-input reference: the same fp32 weights and context through the
+# card (flash kernel, cuBLAS in full fp32) and the CPU (plain version). Both
+# sum in fp32 in other orders; torch on the CPU and the JAX package agree to
+# 2e-6 on these logits (|logit| < 3), so 1e-4 leaves a wide margin while
+# staying far below any bf16 effect (2^-8 ~ 4e-3 relative).
+SMALL_LOGIT_ATOL = 1e-4
+
+
+@phase("small-input reference: reduced llama3_8b, flash, fp32, context 2560, card vs CPU")
+def serve_small_reference():
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(reduce_config(get_config(SERVE_ARCH)), attn_impl="flash")
+    params_cpu = model.init_params(cfg, 0, device="cpu")
+    params_gpu = tree_util.map(lambda t: t.to("cuda"), params_cpu)
+    ctx = np.random.default_rng(1).integers(0, cfg.vocab, (2, 2560))
+    fa.reset_launches()
+    g = serve.generate(cfg, params_gpu, ctx, 8)
+    require(fa.launches["flash_attention"] == cfg.n_layers,
+            f"flash_attention launched {fa.launches['flash_attention']} times in the prefill")
+    c = serve.generate(cfg, params_cpu, ctx, 8, device="cpu")
+    require(torch.equal(g.tokens.cpu(), c.tokens),
+            f"greedy tokens differ: card {g.tokens.tolist()} vs CPU {c.tokens.tolist()}")
+    fwd_g = model.forward_logits(cfg, params_gpu, {"tokens": torch.as_tensor(ctx, device="cuda")})
+    fwd_c = model.forward_logits(cfg, params_cpu, {"tokens": torch.as_tensor(ctx)})
+    err_fwd = (fwd_g.cpu() - fwd_c).abs().max().item()
+    err_last = (g.logits.cpu() - c.logits).abs().max().item()
+    require(max(err_fwd, err_last) <= SMALL_LOGIT_ATOL,
+            f"card vs CPU logits differ by {max(err_fwd, err_last):.3e} > {SMALL_LOGIT_ATOL}")
+    print(f"card vs CPU (B=2, context 2560, chunk {cfg.chunk_size}, 8 greedy steps): tokens "
+          f"identical, prefill logits max abs {err_fwd:.3e}, last-step logits max abs "
+          f"{err_last:.3e} (tolerance {SMALL_LOGIT_ATOL:g}, max |logit| "
+          f"{c.logits.abs().max().item():.3f})")
+
+
 def main() -> int:
     import torch
 
@@ -476,25 +755,40 @@ def main() -> int:
     zpad = 1984 * 128              # FEMNIST Z = 246,590 in 64-row tiles
     wire_m = 2048                  # FEMNIST Z in 256-row tiles of 128 lanes
     report = kernels_vs_plain(zpad, wire_m)
+    report["flash_attention"] = flash_vs_plain()
     sim, main_launches = main_path()
     small_reference()
     profile_round(sim)
     wire_launches = wire_entry(sim)
+    del sim                        # its 5.33 GB fleet tensor, before the 8B model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params, ctx, serve_launches, _serve = serve_path()
+    two_layer_prefill(cfg, params, ctx)
+    profile_serve(cfg, params, ctx)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_small_reference()
 
-    source = "src/repro_torch/kernels/csrc/stochastic_quant.cu"
+    sources = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     replaces = {
         "aggregate": "src/repro/kernels/stochastic_quant.py:172",
         "quantize": "src/repro/kernels/stochastic_quant.py:49",
         "dequantize": "src/repro/kernels/stochastic_quant.py:97",
+        "flash_attention": "src/repro/kernels/flash_attention.py:183",
     }
     launches = {"aggregate": main_launches["aggregate"],
                 "quantize": wire_launches["quantize"],
-                "dequantize": wire_launches["dequantize"]}
+                "dequantize": wire_launches["dequantize"],
+                "flash_attention": serve_launches["flash_attention"]}
     kernels = [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
-         "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None}
+        {"name": name, "route": "cuda",
+         "source": sources.get(name, "src/repro_torch/kernels/csrc/stochastic_quant.cu"),
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r.get("library_ms")}
         for name, r in report.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,261 @@
+"""Blockwise flash attention: the CUDA kernel and its plain torch version.
+
+The port of ``repro.kernels.flash_attention``'s Pallas TPU kernel
+(``flash_attention_pallas``). One function, in the JAX package's layouts:
+
+  q   : (B, S, H, hd)     bf16 or fp32
+  k, v: (B, T, KV, hd)    H a multiple of KV (GQA: query head h reads KV
+                          head h // (H // KV); K/V are never expanded)
+  out : (B, S, H, hd)     in q's dtype; with ``with_lse`` also
+  lse : (B, S, H)         fp32 log-sum-exp of each row's scaled scores
+
+with causal and/or sliding-window masking (a key k is visible to query q iff
+``k <= q`` when causal and ``k > q - window`` when ``window > 0``), online
+softmax in fp32 with the finite ``NEG_INF = -1e30`` and p-masking, so a
+fully masked row writes 0.
+
+``flash_attention_plain`` is the XLA twin's block schedule and math in
+torch (``flash_attention_xla``: GQA by row folding, fully visible blocks
+first without a mask, then the edge blocks with it), with s, m, l and the
+accumulator in fp32; it also takes ragged S and T by masking the padded
+keys. ``flash_attention`` is the wrapper: for CUDA tensors it launches the
+kernel in ``csrc/flash_attention.cu`` (its own 64 x 64 tiles) or raises,
+for CPU tensors it runs the plain version at the default block;
+``launches`` counts kernel launches only.
+The ring variant and ``merge_partials`` belong to the distribution work.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.obs.profile import scope as _profile_scope
+
+NEG_INF = -1e30  # finite, matching dense_attention (no inf - inf NaNs)
+DEFAULT_BLOCK = 512
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_MAX_HEAD_DIM = 128
+
+# kernel launches since the last reset_launches(); the CPU path never counts
+launches = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# ------------------------------------------------------------ block ranges
+
+def kv_block_range(
+    qi: int, *, block_q: int, block_k: int, nk: int,
+    causal: bool, window: int, q_offset: int = 0, k_offset: int = 0,
+) -> tuple[int, int]:
+    """Half-open KV-block range ``[lo, hi)`` visible to q-block ``qi``.
+
+    Static-offset form of the masking geometry shared by every
+    implementation (and by ``layers.chunked_attention``'s skip path):
+    a KV block is visited iff it contains ANY (q, k) pair with
+    ``k <= q`` (causal) and ``k > q - window`` (window > 0). Also the
+    unit under test for the masked-compute-count satellite.
+    """
+    q_first = q_offset + qi * block_q
+    q_last = q_first + block_q - 1
+    lo, hi = 0, nk
+    if causal:
+        # last visible k position is q_last
+        hi = min(nk, (q_last - k_offset) // block_k + 1)
+    if window:
+        # first visible k position is q_first - window + 1
+        lo = max(0, (q_first - window + 1 - k_offset) // block_k)
+    return (lo, max(lo, hi))
+
+
+def visited_block_counts(
+    nq: int, *, block_q: int, block_k: int, nk: int,
+    causal: bool, window: int,
+) -> int:
+    """Total KV blocks visited across all q blocks (test/bench helper)."""
+    return sum(
+        hi - lo
+        for lo, hi in (
+            kv_block_range(qi, block_q=block_q, block_k=block_k, nk=nk,
+                           causal=causal, window=window)
+            for qi in range(nq)
+        )
+    )
+
+
+# ------------------------------------------------------------ plain version
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(
+            "flash_attention: q must be (B, S, H, hd) and k, v (B, T, KV, hd), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(
+            f"flash_attention: batch or head dim differ: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        raise ValueError(
+            f"flash_attention: {q.shape[2]} query heads are not a multiple of "
+            f"{k.shape[2]} KV heads")
+    if window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+
+
+def _pad_positions(x: torch.Tensor, n_blocks: int, block: int) -> torch.Tensor:
+    """(B, L, ...) -> zero-padded to n_blocks * block positions."""
+    pad = n_blocks * block - x.shape[1]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))], dim=1)
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    block_q: int = DEFAULT_BLOCK, block_k: int = DEFAULT_BLOCK,
+    causal: bool = True, window: int = 0, with_lse: bool = False,
+):
+    """Plain torch flash attention on any device: the XLA twin's schedule.
+
+    GQA by row folding: the g query heads sharing a KV head become
+    ``g * block_q`` rows of one (B, KV)-batched matmul against the
+    un-expanded K/V block. For each q block the fully visible KV blocks of
+    ``kv_block_range`` run first without a mask, then the edge blocks with
+    the element mask and p-masking, in fp32 (bf16 operands widen exactly).
+    S and T need not divide the blocks: padded keys are masked, padded
+    queries dropped.
+    """
+    _check_shapes(q, k, v, window)
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    nq, nk = math.ceil(s / block_q), math.ceil(t / block_k)
+    scale = hd ** -0.5
+    dev = q.device
+
+    qf = (_pad_positions(q.float(), nq, block_q)
+          .reshape(b, nq, block_q, kvh, g, hd)
+          .permute(0, 1, 3, 4, 2, 5)
+          .reshape(b, nq, kvh, g * block_q, hd))
+    kt, vt = (_pad_positions(x.float(), nk, block_k)
+              .reshape(b, nk, block_k, kvh, hd).permute(0, 3, 1, 2, 4) for x in (k, v))
+
+    def step(q_blk, kj, carry, mask):
+        m, l, acc = carry                              # (b, kvh, g*bq[, hd])
+        sc = torch.matmul(q_blk, kt[:, :, kj].transpose(-1, -2)) * scale
+        if mask is not None:
+            sc = torch.where(mask, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)
+        corr = torch.exp(m - m_new)
+        return (m_new, l * corr + p.sum(dim=-1),
+                acc * corr[..., None] + torch.matmul(p, vt[:, :, kj]))
+
+    parts = []
+    for qi in range(nq):
+        q_first = qi * block_q
+        q_last = q_first + block_q - 1
+        q_pos = torch.arange(q_first, q_first + block_q, device=dev)
+
+        def is_full(kj):
+            k_first = kj * block_k
+            k_last = k_first + block_k - 1
+            return (k_last < t and (not causal or k_last <= q_first)
+                    and (not window or k_first > q_last - window))
+
+        lo, hi = kv_block_range(qi, block_q=block_q, block_k=block_k, nk=nk,
+                                causal=causal, window=window)
+        carry = (torch.full((b, kvh, g * block_q), NEG_INF, device=dev),
+                 torch.zeros((b, kvh, g * block_q), device=dev),
+                 torch.zeros((b, kvh, g * block_q, hd), device=dev))
+        for kj in range(lo, hi):
+            if is_full(kj):
+                carry = step(qf[:, qi], kj, carry, None)
+        for kj in range(lo, hi):
+            if not is_full(kj):
+                k_pos = torch.arange(kj * block_k, (kj + 1) * block_k, device=dev)
+                mask = k_pos[None, :] < t
+                if causal:
+                    mask = mask & (k_pos[None, :] <= q_pos[:, None])
+                if window:
+                    mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+                carry = step(qf[:, qi], kj, carry, mask.expand(block_q, block_k).repeat(g, 1))
+        parts.append(carry)
+
+    def stitch(xs):
+        # nq x (b, kvh, g*bq[, hd]) -> (b, s, h[, hd]); row r of the folded
+        # axis is head r // bq of the group at position r % bq
+        y = torch.stack(xs, dim=1)                   # (b, nq, kvh, g*bq[, hd])
+        tail = tuple(y.shape[4:])
+        y = y.reshape((b, nq, kvh, g, block_q) + tail)
+        y = y.permute((0, 1, 4, 2, 3) + tuple(5 + i for i in range(len(tail))))
+        return y.reshape((b, nq * block_q, h) + tail)[:, :s]
+
+    m = stitch([p[0] for p in parts])
+    l = torch.clamp(stitch([p[1] for p in parts]), min=1e-30)
+    acc = stitch([p[2] for p in parts])
+    out = (acc / l[..., None]).to(q.dtype)
+    if with_lse:
+        return out, m + torch.log(l)
+    return out
+
+
+# ------------------------------------------------------------ the kernel
+
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != q.dtype or x.dtype not in KERNEL_DTYPES:
+            raise TypeError(
+                f"flash_attention: the kernel takes fp32 or bf16 q, k, v of one dtype, got "
+                f"{q.dtype}, {k.dtype}, {v.dtype}")
+        if x.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs unit stride on the head dim")
+    if q.shape[3] > KERNEL_MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: the kernel takes head dims up to {KERNEL_MAX_HEAD_DIM}, "
+            f"got {q.shape[3]}")
+    if q.shape[0] * q.shape[2] > 65535:
+        raise ValueError(
+            f"flash_attention: batch * heads = {q.shape[0] * q.shape[2]} exceeds the grid's 65535")
+    if max(q.shape[1], k.shape[1]) >= 2**31 - 64:
+        raise ValueError("flash_attention: sequence lengths must fit int32 positions")
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: int = 0, with_lse: bool = False,
+):
+    """Flash attention (module docstring): the CUDA kernel for tensors on
+    the card (fp32 or bf16, hd <= 128; anything else raises), the plain
+    version for tensors on the CPU."""
+    _check_shapes(q, k, v, window)
+    if not build.route("flash_attention", q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, window=window, with_lse=with_lse)
+    _check_kernel_inputs(q, k, v)
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device) if with_lse else None
+    if out.numel():
+        lib = build.library("flash_attention")
+        with _profile_scope("cuda_flash_attention"):
+            err = lib.fa_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+                v.stride(0), v.stride(1), v.stride(2),
+                b, s, t, h, kvh, hd, int(causal), int(window), float(np.float32(hd ** -0.5)),
+                int(q.dtype == torch.bfloat16), q.device.index or 0, build.stream(q.device),
+            )
+        build.check("flash_attention", "flash_attention", err)
+        launches["flash_attention"] += 1
+    if with_lse:
+        return out, lse
+    return out

@@ -71,24 +71,6 @@ def _check_scale(name: str, scale: torch.Tensor) -> None:
         )
 
 
-def _route(name: str, *tensors: torch.Tensor) -> bool:
-    """True -> launch the CUDA kernel, False -> the plain version (CPU).
-    Mixed devices, or a device that is neither, raise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs are on several devices {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    return True
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 # ---------------------------------------------------------------- quantize
 
 def quantize_plain(x: torch.Tensor, rbits: torch.Tensor, scale: torch.Tensor,
@@ -119,19 +101,19 @@ def quantize(x: torch.Tensor, rbits: torch.Tensor, scale: torch.Tensor,
     _check_plane("quantize", "x", x, (torch.float32,))
     _check_plane("quantize", "rbits", rbits, (torch.uint32,), x.shape)
     _check_scale("quantize", scale)
-    if not _route("quantize", x, rbits, scale):
+    if not build.route("quantize", x, rbits, scale):
         return quantize_plain(x, rbits, scale, q_bits)
     idx = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     signs = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     if x.numel():
-        lib = build.library()
+        lib = build.library("stochastic_quant")
         with _profile_scope("cuda_quantize"):
             err = lib.sq_quantize(
                 x.data_ptr(), rbits.data_ptr(), scale.data_ptr(), idx.data_ptr(),
                 signs.data_ptr(), x.numel(), float(2.0**q_bits - 1.0),
-                x.device.index or 0, _stream(x.device),
+                x.device.index or 0, build.stream(x.device),
             )
-        build.check(lib, "quantize", err)
+        build.check("stochastic_quant", "quantize", err)
         launches["quantize"] += 1
     return idx, signs
 
@@ -166,18 +148,18 @@ def dequantize(idx: torch.Tensor, signs: torch.Tensor, scale: torch.Tensor,
     _check_plane("dequantize", "idx", idx, (torch.uint8,))
     _check_plane("dequantize", "signs", signs, (torch.uint8,), idx.shape)
     _check_scale("dequantize", scale)
-    if not _route("dequantize", idx, signs, scale):
+    if not build.route("dequantize", idx, signs, scale):
         return dequantize_plain(idx, signs, scale, q_bits)
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     if idx.numel():
-        lib = build.library()
+        lib = build.library("stochastic_quant")
         with _profile_scope("cuda_dequantize"):
             err = lib.sq_dequantize(
                 idx.data_ptr(), signs.data_ptr(), scale.data_ptr(), out.data_ptr(),
                 idx.numel(), float(2.0**q_bits - 1.0), _inv_levels(q_bits),
-                idx.device.index or 0, _stream(idx.device),
+                idx.device.index or 0, build.stream(idx.device),
             )
-        build.check(lib, "dequantize", err)
+        build.check("stochastic_quant", "dequantize", err)
         launches["dequantize"] += 1
     return out
 
@@ -240,18 +222,18 @@ def aggregate(idx: torch.Tensor, signs: torch.Tensor, scales: torch.Tensor,
     :func:`plane_in_range` first).
     """
     _check_aggregate(idx, signs, scales, weights)
-    if not _route("aggregate", idx, signs, scales, weights):
+    if not build.route("aggregate", idx, signs, scales, weights):
         return aggregate_plain(idx, signs, scales, weights, q_bits)
     k = idx.shape[0]
     coef = aggregate_coef(scales, weights, q_bits, k)
     out = torch.empty(idx.shape[1:], dtype=torch.float32, device=idx.device)
     n = out.numel()
     if n:
-        lib = build.library()
+        lib = build.library("stochastic_quant")
         fn = lib.sq_aggregate_u8 if idx.dtype == torch.uint8 else lib.sq_aggregate_u16
         with _profile_scope("cuda_aggregate"):
             err = fn(idx.data_ptr(), signs.data_ptr(), coef.data_ptr(), out.data_ptr(),
-                     k, n, idx.device.index or 0, _stream(idx.device))
-        build.check(lib, "aggregate", err)
+                     k, n, idx.device.index or 0, build.stream(idx.device))
+        build.check("stochastic_quant", "aggregate", err)
         launches["aggregate"] += 1
     return out

@@ -3,6 +3,7 @@
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,7 +29,9 @@ def _imports(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/sim/engine.py",
-                 "src/repro_torch/kernels/stochastic_quant.py"):
+                 "src/repro_torch/kernels/stochastic_quant.py",
+                 "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/launch/serve.py"):
         assert must in names
 
 
@@ -46,8 +49,11 @@ def test_forbidden_rule_catches_the_reference():
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the no-CUDA guard cannot be exercised")
+    from repro_torch.configs import get_reduced
     from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
     from repro_torch.models import cnn
+    from repro_torch.models import model
     from repro_torch.sim import build_sim
 
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -56,4 +62,13 @@ def test_entry_points_raise_without_cuda():
         build_sim("tiny", n_clients=4, n_channels=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cnn.init_params(cnn.TINY_CNN, 0)
+    cfg = get_reduced("llama3_8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.params_from_numpy({"final_norm": {"scale": np.ones(4, np.float32)}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.generate(cfg, {}, np.zeros((1, 4), np.int64), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--new-tokens", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,4 +1,5 @@
-"""The CUDA wire kernels against their plain torch versions on the card.
+"""The CUDA kernels (wire kernels, flash attention) against their plain
+torch versions on the card.
 
 Needs a CUDA device and nvcc (the library is built at first use); every
 test here skips without a card. Run on the GPU machine with
@@ -8,6 +9,7 @@ No JAX: the card's machine does not have it.
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import stochastic_quant as sq
 
@@ -66,3 +68,56 @@ def test_cuda_wrappers_reject_mixed_devices(cuda):
     rbits = torch.zeros((256, 128), dtype=torch.int32).view(torch.uint32)
     with pytest.raises(ValueError, match="several devices"):
         sq.quantize(x, rbits, torch.ones(1, device=cuda), 4)
+
+
+# fp32: both sides sum in fp32 in another order (64-key tiles against the
+# plain version's 512-key blocks, FMAs against matmuls); bf16 outputs may
+# then round to neighbouring bf16 values, one ulp <= 2^-7 relative.
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-6)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", [
+    (2, 256, 256, 8, 2, 128, True, 0),       # llama-style GQA 4:1, hd 128
+    (1, 300, 300, 4, 4, 64, True, 100),      # ragged S = T, sliding window
+    (2, 200, 333, 4, 1, 112, False, 0),      # non-causal, ragged S != T, hd 112
+    (1, 130, 70, 6, 3, 32, False, 40),       # window without causality
+    (1, 200, 50, 2, 1, 32, True, 30),        # rows past T + window are fully masked
+], ids=["gqa4", "window", "ragged-noncausal", "window-noncausal", "masked-rows"])
+def test_flash_kernel_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(s + t + h)
+    q = (0.3 * torch.randn((b, s, h, hd), generator=gen, device=cuda)).to(dtype)
+    k = (0.3 * torch.randn((b, t, kv, hd), generator=gen, device=cuda)).to(dtype)
+    v = (0.3 * torch.randn((b, t, kv, hd), generator=gen, device=cuda)).to(dtype)
+    fa.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
+    assert fa.launches["flash_attention"] == 1
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                              with_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_takes_strided_views(cuda):
+    # k/v as per-layer views of a stacked (L, B, T, KV, hd) tensor, q a head slice
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    stack = 0.3 * torch.randn((2, 2, 2, 128, 2, 64), generator=gen, device=cuda)
+    q = (0.3 * torch.randn((2, 128, 8, 64), generator=gen, device=cuda))[:, :, ::2]
+    k, v = stack[1, 0], stack[1, 1]
+    torch.testing.assert_close(fa.flash_attention(q, k, v),
+                               fa.flash_attention_plain(q, k, v), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    fa.reset_launches()
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    big = torch.zeros((1, 64, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="several devices"):
+        fa.flash_attention(q, q.cpu(), q)
+    assert fa.launches["flash_attention"] == 0
