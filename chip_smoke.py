@@ -9,13 +9,18 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      for convolutions and matmuls (parity is checked in full fp32);
   2. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, all at once, into ``build/repro_torch_kernels/``);
+     print ptxas's registers and spills, the wgmma flash kernel's shared
+     memory per CTA and the count of HGMMA (tensor-core) instructions in its
+     SASS, and require HGMMAs and no spills there;
   3. every kernel against its plain torch version on the card, at the
      shapes of the paths below: max abs error, and times beside the bound,
      the plain version's time and, for flash attention, the time of
      ``scaled_dot_product_attention`` on the same inputs (timed only; the
-     port never calls it). Flash attention is checked in bf16 and fp32 at
-     Llama-3-8B's serve shape, StarCoder2-7B's heads with its 4096 window
-     at S = 8192, and a non-causal ragged shape;
+     port never calls it). Flash attention is checked in bf16 (the wgmma
+     kernel) and fp32 (the SIMT kernel) at Llama-3-8B's serve shape,
+     StarCoder2-7B's heads with its 4096 window at S = 8192, and a
+     non-causal ragged shape; at the serve shape bf16 inputs that TMA cannot
+     describe (one element off alignment) time the SIMT kernel beside it;
   4. the main path: ``build_sim("femnist", n_clients=1024, n_channels=8)``
      on the card, 5 QCCF rounds of ``run_compiled`` at the full FEMNIST
      CNN width (Z = 246,590), with ``aggregate`` launched once per round;
@@ -26,12 +31,13 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
   6. the serve path (after the FEMNIST sim is freed): ``serve.generate`` on
      Llama-3-8B at full width and depth (32 layers, random bf16 weights from
      a seed) with ``attn_impl="flash"``, batch 4, a 4096-token context from
-     ``np.random.default_rng(0)`` and 32 new tokens; the flash kernel runs
-     once per layer of the prefill. Then a two-layer prefill at full width
+     ``np.random.default_rng(0)`` and 32 new tokens; the wgmma flash kernel
+     runs once per layer of the prefill. Then a two-layer prefill at full width
      through the kernel and through the plain version, a profile of one
      prefill and four decode steps, and a small-input reference (reduced
      Llama-3-8B, fp32, context 2560, the same weights on the card and on the
-     CPU: identical greedy tokens, logits within 1e-4);
+     CPU: identical greedy tokens, logits within 1e-4; its prefill runs the
+     SIMT flash kernel);
   7. one JSON line with each kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -43,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -174,6 +181,42 @@ def build_kernels():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
+    _wgmma_build_report(*built["flash_attention_wgmma"])
+
+
+def _wgmma_build_report(path: Path, seconds: float, log: str) -> None:
+    """The wgmma flash kernel as built: no spills (from ptxas, when this
+    run built it), its dynamic shared memory per CTA, and the HGMMA
+    instructions in its SASS (cuobjdump of the toolkit that built it)."""
+    from repro_torch.kernels import build
+
+    spills = [line.strip() for line in log.splitlines() if "spill" in line]
+    if seconds > 0:
+        require(spills and all(line.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                "0 bytes spill loads") for line in spills),
+                f"the wgmma flash kernel spills: {spills}")
+    lib = build.library("flash_attention_wgmma")
+    print(f"flash_fwd_wgmma_kernel: dynamic shared memory per CTA "
+          f"{lib.faw_shared_bytes(128)} B (hd 65-128), {lib.faw_shared_bytes(64)} B "
+          f"(hd <= 64); 384 threads, setmaxnreg 240 (two consumer warpgroups) / 24 "
+          f"(producer); spills: {'none' if seconds > 0 else 'not checked (library reused)'}")
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(path)],
+                          capture_output=True, text=True, timeout=300)
+    require(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHGMMA\b", line):
+            counts[fn] += 1
+    kernels = {k: n for k, n in counts.items() if "flash_fwd_wgmma_kernel" in k}
+    require(kernels and all(n > 0 for n in kernels.values()),
+            f"no HGMMA in the wgmma flash kernel's SASS: {counts}")
+    for k, n in kernels.items():
+        print(f"  SASS: {n} HGMMA instructions in {k}")
 
 
 def _agg_inputs(k: int, m: int, q_max: int, dtype, gen):
@@ -471,10 +514,12 @@ def wire_entry(sim):
 
 # ---------------------------------------------------------- flash attention
 
-# Tolerances of the flash kernel against its plain version on the same
-# inputs. fp32: both sum in fp32, in another order (64-key tiles and FMAs
-# against 512-key blocks and matmuls). bf16: the fp32 results then round to
-# bf16, and may land on neighbouring values: one ulp, <= 2^-7 relative.
+# Tolerances of the flash kernels against their plain version on the same
+# inputs. fp32 (SIMT kernel): both sum in fp32, in another order (64-key
+# tiles and FMAs against 512-key blocks and matmuls). bf16 (wgmma kernel):
+# fp32 scores and accumulator, p as two bf16 halves (2^-16 relative), so the
+# fp32 results again differ only in order and rounding, then round to bf16
+# and may land on neighbouring values: one ulp, <= 2^-7 relative.
 FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2.0**-7, 1e-6)}   # (rtol, atol)
 FLASH_SHAPES = [
     # name, B, S, T, H, KV, hd, causal, window
@@ -494,58 +539,114 @@ def visible_pairs(s: int, t: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-@phase("flash attention kernel vs plain on the card")
+# the flash kernel each dtype's route launches (names matched by substring)
+FLASH_KERNELS = {"bfloat16": ("wgmma", "flash_fwd_wgmma_kernel"),
+                 "float32": ("simt", "flash_fwd_kernel")}
+
+
+def _sdpa(q, k, v, causal: bool, window: int):
+    """``scaled_dot_product_attention`` on (B, L, heads, hd) tensors: the
+    same function as the flash kernels (a window as a boolean mask). The
+    library yardstick, timed here only; the port never calls it."""
+    import torch
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = None
+    if window:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = kpos > qpos - window
+        if causal:
+            mask = mask & (kpos <= qpos)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and not window, enable_gqa=True)
+
+
+@phase("flash attention kernels vs plain on the card")
 def flash_vs_plain():
     import torch
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    report = None
+    report = {}
     for name, b, s, t, h, kv, hd, causal, window in FLASH_SHAPES:
         base = [0.3 * torch.randn(shape, generator=gen, device="cuda")
                 for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd))]
         for dtype in (torch.bfloat16, torch.float32):
+            route, kernel = FLASH_KERNELS[str(dtype)[6:]]
             q, k, v = (x.to(dtype) for x in base)
             kw = dict(causal=causal, window=window)
+            fa.reset_launches()
             out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+            require(fa.launches[f"flash_attention_{route}"] == 1,
+                    f"flash {name} {dtype} did not take the {route} route: {fa.launches}")
             want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
             torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs()
-            rtol, atol = FLASH_TOL[str(dtype)[6:]]
-            require(bool((err <= atol + rtol * want.float().abs()).all()),
-                    f"flash {name} {dtype}: max abs err {err.max().item():.3e} over "
-                    f"rtol {rtol:g} atol {atol:g}")
-            lse_err = (lse - want_lse).abs()
-            require(bool((lse_err <= 2e-5 + 2e-5 * want_lse.abs()).all()),
-                    f"flash {name} {dtype}: lse max abs err {lse_err.max().item():.3e}")
+            err, lse_err = _flash_errors(f"flash {name} {dtype}", out, lse, want, want_lse)
             pairs = visible_pairs(s, t, causal, window)
             esz = q.element_size()
             b_ms, b_by = bound((q.numel() + k.numel() + v.numel() + out.numel()) * esz,
                                4.0 * b * h * hd * pairs,
                                BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
             call = lambda: fa.flash_attention(q, k, v, **kw)
-            k_ms = kernel_ms(call, "flash_fwd_kernel", iters=5)
+            k_ms = kernel_ms(call, kernel, iters=5)
             p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2, warmup=1)
+            lib_ms = None
+            if dtype == torch.bfloat16:
+                lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 20)
+            elif name == "llama3_8b serve":
+                lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 3, warmup=1)
             print(f"flash {name} B={b} S={s} T={t} H={h}/{kv} hd={hd} causal={causal} "
-                  f"window={window} {str(dtype)[6:]}: max_abs_err={err.max().item():.3e} "
-                  f"(tol rtol {rtol:g} atol {atol:g}), lse err {lse_err.max().item():.3e}; "
+                  f"window={window} {str(dtype)[6:]} ({route}): max_abs_err={err:.3e} "
+                  f"(tol rtol {FLASH_TOL[str(dtype)[6:]][0]:g} atol "
+                  f"{FLASH_TOL[str(dtype)[6:]][1]:g}), lse err {lse_err:.3e}; "
                   f"kernel {k_ms:.3f} ms (profiler), bound {b_ms:.3f} ms ({b_by}), "
-                  f"plain {p_ms:.3f} ms (events)", flush=True)
-            if name == "llama3_8b serve" and dtype == torch.bfloat16:
-                # the library yardstick: one PyTorch call, same bf16 tensors,
-                # timed here only
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
-                lib_ms = cuda_ms(sdpa, 20)
-                print(f"  scaled_dot_product_attention (is_causal, enable_gqa): {lib_ms:.3f} ms "
-                      "(events)")
-                report = dict(max_abs_err=err.max().item(), ms=k_ms, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-            del q, k, v, out, lse, want, want_lse, err
+                  f"plain {p_ms:.3f} ms (events), scaled_dot_product_attention "
+                  f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'} (events)", flush=True)
+            if name == "llama3_8b serve":
+                report[f"flash_attention_{route}"] = dict(
+                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+                if dtype == torch.bfloat16:
+                    _simt_bf16_beside(q, k, v, kw, want, want_lse)
+            del q, k, v, out, lse, want, want_lse
         del base
     torch.cuda.empty_cache()
     return report
+
+
+def _flash_errors(label, out, lse, want, want_lse) -> tuple[float, float]:
+    """Require a flash result within FLASH_TOL of the plain version and its
+    lse within 2e-5; return both max abs errors."""
+    rtol, atol = FLASH_TOL[str(out.dtype)[6:]]
+    err = (out.float() - want.float()).abs()
+    require(bool((err <= atol + rtol * want.float().abs()).all()),
+            f"{label}: max abs err {err.max().item():.3e} over rtol {rtol:g} atol {atol:g}")
+    lse_err = (lse - want_lse).abs()
+    require(bool((lse_err <= 2e-5 + 2e-5 * want_lse.abs()).all()),
+            f"{label}: lse max abs err {lse_err.max().item():.3e}")
+    return err.max().item(), lse_err.max().item()
+
+
+def _simt_bf16_beside(q, k, v, kw, want, want_lse):
+    """The SIMT kernel on the same bf16 inputs, copied one element off
+    16-byte alignment so that TMA cannot describe them: checked and timed
+    beside the wgmma kernel in this run."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def shifted(x):
+        buf = x.new_empty(x.numel() + 1)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    qs, ks, vs = (shifted(x) for x in (q, k, v))
+    require(fa._kernel_route(qs, ks, vs) == "simt", "shifted bf16 inputs did not route to simt")
+    out, lse = fa.flash_attention(qs, ks, vs, with_lse=True, **kw)
+    err, _ = _flash_errors("flash serve bf16 (simt)", out, lse, want, want_lse)
+    ms = kernel_ms(lambda: fa.flash_attention(qs, ks, vs, **kw), "flash_fwd_kernel", iters=3)
+    print(f"  the SIMT kernel on the same bf16 inputs, misaligned: {ms:.3f} ms (profiler), "
+          f"max_abs_err={err:.3e}", flush=True)
 
 
 # ---------------------------------------------------------------- serve path
@@ -594,9 +695,11 @@ def serve_path():
     gen = serve.generate(cfg, params, ctx, SERVE_NEW)
     launches = _all_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    require(launches["flash_attention"] == cfg.n_layers,
-            f"flash_attention launched {launches['flash_attention']} times in one prefill of "
-            f"{cfg.n_layers} layers")
+    require(launches["flash_attention_wgmma"] == cfg.n_layers
+            and launches["flash_attention_simt"] == 0,
+            f"flash_attention launches in one prefill of {cfg.n_layers} layers: "
+            f"{ {k: v for k, v in launches.items() if k.startswith('flash')} }, want "
+            f"{cfg.n_layers} through wgmma and none through simt")
     require(tuple(gen.tokens.shape) == (SERVE_BATCH, SERVE_NEW + 1),
             f"tokens {tuple(gen.tokens.shape)}")
     require(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()), "token out of range")
@@ -640,7 +743,7 @@ def two_layer_prefill(cfg, params, ctx):
     batch = {"tokens": torch.as_tensor(ctx, device="cuda")}
     fa.reset_launches()
     got, _ = decode.prefill(cfg2, p2, batch, SERVE_CONTEXT)
-    require(fa.launches["flash_attention"] == 2, f"kernel launches {fa.launches}")
+    require(fa.launches["flash_attention_wgmma"] == 2, f"kernel launches {fa.launches}")
     with mock.patch.object(fa, "flash_attention", fa.flash_attention_plain):
         want, _ = decode.prefill(cfg2, p2, batch, SERVE_CONTEXT)
 
@@ -729,8 +832,9 @@ def serve_small_reference():
     ctx = np.random.default_rng(1).integers(0, cfg.vocab, (2, 2560))
     fa.reset_launches()
     g = serve.generate(cfg, params_gpu, ctx, 8)
-    require(fa.launches["flash_attention"] == cfg.n_layers,
-            f"flash_attention launched {fa.launches['flash_attention']} times in the prefill")
+    simt_launches = fa.launches["flash_attention_simt"]
+    require(simt_launches == cfg.n_layers and fa.launches["flash_attention"] == cfg.n_layers,
+            f"flash_attention launches in the fp32 prefill: {fa.launches}")
     c = serve.generate(cfg, params_cpu, ctx, 8, device="cpu")
     require(torch.equal(g.tokens.cpu(), c.tokens),
             f"greedy tokens differ: card {g.tokens.tolist()} vs CPU {c.tokens.tolist()}")
@@ -744,6 +848,7 @@ def serve_small_reference():
           f"identical, prefill logits max abs {err_fwd:.3e}, last-step logits max abs "
           f"{err_last:.3e} (tolerance {SMALL_LOGIT_ATOL:g}, max |logit| "
           f"{c.logits.abs().max().item():.3f})")
+    return simt_launches
 
 
 def main() -> int:
@@ -755,7 +860,7 @@ def main() -> int:
     zpad = 1984 * 128              # FEMNIST Z = 246,590 in 64-row tiles
     wire_m = 2048                  # FEMNIST Z in 256-row tiles of 128 lanes
     report = kernels_vs_plain(zpad, wire_m)
-    report["flash_attention"] = flash_vs_plain()
+    report.update(flash_vs_plain())
     sim, main_launches = main_path()
     small_reference()
     profile_round(sim)
@@ -769,19 +874,25 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    serve_small_reference()
+    fp32_serve_launches = serve_small_reference()
 
-    sources = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+    sources = {"flash_attention_wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+               "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     replaces = {
         "aggregate": "src/repro/kernels/stochastic_quant.py:172",
         "quantize": "src/repro/kernels/stochastic_quant.py:49",
         "dequantize": "src/repro/kernels/stochastic_quant.py:97",
-        "flash_attention": "src/repro/kernels/flash_attention.py:183",
+        "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:183",
+        "flash_attention_simt": "src/repro/kernels/flash_attention.py:183",
     }
+    # each kernel's launches in the run of the path that takes it: the
+    # FEMNIST rounds, the wire entry point, the bf16 serve prefill (wgmma),
+    # the fp32 serve prefill of the small-input reference (simt)
     launches = {"aggregate": main_launches["aggregate"],
                 "quantize": wire_launches["quantize"],
                 "dequantize": wire_launches["dequantize"],
-                "flash_attention": serve_launches["flash_attention"]}
+                "flash_attention_wgmma": serve_launches["flash_attention_wgmma"],
+                "flash_attention_simt": fp32_serve_launches}
     kernels = [
         {"name": name, "route": "cuda",
          "source": sources.get(name, "src/repro_torch/kernels/csrc/stochastic_quant.cu"),

@@ -50,6 +50,14 @@ LIBRARIES = {
         "fa_forward": (_PTR, _PTR, _PTR, _PTR, _PTR, *(_I64,) * 9, *(_INT,) * 8,
                        ctypes.c_float, _INT, _INT, _PTR),
     }),
+    "flash_attention_wgmma": ("faw_error_string", {
+        # q, k, v, out, lse, 3 x 11 tensor-map plans (flash_attention.tma_plan),
+        # batch, s, t, h, kv heads, hd, causal, window, scale, device, stream
+        "faw_forward": (_PTR, _PTR, _PTR, _PTR, _PTR, ctypes.POINTER(_I64), *(_INT,) * 8,
+                        ctypes.c_float, _INT, _PTR),
+        # hd -> dynamic shared memory of one CTA, bytes
+        "faw_shared_bytes": (_INT,),
+    }),
 }
 
 

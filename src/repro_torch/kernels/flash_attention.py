@@ -18,14 +18,29 @@ fully masked row writes 0.
 torch (``flash_attention_xla``: GQA by row folding, fully visible blocks
 first without a mask, then the edge blocks with it), with s, m, l and the
 accumulator in fp32; it also takes ragged S and T by masking the padded
-keys. ``flash_attention`` is the wrapper: for CUDA tensors it launches the
-kernel in ``csrc/flash_attention.cu`` (its own 64 x 64 tiles) or raises,
-for CPU tensors it runs the plain version at the default block;
-``launches`` counts kernel launches only.
-The ring variant and ``merge_partials`` belong to the distribution work.
+keys. ``flash_attention`` is the wrapper: for CPU tensors it runs the
+plain version at the default block; for CUDA tensors it launches one of two
+kernels, chosen before the launch by ``_kernel_route`` (a pure function of
+dtype, strides and data pointers), or raises:
+
+  "wgmma": ``flash_fwd_wgmma_kernel`` (``csrc/flash_attention_wgmma.cu``),
+           bf16 q, k, v that TMA can describe (16-byte aligned base pointers
+           and byte strides): tensor cores fed by TMA, 128 query rows x
+           64 keys per tile;
+  "simt":  ``flash_fwd_kernel`` (``csrc/flash_attention.cu``), fp32, and
+           bf16 that TMA cannot describe: fp32 FMAs, 64 x 64 tiles.
+
+Both keep s, m, l and the accumulator in fp32; the wgmma kernel feeds p to
+the tensor cores as two bf16 halves (``p_hi + p_lo``, 2^-16 relative), so
+the two routes meet the same tolerances against the plain version.
+
+``launches`` counts kernel launches only: ``"flash_attention"`` in total and
+one counter per route. The ring variant and ``merge_partials`` belong to
+the distribution work.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -39,8 +54,16 @@ DEFAULT_BLOCK = 512
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_MAX_HEAD_DIM = 128
 
+# the wgmma kernel's tiles and its TMA boxes (csrc/flash_attention_wgmma.cu
+# checks that the plans it is given match)
+WGMMA_BLOCK_Q = 128
+WGMMA_BLOCK_K = 64
+TMA_BOX_COLS = 64          # bf16 columns of one box: a 128-byte swizzled row
+TMA_ALIGN = 16             # bytes: base pointers and strides of a tensor map
+TMA_MAX_STRIDE = 2**40     # bytes, exclusive
+
 # kernel launches since the last reset_launches(); the CPU path never counts
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_wgmma": 0, "flash_attention_simt": 0}
 
 
 def reset_launches() -> None:
@@ -228,11 +251,53 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> N
         raise ValueError("flash_attention: sequence lengths must fit int32 positions")
 
 
+def tma_strides(x: torch.Tensor) -> tuple[int, int, int]:
+    """Byte strides of (B, L, heads, hd) ``x``'s head, position and batch
+    dims, innermost first, as a tensor map takes them. A dim of size 1 never
+    moves an address, so its stride is replaced by the span of the dims
+    inside it, rounded up to ``TMA_ALIGN`` (torch may give such a dim any
+    stride)."""
+    es = x.element_size()
+    out, span = [], x.shape[3] * es
+    for d in (2, 1, 0):
+        stride = x.stride(d) * es if x.shape[d] != 1 else -(-span // TMA_ALIGN) * TMA_ALIGN
+        out.append(stride)
+        span = max(span, stride * x.shape[d])
+    return tuple(out)
+
+
+def tma_describable(x: torch.Tensor) -> bool:
+    """Whether a tensor map can describe ``x`` as it lies: a 16-byte aligned
+    base pointer, unit stride on hd, and head, position and batch strides
+    that are positive multiples of 16 bytes below 2^40."""
+    return (x.data_ptr() % TMA_ALIGN == 0 and x.stride(3) == 1
+            and all(0 < st < TMA_MAX_STRIDE and st % TMA_ALIGN == 0 for st in tma_strides(x)))
+
+
+def tma_plan(x: torch.Tensor, rows: int) -> tuple[int, ...]:
+    """The 11 integers the wgmma kernel's tensor map of (B, L, heads, hd)
+    ``x`` is encoded from: dims (hd, heads, L, B), byte strides (head,
+    position, batch) and box (64 columns, 1 head, ``rows`` positions,
+    1 batch). Out-of-bounds box elements (ragged L, hd < 64 or 128) read as
+    zeros."""
+    b, n, heads, hd = x.shape
+    return (hd, heads, n, b, *tma_strides(x), TMA_BOX_COLS, 1, rows, 1)
+
+
+def _kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"wgmma"`` for bf16 q, k, v that TMA can describe, else ``"simt"``
+    (fp32, or bf16 with a misaligned pointer or stride). A pure function of
+    dtype, shapes, strides and data pointers; it launches nothing."""
+    if q.dtype == torch.bfloat16 and all(tma_describable(x) for x in (q, k, v)):
+        return "wgmma"
+    return "simt"
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, with_lse: bool = False,
 ):
-    """Flash attention (module docstring): the CUDA kernel for tensors on
+    """Flash attention (module docstring): a CUDA kernel for tensors on
     the card (fp32 or bf16, hd <= 128; anything else raises), the plain
     version for tensors on the CPU."""
     _check_shapes(q, k, v, window)
@@ -244,18 +309,32 @@ def flash_attention(
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel():
-        lib = build.library("flash_attention")
+        route = _kernel_route(q, k, v)
+        scale = float(np.float32(hd ** -0.5))
+        lse_ptr = None if lse is None else lse.data_ptr()
         with _profile_scope("cuda_flash_attention"):
-            err = lib.fa_forward(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(),
-                q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                b, s, t, h, kvh, hd, int(causal), int(window), float(np.float32(hd ** -0.5)),
-                int(q.dtype == torch.bfloat16), q.device.index or 0, build.stream(q.device),
-            )
-        build.check("flash_attention", "flash_attention", err)
+            if route == "wgmma":
+                lib_name = "flash_attention_wgmma"
+                plans = (ctypes.c_int64 * 33)(*tma_plan(q, WGMMA_BLOCK_Q),
+                                              *tma_plan(k, WGMMA_BLOCK_K),
+                                              *tma_plan(v, WGMMA_BLOCK_K))
+                err = build.library(lib_name).faw_forward(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, plans,
+                    b, s, t, h, kvh, hd, int(causal), int(window), scale,
+                    q.device.index or 0, build.stream(q.device),
+                )
+            else:
+                lib_name = "flash_attention"
+                err = build.library(lib_name).fa_forward(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
+                    q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+                    v.stride(0), v.stride(1), v.stride(2),
+                    b, s, t, h, kvh, hd, int(causal), int(window), scale,
+                    int(q.dtype == torch.bfloat16), q.device.index or 0, build.stream(q.device),
+                )
+        build.check(lib_name, f"flash_attention ({route})", err)
         launches["flash_attention"] += 1
+        launches[f"flash_attention_{route}"] += 1
     if with_lse:
         return out, lse
     return out

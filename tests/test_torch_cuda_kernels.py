@@ -70,8 +70,10 @@ def test_cuda_wrappers_reject_mixed_devices(cuda):
         sq.quantize(x, rbits, torch.ones(1, device=cuda), 4)
 
 
-# fp32: both sides sum in fp32 in another order (64-key tiles against the
-# plain version's 512-key blocks, FMAs against matmuls); bf16 outputs may
+# fp32 (SIMT kernel): both sides sum in fp32 in another order (64-key tiles
+# against the plain version's 512-key blocks, FMAs against matmuls). bf16
+# (wgmma kernel): fp32 scores and accumulator with p as two bf16 halves
+# (2^-16 relative), so again only order and rounding differ; bf16 outputs may
 # then round to neighbouring bf16 values, one ulp <= 2^-7 relative.
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-6)}
 
@@ -89,15 +91,61 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal, win
     q = (0.3 * torch.randn((b, s, h, hd), generator=gen, device=cuda)).to(dtype)
     k = (0.3 * torch.randn((b, t, kv, hd), generator=gen, device=cuda)).to(dtype)
     v = (0.3 * torch.randn((b, t, kv, hd), generator=gen, device=cuda)).to(dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    _check_flash(q, k, v, causal, window, route)
+
+
+def _check_flash(q, k, v, causal, window, route):
+    """One launch through ``route``, against the plain version on the card."""
     fa.reset_launches()
     out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, with_lse=True)
-    assert fa.launches["flash_attention"] == 1
+    assert fa.launches == {"flash_attention": 1, "flash_attention_" + route: 1,
+                           "flash_attention_" + ("simt" if route == "wgmma" else "wgmma"): 0}
     want, want_lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                               with_lse=True)
     torch.cuda.synchronize()
-    assert out.dtype == dtype and lse.dtype == torch.float32
-    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
+    assert out.dtype == q.dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[q.dtype])
     torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+def _bf16_inputs(b, s, t, h, kv, hd, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(0.3 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+            for shape in ((b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd))]
+
+
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window", [
+    (1, 333, 333, 8, 8, 128, True, 0),       # GQA 1, S = T not a multiple of 128
+    (2, 200, 461, 8, 2, 64, False, 0),       # GQA 4, hd 64, ragged S != T
+    (1, 389, 389, 16, 2, 128, True, 0),      # GQA 8
+    (1, 700, 700, 8, 1, 128, True, 64),      # causal window narrower than a tile
+    (1, 600, 200, 4, 2, 64, False, 50),      # query tiles past T + window: empty KV range
+    (1, 130, 1000, 4, 4, 96, True, 0),       # causal with T > S, hd 96 (second box half padded)
+], ids=["gqa1", "gqa4-hd64", "gqa8", "window64", "empty-range", "hd96"])
+def test_flash_wgmma_matches_plain(cuda, b, s, t, h, kv, hd, causal, window):
+    q, k, v = _bf16_inputs(b, s, t, h, kv, hd, s + t + hd, cuda)
+    assert fa._kernel_route(q, k, v) == "wgmma"
+    _check_flash(q, k, v, causal, window, "wgmma")
+
+
+def test_flash_wgmma_takes_strided_views(cuda):
+    # k/v as per-layer views of a stacked (L, B, T, KV, hd) tensor, q a head slice
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    stack = (0.3 * torch.randn((2, 2, 2, 300, 2, 128), generator=gen, device=cuda)).bfloat16()
+    q = (0.3 * torch.randn((2, 300, 8, 128), generator=gen, device=cuda)).bfloat16()[:, :, ::2]
+    k, v = stack[1, 0], stack[1, 1]
+    _check_flash(q, k, v, True, 0, "wgmma")
+
+
+@pytest.mark.parametrize("case", ["hd36", "offset"])
+def test_flash_bf16_that_tma_cannot_describe_takes_simt(cuda, case):
+    if case == "hd36":      # head stride 72 bytes: not a multiple of 16
+        q, k, v = _bf16_inputs(1, 150, 150, 4, 2, 36, 7, cuda)
+    else:                   # base pointers 2 bytes past a 16-byte boundary
+        q, k, v = (x[..., 1:65] for x in _bf16_inputs(1, 150, 150, 4, 2, 80, 8, cuda))
+    assert fa._kernel_route(q, k, v) == "simt"
+    _check_flash(q, k, v, True, 0, "simt")
 
 
 def test_flash_kernel_takes_strided_views(cuda):
@@ -120,4 +168,5 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(big, big, big)
     with pytest.raises(ValueError, match="several devices"):
         fa.flash_attention(q, q.cpu(), q)
-    assert fa.launches["flash_attention"] == 0
+    assert fa.launches == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                           "flash_attention_simt": 0}
