@@ -24,8 +24,14 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
   4. the main path: ``build_sim("femnist", n_clients=1024, n_channels=8)``
      on the card, 5 QCCF rounds of ``run_compiled`` at the full FEMNIST
      CNN width (Z = 246,590), with ``aggregate`` launched once per round;
-     then a small-input reference (tiny task, U = 8, C = 4, the same draws
-     on the card and on the CPU) and a profile of one round;
+     then the paper's policies on the same fleet (the compiled GA at its
+     default P = 32, G = 30, and the four baselines at q_cap = 16, each
+     launching ``aggregate`` once per round, u16 planes at q_cap 16) and a
+     profile of one GA round; a small-input reference (tiny task, U = 8,
+     C = 4, the same draws on the card and on the CPU, greedy and GA); the
+     compiled runs against ``run_host_policy`` of their numpy oracles on
+     the card, and ``host-ga`` through ``run()``; and a profile of one
+     greedy round;
   5. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
      parameters at q = 4, round-trip error against scale / (2^q - 1);
   6. the serve path (after the FEMNIST sim is freed): ``serve.generate`` on
@@ -61,6 +67,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 dense tensor cores
 FEMNIST_U, FEMNIST_C, ROUNDS = 1024, 8, 5
+
+
+def _tiny_ga():
+    from repro_torch.core.genetic import GAConfig
+
+    return GAConfig(generations=4, population=8, elitism=2, repair_infeasible=True)
 SERVE_ARCH, SERVE_BATCH, SERVE_CONTEXT, SERVE_NEW = "llama3_8b", 4, 4096, 32
 
 
@@ -105,8 +117,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-SCOPES = ("kkt_solve", "fleet_local_sgd", "cuda_aggregate", "cuda_quantize",
-          "cuda_dequantize", "cuda_flash_attention")
+SCOPES = ("kkt_solve", "evaluate_population", "fleet_local_sgd", "cuda_aggregate",
+          "cuda_quantize", "cuda_dequantize", "cuda_flash_attention")
 
 
 def _is_device(e) -> bool:
@@ -359,8 +371,125 @@ def main_path():
     return sim, launches
 
 
+POLICY_ROUNDS = 3
+# (mode, q_cap): the GA at the engine's default wire (u8), the baselines at
+# q_cap 16 (u16 planes), as the JAX package's suites run them
+POLICY_MODES = (("compiled-ga", 8), ("no_quant", 16), ("channel_allocate", 16),
+                ("principle", 16), ("same_size", 16))
+
+
+def _sim_for(sim, mode: str, q_cap: int):
+    """A FleetSim in ``mode`` over ``sim``'s fleet, model, channel and
+    constants (no second data synthesis), with a fresh entropy source."""
+    from repro_torch.sim.engine import FleetSim
+
+    return FleetSim(sim.fleet, sim.unravel(sim.flat0), sim.loss_fn, sim.eval_fn, sim.channel,
+                    sim.sysp, eps1=sim.eps1, eps2=sim.eps2, v_weight=sim.v_weight, lr=sim.lr,
+                    batch_size=sim.batch_size, q_cap=q_cap, seed=sim.seed, hetero=sim.hetero,
+                    name=f"sim_{mode}", host_channel=sim.host_channel, policy_mode=mode)
+
+
+class _PlaneDtypes:
+    """Records the index-plane dtype of every ``aggregate`` call while
+    active, then calls the wrapper as it is (its launch count unchanged)."""
+
+    def __enter__(self):
+        from unittest import mock
+        from repro_torch.kernels import stochastic_quant as sq
+
+        real, self.dtypes = sq.aggregate, []
+
+        def spy(idx, *args, **kwargs):
+            self.dtypes.append(str(idx.dtype)[6:])
+            return real(idx, *args, **kwargs)
+
+        self._patch = mock.patch.object(sq, "aggregate", spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+@phase("policies: compiled GA and four baselines, FEMNIST U=1024 C=8")
+def policies(sim):
+    import numpy as np
+    import torch
+
+    out = {}
+    for mode, q_cap in POLICY_MODES:
+        psim = _sim_for(sim, mode, q_cap)
+        if mode == "compiled-ga":
+            warm = psim.run_compiled(1)   # round 0 schedules nobody (empty queues)
+            print(f"compiled-ga warm-up round: {psim.run_seconds:.3f} s, scheduled "
+                  f"{int(warm.n_scheduled[0])}, P={psim.ga_config.population}, "
+                  f"G={psim.ga_config.generations}")
+        _reset_all_launches()
+        with _PlaneDtypes() as planes:
+            res = psim.run_compiled(POLICY_ROUNDS)
+        launches = _all_launches()
+        sec = psim.run_seconds / POLICY_ROUNDS
+        for n in range(POLICY_ROUNDS):
+            q = res.q_levels[n]
+            print(f"{mode} round {n}: scheduled={int(res.n_scheduled[n])} "
+                  f"q={sorted(q[q > 0].tolist())} energy={res.energy[n]:.6e} J "
+                  f"latency={res.latency[n]:.6e} s lambda1={res.lambda1[n]:.4f} "
+                  f"lambda2={res.lambda2[n]:.4f}")
+        print(f"{mode}: {sec:.4f} s per round ({POLICY_ROUNDS} rounds in "
+              f"{psim.run_seconds:.3f} s), aggregate launches per round "
+              f"{launches['aggregate'] / POLICY_ROUNDS:g}, index planes {sorted(set(planes.dtypes))}")
+        for k in ("energy", "accuracy", "loss", "latency", "payload_bits", "rates",
+                  "lambda1", "lambda2"):
+            require(bool(np.isfinite(getattr(res, k)).all()), f"{mode}: non-finite {k}")
+        require(bool(torch.isfinite(psim.final_flat).all()), f"{mode}: non-finite parameters")
+        require(launches["aggregate"] == POLICY_ROUNDS,
+                f"{mode}: aggregate launched {launches['aggregate']} times in "
+                f"{POLICY_ROUNDS} rounds")
+        want = "uint8" if q_cap <= 8 else "uint16"
+        require(planes.dtypes == [want] * POLICY_ROUNDS,
+                f"{mode} at q_cap {q_cap}: index planes {planes.dtypes}, want {want}")
+        require(int(res.n_scheduled.max()) > 0, f"{mode}: no round scheduled a client")
+        require(int(res.q_levels.max()) <= q_cap, f"{mode}: q above q_cap {q_cap}")
+        if mode == "compiled-ga":
+            sched = res.q_levels[res.q_levels > 0]
+            require(bool(((sched >= 1) & (sched <= q_cap)).all()), f"GA: q outside [1, {q_cap}]")
+            t_max = psim.sysp.t_max
+            require(bool((res.latency <= t_max * (1 + 1e-5)).all()),
+                    f"GA: latency {res.latency.max():.6e} above t_max {t_max}")
+        out[mode] = dict(s_per_round=sec, scheduled=res.n_scheduled.tolist(),
+                         aggregate_per_round=launches["aggregate"] / POLICY_ROUNDS)
+        if mode == "compiled-ga":
+            ga_sim = psim
+        else:
+            del psim
+    _profile_ga_round(ga_sim)
+    return out
+
+
+def _profile_ga_round(psim):
+    """One GA round under the profiler, from the state after two rounds
+    (queues no longer empty): launches, busy share, host spans."""
+    import torch
+
+    carry = psim._init_carry()
+    with torch.no_grad():
+        for n in range(2):
+            carry, _ = psim._round_body(carry, n, with_eval=True)
+
+        def one():
+            return psim._round_body(carry, 2, with_eval=True)
+
+        _, prof = _profiled("compiled-GA round (P=32, G=30)", one, top=10)
+    spans = {}
+    for e in prof.events():
+        if e.name in SCOPES and not str(e.device_type).endswith("CUDA"):
+            spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total
+    print("host spans of the scopes in the GA round (ms, under the profiler): " + ", ".join(
+        f"{k}={v / 1e3:.2f}" for k, v in sorted(spans.items())))
+
+
 class _HostDraws:
-    """The default entropy source's three draws, made on the CPU from one
+    """The default entropy source's draws, made on the CPU from one
     generator and moved to the run's device, so a CPU run and a card run
     see the same numbers."""
 
@@ -376,6 +505,9 @@ class _HostDraws:
 
         host = dataclasses.replace(channel, distances=channel.distances.cpu())
         return self.inner.rates(ridx, host).to(self.device)
+
+    def ga_draws(self, ridx, n_clients, n_channels, cfg):
+        return self.inner.ga_draws(ridx, n_clients, n_channels, cfg).to(self.device)
 
     def batch_indices(self, ridx, n_s, tau, b):
         return self.inner.batch_indices(ridx, n_s.cpu(), tau, b).to(self.device)
@@ -421,6 +553,58 @@ def small_reference():
           f"{diff.max().item():.2e} (one-level bound {level:.2e}), "
           f"{frac:.5f} of coordinates within 1e-5")
     _drift_source(gs, cs)
+    # the compiled GA on the same draws (its GA draws included)
+    tiny_ga, ga = _tiny_ga(), {}
+    for dev in ("cuda", "cpu"):
+        sim = build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=64, device=dev,
+                        init_params=params, entropy=_HostDraws(0, dev),
+                        policy_mode="compiled-ga", ga_config=tiny_ga)
+        ga[dev] = sim.run_compiled(4)
+    g, c = ga["cuda"], ga["cpu"]
+    require(np.array_equal(g.q_levels, c.q_levels), "GA: q differs between card and CPU")
+    require(np.array_equal(g.rates > 0, c.rates > 0), "GA: schedule differs between card and CPU")
+    require(np.allclose(g.energy, c.energy, rtol=1e-5, atol=1e-12),
+            f"GA: energy card {g.energy} vs CPU {c.energy}")
+    require(int(g.n_scheduled.max()) > 0, "GA: no round scheduled a client")
+    print(f"compiled GA card vs CPU (P={tiny_ga.population}, G={tiny_ga.generations}, 4 rounds): "
+          f"q and schedule identical, scheduled {g.n_scheduled.tolist()}, energy max rel "
+          f"{np.max(np.abs(g.energy - c.energy) / np.maximum(c.energy, 1e-30)):.2e}")
+
+
+@phase("replay on the card: run_compiled vs run_host_policy, tiny task U=8 C=4")
+def replay_reference():
+    import numpy as np
+    from repro_torch.sim import build_sim
+
+    tiny_ga = _tiny_ga()
+
+    def make(mode):
+        return build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=64,
+                         policy_mode=mode, ga_config=tiny_ga)
+
+    def check(label, scan, host):
+        q_h = np.stack([r.q_levels for r in host.records])
+        e_h = np.array([r.energy for r in host.records])
+        require(np.array_equal(scan.q_levels, q_h), f"{label}: q differs")
+        require(np.array_equal(scan.n_scheduled, [r.n_scheduled for r in host.records])
+                and np.array_equal(scan.rates > 0, np.stack([r.rates for r in host.records]) > 0),
+                f"{label}: schedule differs")
+        require(np.allclose(scan.energy, e_h, rtol=1e-5, atol=1e-12),
+                f"{label}: energy scan {scan.energy} vs replay {e_h}")
+        print(f"{label} over 4 rounds: q and schedule identical, scheduled "
+              f"{scan.n_scheduled.tolist()}, energy max rel "
+              f"{np.max(np.abs(scan.energy - e_h) / np.maximum(e_h, 1e-30)):.2e}")
+
+    # the scenario names of the two QCCF modes (qccf -> greedy, qccf_ga -> compiled-ga)
+    for mode in ("qccf", "qccf_ga"):
+        scan = make(mode).run_compiled(4)
+        sim = make(mode)
+        policy = sim.make_host_policy()
+        check(f"{sim.policy_mode}: run_compiled == run_host_policy({type(policy).__name__})",
+              scan, sim.run_host_policy(policy, 4))
+    host_ga = make("host-ga").run(4)
+    require(host_ga.name == "host_ga", f"host-ga run() returned {host_ga.name!r}")
+    check("host-ga: run() == compiled-ga run_compiled", scan, host_ga)
 
 
 def _one_level(params, rounds: int):
@@ -862,7 +1046,9 @@ def main() -> int:
     report = kernels_vs_plain(zpad, wire_m)
     report.update(flash_vs_plain())
     sim, main_launches = main_path()
+    policies(sim)
     small_reference()
+    replay_reference()
     profile_round(sim)
     wire_launches = wire_entry(sim)
     del sim                        # its 5.33 GB fleet tensor, before the 8B model

@@ -4,20 +4,60 @@ torch cannot replay ``jax.random``, so the engine never draws on its own:
 each round asks an entropy source for
 
   * the (U, C) channel rates, from two (A, U, C) Rician normal draws;
+  * the GA's draws (:class:`GADraws`), in the rounds of the GA modes
+    (``compiled-ga``, ``same_size``) only;
   * the (S, tau, B) minibatch indices of the scheduled slots, each row in
     ``[0, n_s)`` for its slot's dataset size;
   * the (S, Zpad) uniforms of the eq.-4 stochastic rounding.
 
+in that order, in ``run_compiled`` and ``run_host_policy`` alike: with one
+sequential generator another order would hand the two runs other numbers.
+
 :class:`DeviceEntropy` is the default: one ``torch.Generator`` on the
 device seeded with ``seed + 1`` (the JAX engine's round keys split from
-``PRNGKey(seed + 1)``). A parity test passes an object with the same three
+``PRNGKey(seed + 1)``). A parity test passes an object with the same four
 methods that returns the JAX package's own draws for round ``ridx``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.sim import channel as sim_channel
+
+
+@dataclasses.dataclass
+class GADraws:
+    """One round's draws of the compiled GA (``repro_torch.sim.search``),
+    with P = population, G = generations, E = elitism, T = tournament,
+    NP = ceil((P - E) / 2). The uniforms are handed over, not the
+    booleans: the GA compares them with ``p_crossover``/``p_mutation``."""
+
+    n_sched: torch.Tensor   # (P,) int64 in [1, min(U, C)]
+    perm_u: torch.Tensor    # (P, U) one permutation of the clients per row
+    perm_c: torch.Tensor    # (P, C) one permutation of the channels per row
+    cand: torch.Tensor      # (G, NP, 2, T) tournament candidates in [0, P)
+    u_cx: torch.Tensor      # (G, NP) fp32 crossover uniforms
+    pt: torch.Tensor        # (G, NP) crossover points in [1, C)
+    u_mut: torch.Tensor     # (G, P - E, C) fp32 mutation uniforms
+    mut_val: torch.Tensor   # (G, P - E, C) mutation values in [-1, U)
+
+    def to(self, device) -> "GADraws":
+        return GADraws(**{f.name: getattr(self, f.name).to(device)
+                          for f in dataclasses.fields(self)})
+
+
+def ga_shapes(n_clients: int, n_channels: int, cfg) -> dict:
+    """Field -> shape of one round's :class:`GADraws` under ``cfg``."""
+    p, g, e = cfg.population, cfg.generations, cfg.elitism
+    n_pairs = (p - e + 1) // 2
+    return {
+        "n_sched": (p,), "perm_u": (p, n_clients), "perm_c": (p, n_channels),
+        "cand": (g, n_pairs, 2, cfg.tournament), "u_cx": (g, n_pairs),
+        "pt": (g, n_pairs), "u_mut": (g, p - e, n_channels),
+        "mut_val": (g, p - e, n_channels),
+    }
 
 
 class DeviceEntropy:
@@ -33,6 +73,28 @@ class DeviceEntropy:
         ny = torch.randn(channel.shape, generator=self.generator, device=self.device)
         return sim_channel.draw_rates(nx, ny, channel.params, channel.distances,
                                       channel.association)
+
+    def ga_draws(self, ridx: int, n_clients: int, n_channels: int, cfg) -> GADraws:
+        gen, dev = self.generator, self.device
+        shp = ga_shapes(n_clients, n_channels, cfg)
+
+        def randint(lo, hi, name):
+            return torch.randint(lo, hi, shp[name], generator=gen, device=dev)
+
+        def uniform(name):
+            return torch.rand(shp[name], generator=gen, device=dev)
+
+        m = min(n_clients, n_channels)
+        return GADraws(
+            n_sched=randint(1, m + 1, "n_sched"),
+            perm_u=torch.argsort(uniform("perm_u"), dim=1),
+            perm_c=torch.argsort(uniform("perm_c"), dim=1),
+            cand=randint(0, cfg.population, "cand"),
+            u_cx=uniform("u_cx"),
+            pt=randint(1, n_channels, "pt"),
+            u_mut=uniform("u_mut"),
+            mut_val=randint(-1, n_clients, "mut_val"),
+        )
 
     def batch_indices(self, ridx: int, n_s: torch.Tensor, tau: int,
                       batch_size: int) -> torch.Tensor:

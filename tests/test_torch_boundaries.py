@@ -29,6 +29,8 @@ def _imports(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("chip_smoke.py", "src/repro_torch/sim/engine.py",
+                 "src/repro_torch/sim/search.py", "src/repro_torch/fl/baselines.py",
+                 "src/repro_torch/fl/trainer.py",
                  "src/repro_torch/kernels/stochastic_quant.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/launch/serve.py"):

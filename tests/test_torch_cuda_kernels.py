@@ -1,11 +1,15 @@
 """The CUDA kernels (wire kernels, flash attention) against their plain
-torch versions on the card.
+torch versions on the card, and the fleet round's policy modes launching
+``aggregate`` on the card.
 
 Needs a CUDA device and nvcc (the library is built at first use); every
 test here skips without a card. Run on the GPU machine with
 ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py``.
 No JAX: the card's machine does not have it.
 """
+from unittest import mock
+
+import numpy as np
 import pytest
 import torch
 
@@ -170,3 +174,35 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q, q.cpu(), q)
     assert fa.launches == {"flash_attention": 0, "flash_attention_wgmma": 0,
                            "flash_attention_simt": 0}
+
+
+@pytest.mark.parametrize("mode,q_cap", [
+    ("greedy", 8), ("compiled-ga", 8), ("no_quant", 16), ("channel_allocate", 16),
+    ("principle", 16), ("same_size", 16),
+])
+def test_policy_modes_launch_aggregate_once_per_round(cuda, mode, q_cap):
+    """Every mode's round launches the kernel once, on u8 planes up to
+    q_cap 8 and u16 above, and replays through its numpy oracle."""
+    from repro_torch.core.genetic import GAConfig
+    from repro_torch.sim import build_sim
+
+    kw = dict(n_clients=8, n_channels=4, seed=0, n_test=32, q_cap=q_cap, policy_mode=mode,
+              ga_config=GAConfig(generations=3, population=6, repair_infeasible=True))
+    sim = build_sim("tiny", **kw)
+    real, dtypes = sq.aggregate, []
+
+    def spy(idx, *args, **kwargs):
+        dtypes.append(idx.dtype)
+        return real(idx, *args, **kwargs)
+
+    sq.reset_launches()
+    with mock.patch.object(sq, "aggregate", spy):
+        res = sim.run_compiled(3)
+    assert sq.launches["aggregate"] == 3
+    assert dtypes == [torch.uint8 if q_cap <= 8 else torch.uint16] * 3
+    assert res.n_scheduled.max() > 0 and np.isfinite(res.energy).all()
+    host_sim = build_sim("tiny", **kw)
+    host = host_sim.run_host_policy(host_sim.make_host_policy(), 3)
+    np.testing.assert_array_equal(res.q_levels, np.stack([r.q_levels for r in host.records]))
+    np.testing.assert_allclose(res.energy, [r.energy for r in host.records], rtol=1e-5,
+                               atol=1e-12)

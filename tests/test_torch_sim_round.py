@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from repro.models import cnn as jcnn
-from repro.sim import channel as jch
 from repro.sim import engine as jeng
 from repro.sim import fleet as jfleet
 from repro_torch import tree as tree_util
@@ -27,41 +26,9 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.sim import engine as teng
 from repro_torch.sim import fleet as tfleet
 from repro_torch.sim.entropy import DeviceEntropy
+from torch_replay import ReplayEntropy, batch_indices
 
 U, C, ROUNDS, SEED = 8, 4, 3, 0
-
-
-class ReplayEntropy:
-    """The JAX engine's per-round draws (``_scan_xs`` round keys split into
-    channel / batch / quantizer keys), handed to the port as tensors."""
-
-    def __init__(self, jsim, n_rounds):
-        self.jsim = jsim
-        self.keys = jax.random.split(jax.random.PRNGKey(jsim.seed + 1), n_rounds)
-
-    def _split(self, ridx):
-        return jax.random.split(self.keys[ridx], 3)
-
-    def rates(self, ridx, channel):
-        k_ch = self._split(ridx)[0]
-        r = jch.draw_rates(k_ch, self.jsim.channel.params, self.jsim._dyn["distances"],
-                           self.jsim.channel.association)
-        return torch.tensor(np.asarray(r))
-
-    def batch_indices(self, ridx, n_s, tau, batch_size):
-        return torch.tensor(_batch_indices(self._split(ridx)[1], n_s.tolist(), tau,
-                                           batch_size))
-
-    def uniforms(self, ridx, s, zpad):
-        return torch.tensor(np.asarray(
-            jax.random.uniform(self._split(ridx)[2], (s, zpad), jnp.float32)))
-
-
-def _batch_indices(key, n_s, tau, batch_size):
-    """``sim.fleet.fleet_local_sgd``'s per-slot draws: split(key, S)[s]."""
-    keys = jax.random.split(key, len(n_s))
-    return np.stack([np.asarray(jax.random.randint(keys[s], (tau, batch_size), 0, int(n)))
-                     for s, n in enumerate(n_s)]).astype(np.int64)
 
 
 def _jax_params(seed=SEED):
@@ -110,7 +77,7 @@ def test_fleet_local_sgd_matches():
     jp, jg, jv = jax.jit(jfleet.fleet_local_sgd, static_argnums=(0, 1, 2))(
         loss, tau, bsz, jax.tree_util.tree_map(jnp.asarray, _jax_params(2)),
         fleet.x, fleet.y, fleet.n_samples, lr, key)
-    bidx = _batch_indices(key, sizes.tolist(), tau, bsz)
+    bidx = batch_indices(key, sizes.tolist(), tau, bsz)
     tp, tg, tv = tfleet.fleet_local_sgd(
         functools.partial(tcnn.loss_fn, tcnn.TINY_CNN), tau,
         tcnn.params_from_numpy(_jax_params(2), "cpu"),
@@ -181,9 +148,9 @@ def test_default_entropy_runs_and_is_seeded():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"policy_mode": "compiled-ga"}, {"scenario": "single_bs"}, {"downlink": "quant"},
+    {"downlink": "delta"}, {"scenario": "single_bs"}, {"downlink": "quant"},
     {"faults": object()}, {"telemetry": object()},
-], ids=["policy", "scenario", "downlink", "faults", "telemetry"])
+], ids=["downlink_delta", "scenario", "downlink", "faults", "telemetry"])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         teng.build_sim("tiny", n_clients=4, n_channels=2, n_test=8, device="cpu", **kwargs)

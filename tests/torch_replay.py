@@ -1,0 +1,91 @@
+"""The JAX package's random draws as tensors for the port's entropy seam
+(shared by the ``tests/test_torch_sim_*.py`` parity suites; not a test
+module itself).
+
+``ReplayEntropy`` hands ``repro_torch.sim.engine`` the JAX engine's draws
+for round ``ridx``: the round key ``split(PRNGKey(seed + 1), N)[ridx]``
+split into channel / batch / quantizer keys, and the GA's record from
+``fold_in(round_key, GA_KEY_TAG)`` (``jax_ga_draws``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.sim import channel as jch
+from repro.sim import search as jsearch
+from repro_torch.sim.entropy import GADraws
+
+
+def batch_indices(key, n_s, tau, batch_size):
+    """``sim.fleet.fleet_local_sgd``'s per-slot draws: split(key, S)[s]."""
+    keys = jax.random.split(key, len(n_s))
+    return np.stack([np.asarray(jax.random.randint(keys[s], (tau, batch_size), 0, int(n)))
+                     for s, n in enumerate(n_s)]).astype(np.int64)
+
+
+def jax_ga_draws(key, n_clients, n_channels, cfg) -> GADraws:
+    """The draws ``repro.sim.search.ga_decide`` makes from ``key`` (its
+    docstring's key contract), as one :class:`GADraws` of CPU tensors."""
+    p, e, t = cfg.population, cfg.elitism, cfg.tournament
+    n_pairs = (p - e + 1) // 2
+    m = min(n_clients, n_channels)
+    k_init, k_evolve = jax.random.split(key)
+
+    def init(ki):
+        kk, ku, kc = jax.random.split(ki, 3)
+        return (jax.random.randint(kk, (), 1, m + 1),
+                jax.random.permutation(ku, n_clients),
+                jax.random.permutation(kc, n_channels))
+
+    def gen(kg):
+        k_sel, k_cx, k_pt, k_mm, k_mv = jax.random.split(kg, 5)
+        return (jax.random.randint(k_sel, (n_pairs, 2, t), 0, p),
+                jax.random.uniform(k_cx, (n_pairs,)),
+                jax.random.randint(k_pt, (n_pairs,), 1, n_channels),
+                jax.random.uniform(k_mm, (p - e, n_channels)),
+                jax.random.randint(k_mv, (p - e, n_channels), -1, n_clients))
+
+    n_sched, perm_u, perm_c = jax.vmap(init)(jax.random.split(k_init, p))
+    cand, u_cx, pt, u_mut, mut_val = jax.vmap(gen)(
+        jax.random.split(k_evolve, cfg.generations))
+
+    def t64(x):
+        return torch.from_numpy(np.array(x, np.int64))
+
+    def t32(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    return GADraws(n_sched=t64(n_sched), perm_u=t64(perm_u), perm_c=t64(perm_c),
+                   cand=t64(cand), u_cx=t32(u_cx), pt=t64(pt), u_mut=t32(u_mut),
+                   mut_val=t64(mut_val))
+
+
+class ReplayEntropy:
+    """The JAX engine's per-round draws (``_scan_xs`` round keys), handed
+    to the port as tensors through the entropy seam."""
+
+    def __init__(self, jsim, n_rounds):
+        self.jsim = jsim
+        self.keys = jax.random.split(jax.random.PRNGKey(jsim.seed + 1), n_rounds)
+
+    def _split(self, ridx):
+        return jax.random.split(self.keys[ridx], 3)
+
+    def rates(self, ridx, channel):
+        k_ch = self._split(ridx)[0]
+        r = jch.draw_rates(k_ch, self.jsim.channel.params, self.jsim._dyn["distances"],
+                           self.jsim.channel.association)
+        return torch.tensor(np.asarray(r))
+
+    def ga_draws(self, ridx, n_clients, n_channels, cfg):
+        key = jax.random.fold_in(self.keys[ridx], jsearch.GA_KEY_TAG)
+        return jax_ga_draws(key, n_clients, n_channels, cfg)
+
+    def batch_indices(self, ridx, n_s, tau, batch_size):
+        return torch.tensor(batch_indices(self._split(ridx)[1], n_s.tolist(), tau,
+                                          batch_size))
+
+    def uniforms(self, ridx, s, zpad):
+        return torch.tensor(np.asarray(
+            jax.random.uniform(self._split(ridx)[2], (s, zpad), jnp.float32)))
