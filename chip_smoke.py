@@ -32,9 +32,18 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      compiled runs against ``run_host_policy`` of their numpy oracles on
      the card, and ``host-ga`` through ``run()``; and a profile of one
      greedy round;
-  5. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
+  5. scenarios, downlink, faults and segments on the same fleet (greedy,
+     3 rounds each, ``aggregate`` once per round): the ``cellfree_a4``
+     drop, ``single_bs_faulty``, ``downlink="quant"`` and ``"delta"``, an
+     aggressive ``FaultSpec`` (every fault channel fires, the model stays
+     finite), ``noniid_a01`` on its own Dirichlet(0.1) data; a segmented run
+     with checkpoints and a resume from the round-4 checkpoint, bit-equal to
+     the unsegmented run; tiny card-vs-CPU references (faults, downlink,
+     cell-free, the GA with the downlink) and run_compiled vs
+     run_host_policy on the card under faults and under the downlink;
+  6. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
      parameters at q = 4, round-trip error against scale / (2^q - 1);
-  6. the serve path (after the FEMNIST sim is freed): ``serve.generate`` on
+  7. the serve path (after the FEMNIST sim is freed): ``serve.generate`` on
      Llama-3-8B at full width and depth (32 layers, random bf16 weights from
      a seed) with ``attn_impl="flash"``, batch 4, a 4096-token context from
      ``np.random.default_rng(0)`` and 32 new tokens; the wgmma flash kernel
@@ -44,7 +53,7 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      Llama-3-8B, fp32, context 2560, the same weights on the card and on the
      CPU: identical greedy tokens, logits within 1e-4; its prefill runs the
      SIMT flash kernel);
-  7. one JSON line with each kernel's launches, error and times.
+  8. one JSON line with each kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the repository's sources beside this file, it exits non-zero
@@ -378,15 +387,19 @@ POLICY_MODES = (("compiled-ga", 8), ("no_quant", 16), ("channel_allocate", 16),
                 ("principle", 16), ("same_size", 16))
 
 
-def _sim_for(sim, mode: str, q_cap: int):
+def _sim_for(sim, mode: str, q_cap: int, **over):
     """A FleetSim in ``mode`` over ``sim``'s fleet, model, channel and
-    constants (no second data synthesis), with a fresh entropy source."""
+    constants (no second data synthesis), with a fresh entropy source;
+    ``over`` replaces any of FleetSim's arguments (the channel, eps, gates)."""
     from repro_torch.sim.engine import FleetSim
 
-    return FleetSim(sim.fleet, sim.unravel(sim.flat0), sim.loss_fn, sim.eval_fn, sim.channel,
-                    sim.sysp, eps1=sim.eps1, eps2=sim.eps2, v_weight=sim.v_weight, lr=sim.lr,
-                    batch_size=sim.batch_size, q_cap=q_cap, seed=sim.seed, hetero=sim.hetero,
-                    name=f"sim_{mode}", host_channel=sim.host_channel, policy_mode=mode)
+    kw = dict(channel=sim.channel, eps1=sim.eps1, eps2=sim.eps2, v_weight=sim.v_weight,
+              lr=sim.lr, batch_size=sim.batch_size, q_cap=q_cap, seed=sim.seed,
+              hetero=sim.hetero, name=f"sim_{mode}", host_channel=sim.host_channel,
+              policy_mode=mode)
+    kw.update(over)
+    return FleetSim(sim.fleet, sim.unravel(sim.flat0), sim.loss_fn, sim.eval_fn,
+                    kw.pop("channel"), sim.sysp, **kw)
 
 
 class _PlaneDtypes:
@@ -466,6 +479,258 @@ def policies(sim):
     return out
 
 
+SCENARIO_ROUNDS = 3
+# every fault channel fires at these rates (3 rounds x 8 slots)
+AGGRESSIVE_FAULTS = dict(outage_p=0.3, fade_p=0.2, corrupt_p=0.5, nan_p=0.25)
+
+
+class _RoundOuts:
+    """Records each round's output dict (the fault counters included) of a
+    sim's ``_round_body`` while active; the round runs as it is."""
+
+    def __init__(self, sim):
+        self.sim, self.outs = sim, []
+
+    def __enter__(self):
+        real = self.sim._round_body
+
+        def spy(carry, ridx, with_eval):
+            carry, out = real(carry, ridx, with_eval)
+            self.outs.append(out)
+            return carry, out
+
+        self.sim._round_body = spy
+        return self
+
+    def __exit__(self, *exc):
+        del self.sim._round_body
+
+    def counts(self, key) -> list:
+        return [float(o[key]) for o in self.outs]
+
+
+def _scenario_run(label: str, psim) -> dict:
+    """One warm-up round, then SCENARIO_ROUNDS rounds of ``run_compiled``
+    with the launch counts read around them; prints and checks each round."""
+    import numpy as np
+    import torch
+
+    psim.run_compiled(1)
+    _reset_all_launches()
+    with _RoundOuts(psim) as rec:
+        res = psim.run_compiled(SCENARIO_ROUNDS)
+    launches = _all_launches()
+    sec = psim.run_seconds / SCENARIO_ROUNDS
+    for n in range(SCENARIO_ROUNDS):
+        q = res.q_levels[n]
+        extra = ""
+        if psim.faults.enabled:
+            extra = (f" dropped={rec.counts('n_dropped')[n]:g} timeouts="
+                     f"{rec.counts('n_timeout_real')[n]:g} screened={rec.counts('n_screened')[n]:g}")
+        print(f"{label} round {n}: scheduled={int(res.n_scheduled[n])} "
+              f"q={sorted(q[q > 0].tolist())} lambda1={res.lambda1[n]:.4f} "
+              f"lambda2={res.lambda2[n]:.4f} acc={res.accuracy[n]:.4f}{extra}")
+    print(f"{label}: {sec:.4f} s per round ({SCENARIO_ROUNDS} rounds in {psim.run_seconds:.3f} s), "
+          f"aggregate launches {launches['aggregate']} in {SCENARIO_ROUNDS} rounds")
+    for k in ("energy", "accuracy", "loss", "latency", "payload_bits", "rates",
+              "lambda1", "lambda2"):
+        require(bool(np.isfinite(getattr(res, k)).all()), f"{label}: non-finite {k}")
+    require(bool(torch.isfinite(psim.final_flat).all()), f"{label}: non-finite parameters")
+    require(launches["aggregate"] == SCENARIO_ROUNDS,
+            f"{label}: aggregate launched {launches['aggregate']} times in {SCENARIO_ROUNDS} rounds")
+    require(int(res.n_scheduled.max()) > 0, f"{label}: no round scheduled a client")
+    return dict(s_per_round=sec, rec=rec, res=res)
+
+
+@phase("scenarios, downlink, faults, segments: FEMNIST U=1024 C=8, greedy")
+def scenarios(sim):
+    import torch
+    from repro_torch.sim import build_sim
+    from repro_torch.sim.engine import DownlinkConfig, drop_and_calibrate
+    from repro_torch.sim.entropy import DeviceEntropy
+    from repro_torch.sim.scenario import FaultSpec, get_scenario
+
+    out = {}
+    cf = get_scenario("cellfree_a4", n_clients=FEMNIST_U, n_channels=FEMNIST_C)
+    ent = DeviceEntropy(sim.seed, "cuda")
+    channel, _, eps1, eps2 = drop_and_calibrate(
+        cf.channel, cf.topology, sim.seed, ent, "cuda", sim.fleet.d_sizes, sim.z, sim.sysp,
+        cf.lyapunov.target_q)
+    d = channel.distances
+    print(f"cellfree_a4 drop: distances {tuple(d.shape)} in [{d.min().item():.2f}, "
+          f"{d.max().item():.2f}] m, association {channel.association}")
+    faulty = get_scenario("single_bs_faulty", n_clients=FEMNIST_U, n_channels=FEMNIST_C)
+    runs = (
+        ("cellfree_a4", dict(channel=channel, eps1=eps1, eps2=eps2, entropy=ent,
+                             host_channel=None, name="sim_cellfree_a4_qccf")),
+        ("single_bs_faulty", dict(faults=faulty.faults, name="sim_single_bs_faulty_qccf")),
+        ("downlink quant", dict(downlink=DownlinkConfig("quant"))),
+        ("downlink delta", dict(downlink=DownlinkConfig("delta"))),
+        ("aggressive faults", dict(faults=FaultSpec(**AGGRESSIVE_FAULTS))),
+    )
+    for label, over in runs:
+        out[label] = _scenario_run(label, _sim_for(sim, "greedy", 8, **over))
+    rec = out["aggressive faults"]["rec"]
+    dropped, timeouts = sum(rec.counts("n_dropped")), sum(rec.counts("n_timeout_real"))
+    screened = sum(rec.counts("n_screened"))
+    print(f"aggressive faults over {SCENARIO_ROUNDS} rounds: {screened:g} slots screened, "
+          f"{dropped:g} in outage, {timeouts:g} realized timeouts, "
+          f"{screened - dropped - timeouts:g} or more with a corrupt or non-finite payload")
+    require(dropped > 0 and screened > dropped + timeouts,
+            "aggressive faults: an outage and a payload screen must both fire")
+    # noniid_a01 changes the data: its own synthesis, freed at the end
+    t0 = time.perf_counter()
+    ni = build_sim("femnist", scenario="noniid_a01", n_clients=FEMNIST_U, n_channels=FEMNIST_C,
+                   seed=0, mu=1200.0, beta=150.0, batch_size=32)
+    torch.cuda.synchronize()
+    print(f"noniid_a01 build_sim: {time.perf_counter() - t0:.2f} s (Dirichlet(0.1) synthesis "
+          f"+ upload); hetero in [{ni.hetero.min():.4f}, {ni.hetero.max():.4f}]")
+    require(ni.hetero is not None and ni.hetero.min() >= 1.0 and ni.hetero.max() > 1.0,
+            "noniid_a01: no heterogeneity multiplier")
+    out["noniid_a01"] = _scenario_run("noniid_a01", ni)
+    del ni
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["segments"] = _segments(sim, faulty.faults, DownlinkConfig("delta"))
+    for r in out.values():
+        r.pop("rec", None), r.pop("res", None)
+    return out
+
+
+def _segments(sim, faults, downlink) -> dict:
+    """run_compiled(6) against run_compiled(6, segment=2, ckpt_dir) and a
+    fresh sim's resume_compiled from the round-4 checkpoint, under the
+    faulty scenario's faults and the delta downlink (every carry slot and
+    the generator state). cuDNN may pick a convolution algorithm that
+    accumulates in a varying order, so bit-equality is checked with its
+    deterministic algorithms on; the default's run-to-run equality is
+    printed beside it."""
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.sim import engine
+
+    def make():
+        return _sim_for(sim, "greedy", 8, faults=faults, downlink=downlink)
+
+    fields = ("energy", "accuracy", "loss", "q_levels", "rates", "lambda1", "lambda2")
+
+    def same(a, b):
+        return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+    a_sim, b_sim = make(), make()
+    a, b = a_sim.run_compiled(6), b_sim.run_compiled(6)
+    default_equal = same(a, b) and torch.equal(a_sim.final_flat, b_sim.final_flat)
+    print(f"segments: two unsegmented 6-round runs with cuDNN's default algorithms "
+          f"{'bit-equal' if default_equal else 'NOT bit-equal'}")
+    saves = []
+    real_save = engine.ckpt.save_checkpoint
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = real_save(*args, **kwargs)
+        saves.append((time.perf_counter() - t0, Path(path).stat().st_size))
+        return path
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full_sim = make()
+        full = full_sim.run_compiled(6)
+        with tempfile.TemporaryDirectory() as tmp, \
+                mock.patch.object(engine.ckpt, "save_checkpoint", timed_save):
+            seg_sim = make()
+            seg = seg_sim.run_compiled(6, segment=2, ckpt_dir=tmp)
+            res_sim = make()
+            resumed = res_sim.resume_compiled(tmp)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    require(same(full, seg) and torch.equal(full_sim.final_flat, seg_sim.final_flat),
+            "segmented run differs from the unsegmented one")
+    require(same(full, resumed) and torch.equal(full_sim.final_flat, res_sim.final_flat),
+            "resumed run differs from the unsegmented one")
+    # the resume runs rounds 4-5, the last segment, which writes none
+    require(len(saves) == 2, f"{len(saves)} checkpoints written, want after rounds 2 and 4")
+    for (sec, size), step in zip(saves, (2, 4)):
+        print(f"segments: checkpoint after round {step}: {size / 1e6:.3f} MB npz in "
+              f"{sec * 1e3:.2f} ms")
+    print("segments (cuDNN deterministic): run_compiled(6, segment=2, ckpt_dir) and "
+          "resume_compiled from the round-4 checkpoint bit-equal to run_compiled(6) "
+          f"(q, schedule, energy, accuracy, queues, final parameters); scheduled "
+          f"{full.n_scheduled.tolist()}")
+    return dict(default_bit_equal=default_equal, saves=saves)
+
+
+SCENARIO_REFERENCES = (
+    ("faults", dict(faults=dict(outage_p=0.15, outage_corr=0.4, fade_p=0.1, corrupt_p=0.05,
+                                nan_p=0.02))),
+    ("downlink delta", dict(downlink="delta")),
+    ("cellfree_a4", dict(scenario="cellfree_a4")),
+    ("compiled-ga + downlink delta", dict(policy_mode="compiled-ga", downlink="delta")),
+)
+
+
+@phase("small-input references: faults, downlink, cell-free, GA + downlink, card vs CPU; "
+       "run_compiled vs run_host_policy on the card")
+def scenario_references():
+    import numpy as np
+    from repro_torch.models import cnn
+    from repro_torch.sim import build_sim
+    from repro_torch.sim.scenario import FaultSpec
+
+    params = cnn.init_params(cnn.TINY_CNN, 0, device="cpu")
+
+    def options(kw):
+        kw = dict(kw)
+        if "faults" in kw:
+            kw["faults"] = FaultSpec(**kw["faults"])
+        if kw.get("policy_mode") == "compiled-ga":
+            kw["ga_config"] = _tiny_ga()
+        return kw
+
+    for label, kw in SCENARIO_REFERENCES:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            sim = build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=64, device=dev,
+                            init_params=params, entropy=_HostDraws(0, dev), **options(kw))
+            runs[dev] = sim.run_compiled(4)
+        g, c = runs["cuda"], runs["cpu"]
+        require(np.array_equal(g.q_levels, c.q_levels), f"{label}: q differs between card and CPU")
+        require(np.array_equal(g.rates > 0, c.rates > 0),
+                f"{label}: schedule differs between card and CPU")
+        for k, rtol in (("energy", 1e-5), ("rates", 1e-5), ("lambda1", 1e-4), ("lambda2", 1e-4),
+                        ("loss", 1e-3)):
+            a, b = getattr(g, k), getattr(c, k)
+            require(np.allclose(a, b, rtol=rtol, atol=1e-12), f"{label}: {k} card {a} vs CPU {b}")
+        require(np.abs(g.accuracy - c.accuracy).max() <= 1 / 64, f"{label}: accuracy > 1/64")
+        require(int(g.n_scheduled.max()) > 0, f"{label}: no round scheduled a client")
+        print(f"{label} card vs CPU (4 rounds): q and schedule identical, scheduled "
+              f"{g.n_scheduled.tolist()}, energy max rel "
+              f"{np.max(np.abs(g.energy - c.energy) / np.maximum(c.energy, 1e-30)):.2e}, "
+              f"lambda2 max rel {np.max(np.abs(g.lambda2 / np.maximum(c.lambda2, 1e-30) - 1)):.2e}")
+    # the compiled runs against their numpy oracles on the card
+    for label, kw in (SCENARIO_REFERENCES[0], SCENARIO_REFERENCES[1]):
+        def make():
+            return build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=64,
+                             **options(kw))
+
+        scan = make().run_compiled(4)
+        sim = make()
+        host = sim.run_host_policy(sim.make_host_policy(), 4)
+        q_h = np.stack([r.q_levels for r in host.records])
+        e_h = np.array([r.energy for r in host.records])
+        require(np.array_equal(scan.q_levels, q_h), f"{label} replay: q differs")
+        require(np.array_equal(scan.n_scheduled, [r.n_scheduled for r in host.records]),
+                f"{label} replay: schedule differs")
+        require(np.allclose(scan.energy, e_h, rtol=1e-5, atol=1e-12),
+                f"{label} replay: energy {scan.energy} vs {e_h}")
+        print(f"{label}: run_compiled == run_host_policy on the card over 4 rounds: q and "
+              f"schedule identical, energy max rel "
+              f"{np.max(np.abs(scan.energy - e_h) / np.maximum(e_h, 1e-30)):.2e}")
+
+
 def _profile_ga_round(psim):
     """One GA round under the profiler, from the state after two rounds
     (queues no longer empty): launches, busy share, host spans."""
@@ -514,6 +779,18 @@ class _HostDraws:
 
     def uniforms(self, ridx, s, zpad):
         return self.inner.uniforms(ridx, s, zpad).to(self.device)
+
+    def fault_draws(self, ridx, n_clients, s, zpad):
+        return self.inner.fault_draws(ridx, n_clients, s, zpad).to(self.device)
+
+    def downlink_uniforms(self, ridx, z):
+        return self.inner.downlink_uniforms(ridx, z).to(self.device)
+
+    def drop_uniforms(self, n_clients):
+        return tuple(u.to(self.device) for u in self.inner.drop_uniforms(n_clients))
+
+    def probe_normals(self, shape):
+        return tuple(n.to(self.device) for n in self.inner.probe_normals(shape))
 
 
 @phase("small-input reference: tiny task U=8 C=4, card vs CPU, same draws")
@@ -1047,6 +1324,8 @@ def main() -> int:
     report.update(flash_vs_plain())
     sim, main_launches = main_path()
     policies(sim)
+    scenarios(sim)
+    scenario_references()
     small_reference()
     replay_reference()
     profile_round(sim)

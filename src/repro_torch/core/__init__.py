@@ -1,7 +1,8 @@
 """Host-side numpy maths of the QCCF controller (copies of ``repro.core``).
 
-Unlike ``repro.core`` this package has no quantisation module: the wire
-quantisers live in ``repro_torch.kernels``.
+``quantization`` holds only what the fleet round calls (``quantize_array``
+of the downlink, ``payload_bits``, ``variance_bound``); the wire quantisers
+live in ``repro_torch.kernels``.
 """
 from repro_torch.core.bounds import BoundConstants, data_term, quant_term
 from repro_torch.core.controller import QCCFController, auto_epsilons

@@ -6,8 +6,9 @@ path loss, ``v = B log2(1 + p h / (B N0))`` — as fp32 tensor ops on the
 (A, U) client->AP distances. The Rician normals come in as arguments (two
 (A, U, C) draws from the round's entropy source), so the function is pure
 and a test can feed it the JAX package's own draws. The static client drop
-stays host-side: :meth:`SimChannel.from_host_model` shares the numpy
-model's drop exactly (A = 1).
+is set-up: :meth:`SimChannel.from_host_model` shares the numpy model's
+single-BS drop exactly (A = 1); :meth:`SimChannel.from_topology` drops a
+cell-free scenario's clients from two uniform draws.
 """
 from __future__ import annotations
 
@@ -79,6 +80,14 @@ class SimChannel:
         """Share the numpy model's client drop (single BS, A = 1)."""
         d = torch.tensor(model.distances, dtype=torch.float32, device=device)
         return cls(params=model.params, distances=d[None, :])
+
+    @classmethod
+    def from_topology(cls, u_r: torch.Tensor, u_phi: torch.Tensor,
+                      params: ChannelParams, topology) -> "SimChannel":
+        """Drop via a cell-free ``repro_torch.sim.scenario.Topology`` from
+        its two (U,) uniform draws, on their device."""
+        return cls(params=params, distances=topology.drop(u_r, u_phi, params),
+                   association=topology.association)
 
     @property
     def shape(self) -> tuple[int, int, int]:

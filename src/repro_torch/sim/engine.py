@@ -1,9 +1,10 @@
 """The fleet simulator's round on the device (the port of ``repro.sim.engine``).
 
-``build_sim`` mirrors the JAX package's setup for the legacy single-BS
-path (same synthetic datasets, same client drop, same eps1/eps2
-calibration for a given seed); ``FleetSim.run_compiled`` then runs the
-rounds as an eager loop on the device. One round:
+``build_sim`` mirrors the JAX package's setup (same synthetic datasets, same
+client drop, same eps1/eps2 calibration for a given seed), for the legacy
+single-BS path or a scenario (``repro_torch.sim.scenario``);
+``FleetSim.run_compiled`` then runs the rounds as an eager loop on the
+device. One round:
 
   decision   — by ``policy_mode``: greedy channels + vectorised KKT
                (``greedy``, ``repro_torch.sim.policy``), the GA over
@@ -16,23 +17,36 @@ rounds as an eager loop on the device. One round:
   local work — tau-step SGD of the S slots under one ``torch.func.vmap``
   wire       — eq.-4 stochastic quantization of the S slot vectors into
                Zpad-shaped u8/u16 index planes + u8 sign planes
+  faults     — (``faults=FaultSpec(...)`` only) NaN/Inf bursts before the
+               wire, plane corruption after it, and the screen
+               (``screen_slots``): a slot that failed enters the aggregate
+               with weight 0 and the eq.-2 weights renormalize over the rest
   aggregate  — fused dequantize + eq.-2 weighted sum through the CUDA
                ``aggregate`` kernel (``repro_torch.kernels``), one launch
+  downlink   — (``downlink="quant"|"delta"`` only) the aggregate is
+               broadcast through eq.-4 quantization; clients start the next
+               round from what they decode, and its error term enters the
+               next decision
   scatter    — masked EMA updates of the (U,) G²/σ²/θ estimators
-  queues     — Lyapunov lambda1/lambda2 updates
+  queues     — Lyapunov lambda1/lambda2 updates (at the realized
+               participation under faults)
 
 ``run_host_policy`` lets a host Policy (the numpy oracles of each mode,
 ``make_host_policy``) make the decisions while the slot work runs through
 the same ``_exec_round`` as the compiled round. The round's random draws
 come from an entropy source (``repro_torch.sim.entropy``), in one order
-for both runs. The downlink, faults, telemetry, scenarios and segmented
-runs of the JAX engine are not ported yet; asking for one raises
-``NotImplementedError`` naming its ROADMAP.md item.
+for both runs. ``run_compiled(n, segment=k, ckpt_dir=d)`` checkpoints the
+state at every segment boundary (``repro_torch.ckpt``), the entropy
+source's generator state included, and ``resume_compiled(d)`` finishes a
+run from its latest checkpoint. Telemetry and the ledger are not ported
+yet; asking for either raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from typing import Any, Optional
 
@@ -40,13 +54,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import ckpt
+from repro_torch import tree as tree_util
+from repro_torch.core import bounds
+from repro_torch.core import quantization as core_quant
 from repro_torch.core.controller import auto_epsilons
 from repro_torch.core.genetic import GAConfig, RoundContext, SystemParams
 from repro_torch.data.synthetic import (
     SyntheticImageTask, gaussian_sizes, hetero_kl, make_federated_datasets,
     make_test_set,
 )
-from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
 from repro_torch.fl import baselines as fl_baselines
 from repro_torch.fl.experiment import TASKS, task_data_sizes
@@ -56,12 +73,13 @@ from repro_torch.kernels import stochastic_quant as sq
 from repro_torch.models import cnn
 from repro_torch.sim import policy as fast_policy
 from repro_torch.sim import search
-from repro_torch.sim.channel import SimChannel
+from repro_torch.sim.channel import SimChannel, draw_rates
 from repro_torch.sim.entropy import DeviceEntropy
 from repro_torch.sim.fleet import (
     Fleet, build_fleet, ema_update, fleet_local_sgd, gather_active,
     scatter_slots,
 )
+from repro_torch.sim.scenario import FAULTS_OFF, FaultSpec, get_scenario
 from repro_torch.wireless.channel import ChannelModel, ChannelParams
 
 LANES = sq.LANES
@@ -74,12 +92,127 @@ _ZPAD_ROWS = 64
 POLICY_MODE_ALIASES = {"qccf": "greedy", "qccf_ga": "compiled-ga"}
 POLICY_MODES = ("greedy", "host-ga", "compiled-ga", "no_quant", "channel_allocate",
                 "principle", "same_size")
+# the modes whose queue terms carry the heterogeneity multiplier and the
+# downlink term (the baselines are blind to both, as in the JAX package)
+_QCCF_MODES = ("greedy", "compiled-ga", "host-ga")
+# the checkpoint kind a segmented run writes
+_SEGMENT_KIND = "sim_segment"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"repro_torch.sim: {what} is not ported yet (ROADMAP.md Queue 1, {item})"
     )
+
+
+# ------------------------------------------------------------------ faults
+#
+# Functions of one round's draws (``entropy.FaultDraws``) and the fault
+# vector ``fv`` = ``FaultSpec.dyn_vector()`` on the device: [outage_p,
+# outage_corr, fade_p, fade_mult, corrupt_p, corrupt_frac, nan_p].
+
+def draw_outage(u_out: torch.Tensor, out_state: torch.Tensor, fv: torch.Tensor) -> torch.Tensor:
+    """(U,) bool outage of the (optionally Markov) client process from (U,)
+    uniforms; ``out_state`` is last round's state (1.0 = was down).
+    P(down | was down) = p + corr (1 - p), P(down | was up) = p (1 - corr)."""
+    p, corr = fv[0], fv[1]
+    thresh = torch.where(out_state > 0, p + corr * (1.0 - p), p * (1.0 - corr))
+    return u_out < thresh
+
+
+def draw_fade(u_fade: torch.Tensor, fv: torch.Tensor):
+    """((U,) bool fade hit, (U,) realized-rate multiplier: fade_mult where
+    hit, 1.0 elsewhere)."""
+    hit = u_fade < fv[2]
+    return hit, torch.where(hit, fv[3], torch.ones_like(u_fade))
+
+
+def inject_burst(u_burst: torch.Tensor, slots: torch.Tensor, flat_s: torch.Tensor,
+                 fv: torch.Tensor) -> torch.Tensor:
+    """NaN/Inf gradient bursts: with prob nan_p a scheduled slot's update is
+    replaced (half the bursts NaN, half +Inf) before the wire, so its range
+    is non-finite and the screen rejects it."""
+    hit = (u_burst < fv[6]) & (slots >= 0)
+    val = torch.where(u_burst < 0.5 * fv[6], torch.full_like(u_burst, math.nan),
+                      torch.full_like(u_burst, math.inf))
+    return torch.where(hit[:, None], val[:, None], flat_s)
+
+
+def corrupt_planes(u_hit: torch.Tensor, u_site: torch.Tensor, bits: torch.Tensor,
+                   idx: torch.Tensor, signs: torch.Tensor, fv: torch.Tensor):
+    """Wire corruption: with prob corrupt_p a slot's index and sign planes
+    get a corrupt_frac fraction of entries XORed with the random bytes
+    ``bits`` (the same sites and bytes for both planes). The XOR runs in
+    int32 (torch's CPU uint16 has none) and casts back to each plane's
+    dtype."""
+    flip = (u_hit < fv[4])[:, None] & (u_site < fv[5])
+    idx32, signs32 = idx.to(torch.int32), signs.to(torch.int32)
+    idx_c = torch.where(flip, idx32 ^ bits, idx32).to(idx.dtype)
+    signs_c = torch.where(flip, signs32 ^ bits, signs32).to(signs.dtype)
+    return idx_c, signs_c
+
+
+def screen_slots(slots, q_slot, d_slot, v_slot, f_slot, theta, idx, signs,
+                 down_u, fade_mult_u, fade_hit_u, sysp: SystemParams, z):
+    """The graceful-degradation screen: per-slot delivery verdict + fault
+    counters, shared by the compiled round and the host replay.
+
+    A slot delivers iff it was scheduled, its client is not in outage, its
+    realized (fade-scaled) round time meets t_max, its range is finite and
+    its planes pass the range check (index <= 2^q - 1, sign byte <= 1). An
+    un-faded slot is never a timeout: the decision already met t_max.
+    Returns ``(ok, n_dropped, n_timeout_real, n_screened)``, the counts as
+    fp32 scalars; n_screened counts every scheduled slot that failed.
+    """
+    sm = slots >= 0
+    cid = torch.clamp(slots, min=0)
+    drop = down_u[cid] & sm
+    f_hit = fade_hit_u[cid] & sm
+    mult = fade_mult_u[cid]
+    qf = torch.clamp(q_slot, min=1).to(torch.float32)
+    t_com = (z * qf + z + fast_policy.RANGE_BITS) / torch.clamp(v_slot * mult, min=1e-6)
+    t_cmp = sysp.tau_e * sysp.gamma * d_slot / torch.clamp(f_slot, min=1.0)
+    timeout = f_hit & (t_cmp + t_com > sysp.t_max)
+    plane_ok = sq.plane_in_range(idx, q_slot) & (torch.amax(signs, dim=1) <= 1)
+    ok = sm & ~drop & ~timeout & torch.isfinite(theta) & plane_ok
+    f32 = torch.float32
+    return (ok, torch.sum(drop.to(f32)), torch.sum(timeout.to(f32)),
+            torch.sum((sm & ~ok).to(f32)))
+
+
+# ---------------------------------------------------------------- downlink
+
+@dataclasses.dataclass(frozen=True)
+class DownlinkConfig:
+    """The server->client broadcast wire.
+
+    mode    "off"   — fp32 broadcast: the round and its draws as without a
+                      downlink;
+            "quant" — quantize the aggregate at ``q_bits`` (eq. 4 on the
+                      flat model, one shared range); the next round's local
+                      SGD starts from the decoded model;
+            "delta" — quantize the aggregate minus the previous broadcast
+                      instead; clients rebuild prev + decoded delta.
+    q_bits  the broadcast's level (payload Z*q_bits + Z + 32 bits).
+    """
+
+    mode: str = "off"
+    q_bits: int = 8
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("off", "quant", "delta"):
+            raise ValueError(f"downlink mode must be off/quant/delta, got {self.mode!r}")
+        if not 1 <= int(self.q_bits) <= 16:
+            raise ValueError(
+                f"downlink q_bits={self.q_bits} outside the wire format's 1..16 "
+                "(uint16 index plane)")
+
+    @property
+    def enabled(self) -> bool:
+        return self.mode != "off"
+
+
+DOWNLINK_OFF = DownlinkConfig()
 
 
 @dataclasses.dataclass
@@ -174,6 +307,8 @@ class FleetSim:
         host_channel: Optional[ChannelModel] = None,
         policy_mode: str = "greedy",  # engine mode or scenario policy name
         ga_config: Optional[GAConfig] = None,
+        downlink: Optional[DownlinkConfig] = None,
+        faults: Optional[FaultSpec] = None,
     ) -> None:
         flat0, self._meta = ops.flatten_pytree(init_params)
         self.device = flat0.device
@@ -209,9 +344,27 @@ class FleetSim:
         self._eps = torch.tensor([self.eps1, self.eps2], dtype=torch.float32,
                                  device=self.device)
         self.entropy = DeviceEntropy(self.seed, self.device) if entropy is None else entropy
+        self.downlink = DOWNLINK_OFF if downlink is None else downlink
+        self.faults = FAULTS_OFF if faults is None else faults
+        self._fv = (torch.tensor(self.faults.dyn_vector(), device=self.device)
+                    if self.faults.enabled else None)
+        if self.downlink.enabled:
+            levels = 2.0 ** float(self.downlink.q_bits) - 1.0
+            # a tensor divisor: torch divides by a Python float as a
+            # multiply by its reciprocal on the card
+            self._dl_den = torch.tensor(4.0 * levels**2, dtype=torch.float32,
+                                        device=self.device)
 
     def unravel(self, flat: torch.Tensor) -> dict:
         return ops.unflatten_pytree(flat, self._meta)
+
+    def _dyn(self) -> dict:
+        """The scenario's continuous leaves (the JAX engine's dynamic jit
+        arguments): what a checkpoint's ``dyn_hash`` fingerprints."""
+        dyn = {"distances": self.channel.distances, "hetero": self._hetero, "eps": self._eps}
+        if self._fv is not None:
+            dyn["faults"] = self._fv
+        return dyn
 
     # ------------------------------------------------------------ round body
 
@@ -228,10 +381,26 @@ class FleetSim:
         )
         return out.reshape(-1)
 
-    def _decide(self, rates, g_n, s_n, theta_max, lam1, lam2, ridx: int):
+    def _downlink_apply(self, u01: torch.Tensor, new_flat: torch.Tensor,
+                        flat: torch.Tensor):
+        """The quantized server->client broadcast of the aggregate, from (Z,)
+        uniforms. Returns ``(bcast, dl_next)``: the model every client
+        decodes (next round's start), and the realized bound term
+        L/2 * Z theta_d^2 / (4 (2^q - 1)^2) that the next decision adds to
+        its quant term. ``delta`` encodes aggregate - previous broadcast."""
+        dl = self.downlink
+        if dl.mode == "quant":
+            bcast, theta_d = core_quant.quantize_array(u01, new_flat, dl.q_bits)
+        else:
+            deq, theta_d = core_quant.quantize_array(u01, new_flat - flat, dl.q_bits)
+            bcast = flat + deq
+        dl_next = self.sysp.lipschitz / 2.0 * self.z * theta_d**2 / self._dl_den
+        return bcast, dl_next
+
+    def _decide(self, rates, g_n, s_n, theta_max, lam1, lam2, ridx: int, dl_term=None):
         """The round's decision in this sim's ``policy_mode``. The
-        heterogeneity multiplier reaches greedy and the GA only; the
-        baselines and SameSize are heterogeneity-blind."""
+        heterogeneity multiplier and the downlink term reach greedy and the
+        GA only; the baselines and SameSize are blind to both."""
         sysp, z, mode = self.sysp, self.z, self.policy_mode
         d_sizes = self.fleet.n_samples.to(torch.float32)
         base = (rates, d_sizes, g_n, s_n, theta_max)
@@ -241,7 +410,8 @@ class FleetSim:
             if mode == "compiled-ga":
                 return search.ga_decide(
                     draws, *base, lam1, lam2, sysp, z, self.v_weight,
-                    cfg=self.ga_config, q_cap=self.q_cap, hetero=self._hetero)
+                    cfg=self.ga_config, q_cap=self.q_cap, hetero=self._hetero,
+                    dl_term=dl_term)
             return search.baseline_same_size(
                 draws, *base, lam1, lam2, sysp, z, self.v_weight,
                 cfg=self.ga_config, q_cap=self.q_cap)
@@ -254,15 +424,27 @@ class FleetSim:
         if mode != "greedy":
             raise ValueError(f"{mode!r} decides on the host; use run() or run_host_policy")
         return fast_policy.decide(*base, lam2, sysp, z, self.v_weight,
-                                  q_cap=self.q_cap, hetero=self._hetero)
+                                  q_cap=self.q_cap, hetero=self._hetero, dl_term=dl_term)
 
-    def _exec_round(self, flat, slots, q_slot, w_slot, ridx: int, with_eval: bool):
+    def _exec_round(self, flat, slots, q_slot, wd_slot, ridx: int, with_eval: bool,
+                    v_slot=None, f_slot=None, out_state=None):
         """The slot work of one round for a decision already compacted to
         the slot axis: gather -> tau-step SGD -> eq.-4 quantize -> one
-        ``aggregate`` launch -> eval. Shared by ``_round_body`` and
-        ``run_host_policy``, so a host policy that makes the compiled
-        round's decisions replays it exactly. Returns ``(new_flat, g_obs,
-        s_obs, theta, acc, loss)``, the observations per slot."""
+        ``aggregate`` launch -> downlink -> eval. Shared by ``_round_body``
+        and ``run_host_policy``, so a host policy that makes the compiled
+        round's decisions replays it exactly.
+
+        ``wd_slot`` holds the eq.-2 weights; with faults on it holds the
+        slots' data sizes instead, and the weights renormalize here over the
+        slots the screen passes, from ``v_slot``/``f_slot`` (assigned rate,
+        CPU frequency) and ``out_state`` (last round's outages).
+
+        Returns ``(new_flat, g_obs, s_obs, theta, acc, loss, extra)``, the
+        observations per slot; ``extra`` holds, with faults on, the screen's
+        verdict ``ok``, the new ``out_state`` and the fault counters, and
+        with the downlink on, ``dl_next`` and ``dl_payload_bits``.
+        """
+        faults_on, dl_on = self.faults.enabled, self.downlink.enabled
         x_s, y_s, n_s = gather_active(self.fleet, slots)
         batch_idx = self.entropy.batch_indices(ridx, n_s, self.sysp.tau, self.batch_size)
         stacked, g_obs, s_obs = fleet_local_sgd(
@@ -272,37 +454,96 @@ class FleetSim:
         flat_s = torch.cat([leaf.reshape(s, -1) for leaf in tree_util.leaves(stacked)],
                            dim=1)                          # (S, Z)
         u01 = self.entropy.uniforms(ridx, s, self._zpad)
+        extra = {}
+        if faults_on:
+            draws = self.entropy.fault_draws(ridx, self.fleet.n_clients, s, self._zpad)
+            down_u = draw_outage(draws.outage, out_state, self._fv)
+            fade_hit_u, fade_mult_u = draw_fade(draws.fade, self._fv)
+            flat_s = inject_burst(draws.burst, slots, flat_s, self._fv)
+        if dl_on:
+            u_dl = self.entropy.downlink_uniforms(ridx, self.z)
         idx, signs, theta = _quantize_wire(u01, flat_s, q_slot, self.q_cap, self._zpad)
-        agg = self._aggregate(idx, signs, theta, w_slot, q_slot)
-        new_flat = torch.where(torch.sum(w_slot) > 0, agg[: self.z], flat)
+        if faults_on:
+            # corruption, then the screen: a failed slot's range AND weight
+            # are zeroed (a NaN range with weight 0 would still poison the
+            # kernel's coefficient) and eq. 2 renormalizes over the rest
+            idx, signs = corrupt_planes(draws.hit, draws.site, draws.bits, idx, signs,
+                                        self._fv)
+            ok, n_dropped, n_timeout_real, n_screened = screen_slots(
+                slots, q_slot, wd_slot, v_slot, f_slot, theta, idx, signs,
+                down_u, fade_mult_u, fade_hit_u, self.sysp, self.z)
+            d_eff = wd_slot * ok.to(torch.float32)
+            d_n = torch.sum(d_eff)
+            w_slot = d_eff / torch.clamp(d_n, min=1e-12)
+            agg = self._aggregate(idx, signs, torch.where(ok, theta, torch.zeros_like(theta)),
+                                  w_slot, q_slot)
+            new_flat = torch.where(d_n > 0, agg[: self.z], flat)
+            extra.update(ok=ok, out_state=down_u.to(torch.float32), n_dropped=n_dropped,
+                         n_timeout_real=n_timeout_real, n_screened=n_screened)
+        else:
+            agg = self._aggregate(idx, signs, theta, wd_slot, q_slot)
+            new_flat = torch.where(torch.sum(wd_slot) > 0, agg[: self.z], flat)
+        if dl_on:
+            # the carried model becomes what the clients decode
+            new_flat, extra["dl_next"] = self._downlink_apply(u_dl, new_flat, flat)
+            extra["dl_payload_bits"] = core_quant.payload_bits(self.z, self.downlink.q_bits)
         if with_eval:
             acc, loss = self.eval_fn(new_flat)
         else:
             acc = loss = torch.zeros((), dtype=torch.float32, device=self.device)
-        return new_flat, g_obs, s_obs, theta, acc, loss
+        return new_flat, g_obs, s_obs, theta, acc, loss, extra
 
     def _round_body(self, carry, ridx: int, with_eval: bool):
-        flat, g_sq, sigma_sq, theta_max, lam1, lam2 = carry
+        flat, g_sq, sigma_sq, theta_max, lam1, lam2 = carry[:6]
+        faults_on, dl_on = self.faults.enabled, self.downlink.enabled
+        # carry slots after the six: last round's downlink term, then the
+        # (U,) Markov outage state (1.0 = the client was down)
+        dl_prev = carry[6] if dl_on else None
+        out_state = carry[-1] if faults_on else None
         rates = self.entropy.rates(ridx, self.channel)
         g_n = g_sq / torch.clamp(torch.mean(g_sq), min=1e-12)
         s_n = sigma_sq / torch.clamp(torch.mean(sigma_sq), min=1e-12)
-        dec = self._decide(rates, g_n, s_n, theta_max, lam1, lam2, ridx)
+        dec = self._decide(rates, g_n, s_n, theta_max, lam1, lam2, ridx, dl_prev)
         # ---- active-set compaction: everything below is on the S slots
         u = self.fleet.n_clients
         slots = dec.slots                                  # (S,) ids, -1 pad
         sm = slots >= 0
+        smf = sm.to(torch.float32)
         cid = torch.clamp(slots, min=0)
         q_slot = dec.q[cid] * sm.to(dec.q.dtype)
-        d_slot = self.fleet.n_samples.to(torch.float32)[cid] * sm.to(torch.float32)
-        w_slot = d_slot / torch.clamp(torch.sum(d_slot), min=1e-12)   # eq. 2 weights
-        new_flat, g_obs, s_obs, theta, acc, loss = self._exec_round(
-            flat, slots, q_slot, w_slot, ridx, with_eval)
-
-        g_sq = ema_update(g_sq, scatter_slots(slots, g_obs, u), dec.a)
-        sigma_sq = ema_update(sigma_sq, scatter_slots(slots, s_obs, u), dec.a, floor=1e-8)
-        theta_max = torch.where(dec.a > 0, scatter_slots(slots, theta, u), theta_max)
-        lam1 = torch.clamp(lam1 + dec.data_term - self._eps[0], min=0.0)
-        lam2 = torch.clamp(lam2 + dec.quant_term - self._eps[1], min=0.0)
+        d_sizes = self.fleet.n_samples.to(torch.float32)
+        d_slot = d_sizes[cid] * smf
+        if faults_on:
+            new_flat, g_obs, s_obs, theta, acc, loss, extra = self._exec_round(
+                flat, slots, q_slot, d_slot, ridx, with_eval,
+                v_slot=dec.v_assigned[cid] * smf, f_slot=dec.f[cid] * smf,
+                out_state=out_state)
+            # only delivered slots feed the estimators, and the queues get
+            # the realized terms: a failed client counts as unscheduled
+            ok = extra["ok"]
+            a_real = scatter_slots(slots, ok.to(torch.float32), u)
+            qccf = self.policy_mode in _QCCF_MODES
+            data_t, quant_t = fast_policy.realized_terms(
+                a_real, d_sizes, g_n, s_n, theta_max, dec.q, self.sysp, self.z,
+                hetero=self._hetero if qccf else None,
+                dl_term=dl_prev if qccf else None)
+            zero = torch.zeros_like(g_obs)
+            g_sq = ema_update(g_sq, scatter_slots(slots, torch.where(ok, g_obs, zero), u),
+                              a_real)
+            sigma_sq = ema_update(sigma_sq,
+                                  scatter_slots(slots, torch.where(ok, s_obs, zero), u),
+                                  a_real, floor=1e-8)
+            theta_max = torch.where(a_real > 0, scatter_slots(slots, theta, u), theta_max)
+        else:
+            w_slot = d_slot / torch.clamp(torch.sum(d_slot), min=1e-12)   # eq. 2 weights
+            new_flat, g_obs, s_obs, theta, acc, loss, extra = self._exec_round(
+                flat, slots, q_slot, w_slot, ridx, with_eval)
+            data_t, quant_t = dec.data_term, dec.quant_term
+            g_sq = ema_update(g_sq, scatter_slots(slots, g_obs, u), dec.a)
+            sigma_sq = ema_update(sigma_sq, scatter_slots(slots, s_obs, u), dec.a, floor=1e-8)
+            theta_max = torch.where(dec.a > 0, scatter_slots(slots, theta, u), theta_max)
+        lam1 = torch.clamp(lam1 + data_t - self._eps[0], min=0.0)
+        lam2 = torch.clamp(lam2 + quant_t - self._eps[1], min=0.0)
         out = {
             "energy": torch.sum(dec.energy),
             "accuracy": acc,
@@ -315,7 +556,13 @@ class FleetSim:
             "lambda1": lam1,
             "lambda2": lam2,
         }
-        return (new_flat, g_sq, sigma_sq, theta_max, lam1, lam2), out
+        new_carry = (new_flat, g_sq, sigma_sq, theta_max, lam1, lam2)
+        if dl_on:
+            new_carry += (extra["dl_next"],)
+        if faults_on:
+            out.update({k: extra[k] for k in ("n_dropped", "n_timeout_real", "n_screened")})
+            new_carry += (extra["out_state"],)
+        return new_carry, out
 
     # ---------------------------------------------------------------- runs
 
@@ -323,7 +570,12 @@ class FleetSim:
         u = self.fleet.n_clients
         ones = torch.ones((u,), dtype=torch.float32, device=self.device)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        return (self.flat0, ones, ones, ones, zero, zero)  # never updated in place
+        carry = (self.flat0, ones, ones, ones, zero, zero)  # never updated in place
+        if self.downlink.enabled:
+            carry += (zero,)                                 # no broadcast yet
+        if self.faults.enabled:
+            carry += (torch.zeros((u,), dtype=torch.float32, device=self.device),)
+        return carry
 
     def run_compiled(self, n_rounds: int, with_eval: bool = True,
                      segment: Optional[int] = None,
@@ -331,23 +583,48 @@ class FleetSim:
         """Run ``n_rounds`` rounds as an eager loop on the device (the JAX
         engine's one-scan entry point, same name; every mode but
         ``host-ga``). ``final_flat`` holds the last model and
-        ``run_seconds`` the wall time, results copied back."""
+        ``run_seconds`` the wall time, results copied back.
+
+        ``segment=k`` runs ceil(n/k) segments of k rounds, the same rounds
+        on the same draws; with ``ckpt_dir`` the state after every interior
+        segment is checkpointed there (``repro_torch.ckpt``), and
+        :meth:`resume_compiled` finishes the run from the latest one."""
         if self.policy_mode == "host-ga":
             raise ValueError("host-ga decides on the host per round; use run() or "
                              "run_host_policy")
-        if segment is not None or ckpt_dir is not None:
-            raise _not_ported("run_compiled(segment=..., ckpt_dir=...)",
-                              "item 5 (segmented runs and checkpoints)")
+        if segment is None:
+            if ckpt_dir is not None:
+                raise ValueError("ckpt_dir requires segment=k (a segmented run)")
+            segment = max(int(n_rounds), 1)
+        elif segment < 1:
+            raise ValueError(f"segment={segment} must be >= 1")
+        return self._run_segments(n_rounds, with_eval, int(segment), ckpt_dir)
+
+    def _run_segments(self, n_rounds: int, with_eval: bool, segment: int,
+                      ckpt_dir: Optional[str], *, start: int = 0, carry=None,
+                      parts: Optional[list] = None) -> SimResult:
+        """Rounds ``start`` to ``n_rounds`` in segments of ``segment``, each
+        segment's per-round results copied to the host at its end; the
+        carry threads through unchanged, so the trajectory is the
+        unsegmented one."""
         t0 = time.perf_counter()
-        carry = self._init_carry()
-        outs = []
+        carry = self._init_carry() if carry is None else carry
+        parts = [] if parts is None else list(parts)
         with torch.no_grad():
-            for n in range(n_rounds):
-                carry, out = self._round_body(carry, n, with_eval)
-                outs.append(out)
-        o = {k: torch.stack([x[k] for x in outs]).cpu().numpy() for k in outs[0]}
+            for b in range(start, n_rounds, segment):
+                e = min(b + segment, n_rounds)
+                outs = []
+                for n in range(b, e):
+                    carry, out = self._round_body(carry, n, with_eval)
+                    outs.append(out)
+                parts.append({k: torch.stack([x[k] for x in outs]).cpu().numpy()
+                              for k in outs[0]})
+                if ckpt_dir is not None and e < n_rounds:
+                    self._save_segment(ckpt_dir, e, n_rounds, segment, with_eval, carry,
+                                       parts)
         self.final_flat = carry[0]
         self.run_seconds = time.perf_counter() - t0
+        o = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
         f64 = np.float64
         return SimResult(
             name=self.name,
@@ -358,6 +635,65 @@ class FleetSim:
             rates=o["rates"].astype(f64), lambda1=o["lambda1"].astype(f64),
             lambda2=o["lambda2"].astype(f64),
         )
+
+    def _save_segment(self, ckpt_dir: str, next_round: int, n_rounds: int, segment: int,
+                      with_eval: bool, carry, parts: list) -> None:
+        """Checkpoint the carry, the rounds so far and the entropy source's
+        generator state: a sequential generator is part of the state, where
+        the JAX engine's draws are a pure function of the round key."""
+        tree = {
+            "carry": {f"c{i:02d}": leaf for i, leaf in enumerate(carry)},
+            "out": {k: np.concatenate([p[k] for p in parts]) for k in parts[0]},
+        }
+        if hasattr(self.entropy, "get_state"):
+            tree["entropy"] = self.entropy.get_state()
+        ckpt.save_checkpoint(ckpt_dir, next_round, tree, extra={
+            "kind": _SEGMENT_KIND, "next_round": int(next_round),
+            "n_rounds": int(n_rounds), "segment": int(segment),
+            "with_eval": bool(with_eval), "seed": self.seed,
+            "dyn_hash": tree_util.pytree_hash(self._dyn()),
+            "sim_name": self.name, "device_type": self.device.type,
+        })
+
+    def resume_compiled(self, ckpt_dir: str) -> SimResult:
+        """Finish a segmented :meth:`run_compiled` from its latest checkpoint:
+        checks the checkpoint against this sim (kind, seed, the scenario's
+        leaves, carry arity, device type), restores the carry, the rounds
+        already run and the entropy source's generator state, and runs the
+        remaining segments: the result equals the unsegmented run's."""
+        tree, meta = ckpt.load_checkpoint(ckpt_dir)
+        if meta.get("kind") != _SEGMENT_KIND:
+            raise ckpt.CheckpointError(
+                f"{ckpt_dir!r} holds a {meta.get('kind') or 'non-sim'} checkpoint, "
+                "not a segmented-run one")
+        if int(meta["seed"]) != self.seed:
+            raise ckpt.CheckpointError(f"checkpoint seed {meta['seed']} != sim seed {self.seed}")
+        dyn_hash = tree_util.pytree_hash(self._dyn())
+        if meta.get("dyn_hash") != dyn_hash:
+            raise ckpt.CheckpointError(
+                "checkpoint was taken under different scenario leaves "
+                f"(hash {meta.get('dyn_hash')} != {dyn_hash})")
+        if meta.get("device_type") != self.device.type:
+            raise ckpt.CheckpointError(
+                f"checkpoint was taken on {meta.get('device_type')}, this sim runs on "
+                f"{self.device.type}: a generator state resumes on its own device type")
+        carry_d = tree["carry"]
+        carry = tuple(torch.as_tensor(carry_d[k], device=self.device) for k in sorted(carry_d))
+        n_ref = len(self._init_carry())
+        if len(carry) != n_ref:
+            raise ckpt.CheckpointError(
+                f"carry has {len(carry)} slots, this sim needs {n_ref} "
+                "(the downlink/faults gates must match the checkpointing sim)")
+        stateful = hasattr(self.entropy, "set_state")
+        if ("entropy" in tree) != stateful:
+            raise ckpt.CheckpointError(
+                "the checkpoint's entropy state does not fit this sim's entropy source "
+                f"(saved: {'entropy' in tree}, this source keeps state: {stateful})")
+        if stateful:
+            self.entropy.set_state(tree["entropy"])
+        return self._run_segments(
+            int(meta["n_rounds"]), bool(meta["with_eval"]), int(meta["segment"]), ckpt_dir,
+            start=int(meta["next_round"]), carry=carry, parts=[tree["out"]])
 
     # ------------------------------------------------- host policies
 
@@ -411,14 +747,17 @@ class FleetSim:
         object-based experiment would see); the sim's rates are drawn all
         the same and dropped, so the batch and quantizer draws stay those
         of ``run_compiled``. The GA's draws go to a policy that takes them
-        (``set_round_draws``), in the compiled round's order.
+        (``set_round_draws``), in the compiled round's order, and with the
+        downlink on last round's broadcast term to one that takes it
+        (``set_downlink_term``). Under faults the screen's verdicts replay
+        the compiled round's: only delivered slots update the estimators,
+        and the policy commits the terms at the realized participation.
 
         Decisions above ``q_cap`` are clamped to it for execution and in the
         records: the index planes are sized for ``q_cap`` levels (build with
-        ``q_cap=16`` for baselines that quantize up to 16 bits). The fault,
-        downlink and telemetry branches of the JAX engine's replay are not
-        ported: ``build_sim`` refuses those options (ROADMAP.md Queue 1,
-        items 4, 3 and 7).
+        ``q_cap=16`` for baselines that quantize up to 16 bits). The
+        telemetry branch of the JAX engine's replay is not ported (ROADMAP.md
+        Queue 1, item 7).
         """
         if channel not in ("sim", "host"):
             raise ValueError(f"channel must be sim or host, got {channel!r}")
@@ -427,9 +766,15 @@ class FleetSim:
         u = self.fleet.n_clients
         c = self.channel.params.n_channels
         dev = self.device
+        faults_on, dl_on = self.faults.enabled, self.downlink.enabled
+        qccf = self.policy_mode in _QCCF_MODES
+        consts = self.sysp.bound_constants()
         d_sizes = self.fleet.d_sizes.astype(np.float64)
         g_sq, sigma_sq, theta_max = np.ones(u), np.ones(u), np.ones(u)
         flat = self.flat0
+        # the compiled round's carry slots: last broadcast's term, outages
+        dl_prev = 0.0
+        out_state = torch.zeros((u,), dtype=torch.float32, device=dev) if faults_on else None
         records: list[RoundRecord] = []
         cum = 0.0
         t0 = time.perf_counter()
@@ -448,6 +793,8 @@ class FleetSim:
                 )
                 if hasattr(policy, "set_round_draws"):
                     policy.set_round_draws(self.entropy.ga_draws(n, u, c, self.ga_config))
+                if dl_on and hasattr(policy, "set_downlink_term"):
+                    policy.set_downlink_term(dl_prev)
                 dec = policy.decide(ctx)
                 # clamp into the wire format: an index plane sized for q_cap
                 # would wrap above it
@@ -482,15 +829,41 @@ class FleetSim:
                 for ch, cid in enumerate(assign):
                     if cid >= 0:
                         v_assigned[cid] += float(ctx.rates[cid, ch])
-                flat, g_obs, s_obs, theta, acc, loss = self._exec_round(
+                fault_kw = {}
+                if faults_on:
+                    # the screen's inputs, compacted as the compiled round's:
+                    # fp32 casts of the host decision's rate and frequency
+                    fault_kw = dict(
+                        v_slot=torch.as_tensor(np.where(mask, v_assigned[cids], 0.0),
+                                               dtype=torch.float32, device=dev),
+                        f_slot=torch.as_tensor(np.where(mask, np.asarray(dec.f)[cids], 0.0),
+                                               dtype=torch.float32, device=dev),
+                        out_state=out_state)
+                flat, g_obs, s_obs, theta, acc, loss, extra = self._exec_round(
                     flat, torch.as_tensor(slots, device=dev),
                     torch.as_tensor(q_slot.astype(np.int64), device=dev),
-                    torch.as_tensor(w_slot, device=dev), n, with_eval)
+                    torch.as_tensor(d_slot if faults_on else w_slot, device=dev), n,
+                    with_eval, **fault_kw)
                 g_obs, s_obs, theta = (t.cpu().numpy() for t in (g_obs, s_obs, theta))
-                sel = cids[mask]
-                g_sq[sel] = 0.7 * g_sq[sel] + 0.3 * g_obs[mask]
-                sigma_sq[sel] = 0.7 * sigma_sq[sel] + 0.3 * np.maximum(s_obs[mask], 1e-8)
-                theta_max[sel] = theta[mask]
+                # only delivered slots feed the estimators (every scheduled
+                # slot when faults are off)
+                upd = mask
+                if faults_on:
+                    upd = mask & extra["ok"].cpu().numpy()
+                    out_state = extra["out_state"]
+                sel = cids[upd]
+                g_sq[sel] = 0.7 * g_sq[sel] + 0.3 * g_obs[upd]
+                sigma_sq[sel] = 0.7 * sigma_sq[sel] + 0.3 * np.maximum(s_obs[upd], 1e-8)
+                theta_max[sel] = theta[upd]
+                if faults_on:
+                    # the queues take the terms at the realized participation
+                    a_real = np.zeros(u)
+                    a_real[sel] = 1.0
+                    dec.data_term, dec.quant_term = bounds.realized_terms(
+                        consts, a_real, d_sizes, ctx.g_sq, ctx.sigma_sq, ctx.theta_max,
+                        np.maximum(np.asarray(dec.q), 1), self.z,
+                        hetero=self.hetero if qccf else None,
+                        dl_term=dl_prev if (dl_on and qccf) else 0.0)
                 policy.commit(dec)
                 cum += dec.total_energy
                 records.append(RoundRecord(
@@ -502,12 +875,43 @@ class FleetSim:
                         dec.a > 0, self.z * np.maximum(dec.q, 1) + self.z + 32.0, 0.0))),
                     rates=v_assigned,
                 ))
+                if dl_on:
+                    dl_prev = float(extra["dl_next"])
         self.final_flat = flat
         self.run_seconds = time.perf_counter() - t0
         return ExperimentResult(getattr(policy, "name", "host_policy"), records)
 
 
 # ------------------------------------------------------------------- build
+
+def drop_and_calibrate(ch_params: ChannelParams, topology, seed: int, entropy, device,
+                       sizes: np.ndarray, z: int, sysp: SystemParams, target_q: float):
+    """The client drop and the eps1/eps2 calibration of :func:`build_sim`:
+    ``(channel, host_channel, eps1, eps2)``. No topology, or a single-BS
+    one, drops and probes through the numpy ``ChannelModel`` (seeded with
+    ``seed``, the legacy path); a cell-free topology drops and probes
+    through ``entropy``'s set-up draws and has no host channel."""
+    if topology is None or topology.mode == "single_bs":
+        host_channel = ChannelModel(ch_params, seed=seed)
+        channel = SimChannel.from_host_model(host_channel, device)
+        if topology is not None:
+            channel = dataclasses.replace(channel, association=topology.association)
+        probe_rates = host_channel.draw_rates()
+    else:
+        host_channel = None
+        channel = SimChannel.from_topology(*entropy.drop_uniforms(ch_params.n_clients),
+                                           ch_params, topology)
+        probe_rates = draw_rates(*entropy.probe_normals(channel.shape), ch_params,
+                                 channel.distances, channel.association)
+        probe_rates = probe_rates.cpu().numpy().astype(np.float64)
+    u = ch_params.n_clients
+    probe = RoundContext(
+        rates=probe_rates, d_sizes=np.asarray(sizes, np.float64),
+        g_sq=np.full(u, 1.0), sigma_sq=np.full(u, 1.0), theta_max=np.full(u, 1.0), z=z,
+    )
+    eps1, eps2 = auto_epsilons(probe, sysp, target_q=target_q)
+    return channel, host_channel, eps1, eps2
+
 
 def build_sim(
     task: str = "tiny",
@@ -532,16 +936,25 @@ def build_sim(
     telemetry=None,
     ledger=None,
     downlink=None,
-    faults=None,
+    faults: Optional[FaultSpec] = None,
     init_params: Optional[dict] = None,
     device=None,
     entropy: Any = None,
 ) -> FleetSim:
-    """Mirror of ``repro.sim.engine.build_sim`` for the legacy single-BS
-    path (``scenario=None``), every ``policy_mode`` (``greedy``/``qccf``,
-    ``compiled-ga``/``qccf_ga``, ``host-ga``, ``no_quant``,
-    ``channel_allocate``, ``principle``, ``same_size``), on ``device``
-    (``cuda`` unless the caller passes another; raises without CUDA).
+    """Mirror of ``repro.sim.engine.build_sim`` on ``device`` (``cuda``
+    unless the caller passes another; raises without CUDA), every
+    ``policy_mode`` (``greedy``/``qccf``, ``compiled-ga``/``qccf_ga``,
+    ``host-ga``, ``no_quant``, ``channel_allocate``, ``principle``,
+    ``same_size``).
+
+    ``scenario`` is a :class:`repro_torch.sim.scenario.Scenario` or a preset
+    name (sized by ``n_clients``/``n_channels``); explicit kwargs override
+    its fields. ``scenario=None`` and single-BS topologies keep the numpy
+    ``ChannelModel`` client drop and eps probe (``scenario="single_bs"``
+    is ``scenario=None`` bit for bit); cell-free topologies drop and probe
+    through the entropy source's set-up draws. ``downlink`` is a
+    :class:`DownlinkConfig` or its mode (``"off"``, ``"quant"``,
+    ``"delta"``); ``faults`` a :class:`FaultSpec` (default: the scenario's).
 
     ``init_params`` (a parameter tree of ``repro_torch.models.cnn``, e.g.
     from ``params_from_numpy`` of the JAX package's weights) replaces the
@@ -549,20 +962,33 @@ def build_sim(
     :class:`~repro_torch.sim.entropy.DeviceEntropy`.
     """
     dev = resolve_device(device)
-    if scenario is not None:
-        raise _not_ported("scenario presets", "item 2 (scenarios)")
-    if downlink not in (None, "off"):
-        raise _not_ported("the quantized downlink", "item 3 (DownlinkConfig)")
-    if faults is not None:
-        raise _not_ported("fault injection", "item 4 (FaultSpec and screen_slots)")
     if telemetry is not None or ledger is not None:
         raise _not_ported("telemetry and the ledger", "item 7 (obs)")
     n_channels = n_clients if n_channels is None else n_channels
+    if isinstance(scenario, str):
+        scenario = get_scenario(scenario, n_clients=n_clients, n_channels=n_channels)
+    if scenario is not None:
+        n_clients = scenario.channel.n_clients
+        n_channels = scenario.channel.n_channels
+        mu = scenario.data.mu if mu is None else mu
+        beta = scenario.data.beta if beta is None else beta
+        if alpha_dirichlet is None:
+            alpha_dirichlet = scenario.data.alpha_dirichlet
+        v_weight = scenario.lyapunov.v_weight if v_weight is None else v_weight
+        target_q = scenario.lyapunov.target_q if target_q is None else target_q
+        policy_mode = scenario.policy if policy_mode is None else policy_mode
+        if hetero_weight is None:
+            hetero_weight = scenario.lyapunov.hetero_weight
+        if faults is None:
+            faults = scenario.faults
     v_weight = 100.0 if v_weight is None else float(v_weight)
     alpha_dirichlet = 0.5 if alpha_dirichlet is None else float(alpha_dirichlet)
     target_q = 6.0 if target_q is None else float(target_q)
     hetero_weight = 0.0 if hetero_weight is None else float(hetero_weight)
     policy_mode = "greedy" if policy_mode is None else policy_mode
+    if isinstance(downlink, str):
+        downlink = DownlinkConfig(mode=downlink)
+    entropy = DeviceEntropy(seed, dev) if entropy is None else entropy
 
     task_spec, cnn_cfg, sysp = TASKS[task]
     mu, beta = task_data_sizes(task, mu, beta)
@@ -587,28 +1013,23 @@ def build_sim(
         return cnn.eval_metrics(cnn_cfg, ops.unflatten_pytree(flat, meta),
                                 test_x, test_y)
 
-    host_channel = ChannelModel(
-        ChannelParams(n_clients=n_clients, n_channels=n_channels), seed=seed)
-    channel = SimChannel.from_host_model(host_channel, dev)
-    probe_rates = host_channel.draw_rates()
-
-    z = int(_flat0.shape[0])
-    probe = RoundContext(
-        rates=probe_rates, d_sizes=sizes.astype(np.float64),
-        g_sq=np.full(n_clients, 1.0), sigma_sq=np.full(n_clients, 1.0),
-        theta_max=np.full(n_clients, 1.0), z=z,
-    )
-    eps1, eps2 = auto_epsilons(probe, sysp, target_q=target_q)
+    ch_params = (scenario.channel if scenario is not None
+                 else ChannelParams(n_clients=n_clients, n_channels=n_channels))
+    channel, host_channel, eps1, eps2 = drop_and_calibrate(
+        ch_params, None if scenario is None else scenario.topology, seed, entropy, dev,
+        sizes, int(_flat0.shape[0]), sysp, target_q)
 
     hetero = None
     if hetero_weight > 0.0:
         hetero = 1.0 + hetero_weight * hetero_kl(datasets, task_spec.n_classes)
 
+    if name is None:
+        name = f"sim_{scenario.name}_{policy_mode}" if scenario is not None else "sim_qccf"
     return FleetSim(
         fleet, params, loss_fn, eval_fn, channel, sysp,
         eps1=eps1, eps2=eps2, v_weight=v_weight, lr=lr,
         batch_size=batch_size, q_cap=q_cap, seed=seed,
-        hetero=hetero,
-        name="sim_qccf" if name is None else name, entropy=entropy,
+        hetero=hetero, name=name, entropy=entropy,
         host_channel=host_channel, policy_mode=policy_mode, ga_config=ga_config,
+        downlink=downlink, faults=faults,
     )

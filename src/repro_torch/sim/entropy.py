@@ -8,15 +8,26 @@ each round asks an entropy source for
     (``compiled-ga``, ``same_size``) only;
   * the (S, tau, B) minibatch indices of the scheduled slots, each row in
     ``[0, n_s)`` for its slot's dataset size;
-  * the (S, Zpad) uniforms of the eq.-4 stochastic rounding.
+  * the (S, Zpad) uniforms of the eq.-4 stochastic rounding;
+  * the fault draws (:class:`FaultDraws`), with fault injection on only;
+  * the (Z,) uniforms of the quantized downlink, with the downlink on only.
 
 in that order, in ``run_compiled`` and ``run_host_policy`` alike: with one
 sequential generator another order would hand the two runs other numbers.
+A run with faults and downlink off draws exactly what it drew before they
+existed.
+
+Set-up draws come from a second generator, before any round: a cell-free
+scenario's client drop (:meth:`DeviceEntropy.drop_uniforms`) and its eps
+probe's Rician normals (:meth:`DeviceEntropy.probe_normals`).
 
 :class:`DeviceEntropy` is the default: one ``torch.Generator`` on the
-device seeded with ``seed + 1`` (the JAX engine's round keys split from
-``PRNGKey(seed + 1)``). A parity test passes an object with the same four
-methods that returns the JAX package's own draws for round ``ridx``.
+device seeded with ``seed + 1`` for the rounds (the JAX engine's round keys
+split from ``PRNGKey(seed + 1)``) and one seeded with ``seed`` for the
+set-up draws (JAX folds those off ``PRNGKey(seed)``). A parity test passes
+an object with the same methods that returns the JAX package's own draws
+for round ``ridx``. The round generator's state is what a segment
+checkpoint saves (:meth:`DeviceEntropy.get_state`).
 """
 from __future__ import annotations
 
@@ -48,6 +59,23 @@ class GADraws:
                           for f in dataclasses.fields(self)})
 
 
+@dataclasses.dataclass
+class FaultDraws:
+    """One round's fault draws (``repro_torch.sim.scenario.FaultSpec``),
+    U clients, S slots, Zpad wire coordinates."""
+
+    outage: torch.Tensor    # (U,) fp32 uniforms of the outage process
+    fade: torch.Tensor      # (U,) fp32 uniforms of the deep fades
+    burst: torch.Tensor     # (S,) fp32 uniforms of the NaN/Inf bursts
+    hit: torch.Tensor       # (S,) fp32 uniforms: is the slot's wire corrupted
+    site: torch.Tensor      # (S, Zpad) fp32 uniforms: which entries flip
+    bits: torch.Tensor      # (S, Zpad) int32 in [0, 256): the XOR bytes
+
+    def to(self, device) -> "FaultDraws":
+        return FaultDraws(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
+
+
 def ga_shapes(n_clients: int, n_channels: int, cfg) -> dict:
     """Field -> shape of one round's :class:`GADraws` under ``cfg``."""
     p, g, e = cfg.population, cfg.generations, cfg.elitism
@@ -66,7 +94,25 @@ class DeviceEntropy:
     def __init__(self, seed: int, device) -> None:
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(seed) + 1)
+        self.setup_generator = torch.Generator(device=device)
+        self.setup_generator.manual_seed(int(seed))
         self.device = torch.device(device)
+
+    # ---------------------------------------------------------- set-up
+
+    def drop_uniforms(self, n_clients: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(U,) radius and (U,) angle uniforms of a cell-free client drop."""
+        gen, dev = self.setup_generator, self.device
+        return (torch.rand((n_clients,), generator=gen, device=dev),
+                torch.rand((n_clients,), generator=gen, device=dev))
+
+    def probe_normals(self, shape) -> tuple[torch.Tensor, torch.Tensor]:
+        """Two (A, U, C) Rician normal draws of the eps probe's rates."""
+        gen, dev = self.setup_generator, self.device
+        return (torch.randn(shape, generator=gen, device=dev),
+                torch.randn(shape, generator=gen, device=dev))
+
+    # ---------------------------------------------------------- rounds
 
     def rates(self, ridx: int, channel: sim_channel.SimChannel) -> torch.Tensor:
         nx = torch.randn(channel.shape, generator=self.generator, device=self.device)
@@ -105,3 +151,29 @@ class DeviceEntropy:
 
     def uniforms(self, ridx: int, s: int, zpad: int) -> torch.Tensor:
         return torch.rand((s, zpad), generator=self.generator, device=self.device)
+
+    def fault_draws(self, ridx: int, n_clients: int, s: int, zpad: int) -> FaultDraws:
+        gen, dev = self.generator, self.device
+
+        def uniform(*shape):
+            return torch.rand(shape, generator=gen, device=dev)
+
+        return FaultDraws(
+            outage=uniform(n_clients), fade=uniform(n_clients), burst=uniform(s),
+            hit=uniform(s), site=uniform(s, zpad),
+            bits=torch.randint(0, 256, (s, zpad), generator=gen, device=dev,
+                               dtype=torch.int32),
+        )
+
+    def downlink_uniforms(self, ridx: int, z: int) -> torch.Tensor:
+        return torch.rand((z,), generator=self.generator, device=self.device)
+
+    # ------------------------------------------------------ checkpoints
+
+    def get_state(self) -> dict:
+        """The round generator's state (a uint8 CPU tensor), the only one
+        that advances during rounds."""
+        return {"round": self.generator.get_state()}
+
+    def set_state(self, state: dict) -> None:
+        self.generator.set_state(torch.as_tensor(state["round"], dtype=torch.uint8).cpu())

@@ -14,9 +14,10 @@ The greedy path:
 Steps 2-3 (``finish_decision``) take any assignment, or a (P, C)
 population of them along a leading axis: the GA's fitness
 (``repro_torch.sim.search``) evaluates a whole population in one pass.
-The paper's closed-form baselines (``baseline_no_quant``,
-``baseline_channel_allocate``, ``baseline_principle``, accounted by
-``account_baseline``) follow. Every expression keeps the JAX module's
+``realized_terms`` recomputes the bound terms at the participation a round
+with fault injection realized (its queue feedback). The paper's
+closed-form baselines (``baseline_no_quant``, ``baseline_channel_allocate``,
+``baseline_principle``, accounted by ``account_baseline``) follow. Every expression keeps the JAX module's
 operation order, so the same fp32 rates give the same schedule and levels.
 The numpy oracles: ``greedy_assign_host``, ``compact_slots_host``,
 ``finish_host``, ``decide_host`` and the ``HostFastPolicy`` Policy.
@@ -295,6 +296,26 @@ def quant_term(consts, w_round, z, theta_max, q):
     return consts.lipschitz / 2.0 * torch.sum(w_round * per_client, dim=-1)
 
 
+def realized_terms(a_real, d_sizes, g_sq, sigma_sq, theta_max, q, sysp: SystemParams,
+                   z: int, hetero=None, dl_term=None):
+    """Eq. 20/21 at the *realized* (post-screen) participation ``a_real``:
+    the queue feedback of a round with fault injection. A scheduled client
+    that failed re-enters the scheduling-exclusion sum and leaves the round
+    weights, like an unscheduled one; with nothing failed this gives
+    ``finish_decision``'s terms (same ops, same order)."""
+    af = a_real.to(torch.float32)
+    d_n = torch.sum(af * d_sizes)
+    w_round = torch.where(a_real > 0, af * d_sizes / torch.clamp(d_n, min=1e-12),
+                          torch.zeros_like(d_sizes))
+    w_full = d_sizes / torch.sum(d_sizes)
+    consts = sysp.bound_constants()
+    dt = data_term(consts, af, w_full, w_round, g_sq, sigma_sq, hetero)
+    qt = quant_term(consts, w_round, z, theta_max, torch.clamp(q, min=1))
+    if dl_term is not None:
+        qt = qt + dl_term
+    return dt, qt
+
+
 # --------------------------------------------------------------- decide
 
 def participation_from_assign(assign: torch.Tensor, rates: torch.Tensor):
@@ -322,10 +343,14 @@ def finish_decision(
     v_weight: float,
     q_cap: int = 8,
     hetero=None,
+    dl_term=None,              # scalar: last round's realized downlink bound term
 ) -> FastDecision:
     """Infeasibility drop + vectorised KKT + bound terms for an assignment,
     or for a population of them along a leading axis of ``assign``,
-    ``v_assigned`` and ``a0`` (the GA's batched fitness)."""
+    ``v_assigned`` and ``a0`` (the GA's batched fitness). ``dl_term`` (the
+    quantized downlink's previous-round error term, ``None`` with the
+    downlink off) is added to the quant term, so the lambda2 queue sees
+    the server->client error; it is the same for every assignment."""
     u = d_sizes.shape[0]
     qmax = (v_assigned * sysp.t_max
             - sysp.tau_e * sysp.gamma * d_sizes * v_assigned / sysp.f_max
@@ -360,6 +385,8 @@ def finish_decision(
     consts = sysp.bound_constants()
     dt = data_term(consts, af, w_full, w_round, g_sq, sigma_sq, hetero)
     qt = quant_term(consts, w_round, z, theta_max, torch.clamp(q, min=1))
+    if dl_term is not None:
+        qt = qt + dl_term
     payload = torch.sum(torch.where(a, z * q.to(torch.float32) + z + RANGE_BITS, zero),
                         dim=-1)
     # drop the channels of clients that failed the feasibility gate
@@ -386,13 +413,14 @@ def decide(
     v_weight: float,
     q_cap: int = 8,
     hetero=None,
+    dl_term=None,
 ) -> FastDecision:
     """One decision round: greedy channels, then :func:`finish_decision`."""
     assign = greedy_assign(rates)
     v_assigned, a0 = participation_from_assign(assign, rates)
     return finish_decision(
         assign, v_assigned, a0, d_sizes, g_sq, sigma_sq, theta_max, lam2,
-        sysp, z, v_weight, q_cap=q_cap, hetero=hetero,
+        sysp, z, v_weight, q_cap=q_cap, hetero=hetero, dl_term=dl_term,
     )
 
 
@@ -411,6 +439,7 @@ def finish_host(
     v_weight: float,
     q_cap: int = 8,
     hetero: np.ndarray | None = None,
+    dl_term: float | None = None,
 ) -> FastDecision:
     """Numpy mirror of :func:`finish_decision` for ANY assignment: the
     per-client solve goes through the scalar ``repro_torch.core.kkt``.
@@ -461,6 +490,8 @@ def finish_host(
     af = a.astype(np.float64)
     dt = bounds.data_term(consts, af, w_full, w_round, g_sq, sigma_sq, hetero)
     qt = bounds.quant_term(consts, w_round, z, theta_max, np.maximum(q, 1))
+    if dl_term is not None:
+        qt = qt + float(dl_term)
     payload = float(np.sum(np.where(a, z * q + z + RANGE_BITS, 0.0)))
     assign_kept = np.where((assign >= 0) & a[np.clip(assign, 0, u - 1)], assign, -1)
     return FastDecision(
@@ -484,11 +515,12 @@ def decide_host(
     v_weight: float,
     q_cap: int = 8,
     hetero: np.ndarray | None = None,
+    dl_term: float | None = None,
 ) -> FastDecision:
     """Numpy oracle for :func:`decide`: greedy assignment + scalar KKT."""
     return finish_host(
         greedy_assign_host(rates), rates, d_sizes, g_sq, sigma_sq, theta_max,
-        lam2, sysp, z, v_weight, q_cap=q_cap, hetero=hetero,
+        lam2, sysp, z, v_weight, q_cap=q_cap, hetero=hetero, dl_term=dl_term,
     )
 
 
@@ -509,12 +541,19 @@ class HostFastPolicy:
         self.hetero = None if hetero is None else np.asarray(hetero, np.float64)
         self.lambda1 = 0.0
         self.lambda2 = 0.0
+        self.dl_term = None
+
+    def set_downlink_term(self, dl_term) -> None:
+        """Engine hook (``run_host_policy``): last round's realized downlink
+        bound term, added to this round's quant term as the compiled round
+        does."""
+        self.dl_term = dl_term
 
     def decide(self, ctx) -> Decision:
         fd = decide_host(
             ctx.rates, ctx.d_sizes, ctx.g_sq, ctx.sigma_sq, ctx.theta_max,
             self.lambda2, self.sysp, ctx.z, self.v_weight, q_cap=self.q_cap,
-            hetero=self.hetero,
+            hetero=self.hetero, dl_term=self.dl_term,
         )
         dec = Decision(
             assign=fd.assign, a=fd.a, q=fd.q, f=fd.f, energy=fd.energy,

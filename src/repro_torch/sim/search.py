@@ -143,17 +143,21 @@ def evaluate_population(
     q_cap: int,
     repair_infeasible: bool,
     hetero=None,
+    dl_term=None,
 ) -> torch.Tensor:
     """(P,) drift-plus-penalty objective J0 per chromosome (eq. 26, sound
     form): lam1 * data_term + lam2 * quant_term + V * energy, through one
     batched ``policy.finish_decision`` over the population axis. With
     ``repair_infeasible`` False, chromosomes whose scheduled set needed the
-    feasibility drop get ``J0_INFEASIBLE`` (the paper's fitness-0 rule)."""
+    feasibility drop get ``J0_INFEASIBLE`` (the paper's fitness-0 rule).
+    ``dl_term`` (the downlink's previous-round error term) shifts every
+    chromosome's quant term alike, so selection is unchanged, but the
+    winner carries it into the lambda2 queue."""
     with _profile_scope("evaluate_population"):
         v_assigned, a0 = fast_policy.participation_from_assign(pop, rates)
         fd = fast_policy.finish_decision(
             pop, v_assigned, a0, d_sizes, g_sq, sigma_sq, theta_max, lam2,
-            sysp, z, v_weight, q_cap=q_cap, hetero=hetero,
+            sysp, z, v_weight, q_cap=q_cap, hetero=hetero, dl_term=dl_term,
         )
         j0 = lam1 * fd.data_term + lam2 * fd.quant_term + v_weight * torch.sum(fd.energy, dim=-1)
         if not repair_infeasible:
@@ -186,6 +190,7 @@ def ga_decide(
     cfg: GAConfig = GAConfig(),
     q_cap: int = 8,
     hetero=None,
+    dl_term=None,
     with_stats: bool = False,
 ) -> fast_policy.FastDecision:
     """Algorithm 1 on the device: GA over assignments + KKT fitness.
@@ -210,6 +215,7 @@ def ga_decide(
         j0 = evaluate_population(
             pop, rates, d_sizes, g_sq, sigma_sq, theta_max, lam1, lam2,
             sysp, z, v_weight, q_cap, cfg.repair_infeasible, hetero=hetero,
+            dl_term=dl_term,
         )
         i_star = torch.argmin(j0).reshape(1)                      # ties -> first
         j_star = j0.index_select(0, i_star)[0]
@@ -223,7 +229,7 @@ def ga_decide(
     v_assigned, a0 = fast_policy.participation_from_assign(best_assign, rates)
     return fast_policy.finish_decision(
         best_assign, v_assigned, a0, d_sizes, g_sq, sigma_sq, theta_max,
-        lam2, sysp, z, v_weight, q_cap=q_cap, hetero=hetero,
+        lam2, sysp, z, v_weight, q_cap=q_cap, hetero=hetero, dl_term=dl_term,
     )
 
 
@@ -292,6 +298,7 @@ def run_ga_host(
     cfg: GAConfig = GAConfig(),
     q_cap: int = 8,
     hetero: Optional[np.ndarray] = None,
+    dl_term: Optional[float] = None,
 ) -> fast_policy.FastDecision:
     """Numpy oracle of :func:`ga_decide` on the same draws: selection,
     crossover, mutation and repair as plain numpy, one chromosome at a
@@ -309,7 +316,7 @@ def run_ga_host(
     def eval_one(assign: np.ndarray) -> tuple[fast_policy.FastDecision, float]:
         fd = fast_policy.finish_host(
             assign, rates, d_sizes, g_sq, sigma_sq, theta_max, lam2, sysp,
-            z, v_weight, q_cap=q_cap, hetero=hetero,
+            z, v_weight, q_cap=q_cap, hetero=hetero, dl_term=dl_term,
         )
         j0 = _j0_host(fd, lam1, lam2, v_weight)
         if not cfg.repair_infeasible:
@@ -379,9 +386,15 @@ class HostGAPolicy:
         self.lambda1 = 0.0
         self.lambda2 = 0.0
         self._draws: Optional[GADraws] = None
+        self.dl_term: Optional[float] = None
 
     def set_round_draws(self, draws: GADraws) -> None:
         self._draws = draws
+
+    def set_downlink_term(self, dl_term) -> None:
+        """Engine hook: last round's realized downlink bound term (see
+        ``policy.HostFastPolicy.set_downlink_term``)."""
+        self.dl_term = dl_term
 
     def decide(self, ctx) -> Decision:
         assert self._draws is not None, "set_round_draws before decide"
@@ -391,7 +404,7 @@ class HostGAPolicy:
             np.asarray(ctx.g_sq), np.asarray(ctx.sigma_sq),
             np.asarray(ctx.theta_max), self.lambda1, self.lambda2,
             self.sysp, ctx.z, self.v_weight, cfg=self.cfg, q_cap=self.q_cap,
-            hetero=self.hetero,
+            hetero=self.hetero, dl_term=self.dl_term,
         )
         dec = Decision(
             assign=fd.assign, a=fd.a, q=fd.q, f=fd.f, energy=fd.energy,

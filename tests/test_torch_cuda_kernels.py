@@ -1,6 +1,6 @@
 """The CUDA kernels (wire kernels, flash attention) against their plain
-torch versions on the card, and the fleet round's policy modes launching
-``aggregate`` on the card.
+torch versions on the card, and the fleet round's policy modes, scenarios,
+downlink, faults and segmented runs launching ``aggregate`` on the card.
 
 Needs a CUDA device and nvcc (the library is built at first use); every
 test here skips without a card. Run on the GPU machine with
@@ -23,6 +23,17 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def deterministic_cudnn(cuda):
+    """cuDNN's deterministic convolution algorithms, for the checks that
+    compare two runs of the local SGD bit for bit (a default algorithm may
+    accumulate in a varying order)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = prev
 
 
 def _planes(k, m, q_max, dtype, seed, dev):
@@ -206,3 +217,99 @@ def test_policy_modes_launch_aggregate_once_per_round(cuda, mode, q_cap):
     np.testing.assert_array_equal(res.q_levels, np.stack([r.q_levels for r in host.records]))
     np.testing.assert_allclose(res.energy, [r.energy for r in host.records], rtol=1e-5,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=["u8", "u16"])
+def test_aggregate_with_screened_slots_bit_equal(cuda, dtype):
+    """The fault path's aggregate: slots whose planes were corrupted and
+    whose range went NaN enter with range and weight 0 (coefficient 0), as
+    the engine's screen leaves them; the kernel equals its plain version
+    bit for bit and those slots add nothing."""
+    from repro_torch.sim import engine
+    from repro_torch.sim.entropy import DeviceEntropy
+    from repro_torch.sim.scenario import FaultSpec
+
+    k, m = 8, 1984
+    q_max = 8 if dtype == torch.uint8 else 16
+    idx, signs, scales, w, q = _planes(k, m, q_max, dtype, 11, cuda)
+    draws = DeviceEntropy(3, cuda).fault_draws(0, k, k, m * 128)
+    fv = torch.tensor(FaultSpec(corrupt_p=1.0, corrupt_frac=0.3).dyn_vector(), device=cuda)
+    bad = torch.zeros(k, dtype=torch.bool, device=cuda)
+    bad[[2, 5]] = True
+    draws.hit = torch.where(bad, draws.hit * 0.0, draws.hit + 2.0)   # corrupt slots 2 and 5
+    idx_c, signs_c = engine.corrupt_planes(draws.hit, draws.site, draws.bits,
+                                           idx.reshape(k, -1), signs.reshape(k, -1), fv)
+    theta = torch.where(bad, torch.full_like(scales, float("nan")), scales)
+    ok = torch.isfinite(theta)
+    w_ok = torch.where(ok, w, torch.zeros_like(w))
+    w_ok = w_ok / w_ok.sum()
+    theta_c = torch.where(ok, theta, torch.zeros_like(theta))
+    idx_c, signs_c = idx_c.reshape(k, m, 128), signs_c.reshape(k, m, 128)
+    assert not torch.equal(idx_c[2].to(torch.int32), idx[2].to(torch.int32))
+    sq.reset_launches()
+    got = sq.aggregate(idx_c, signs_c, theta_c, w_ok, q)
+    assert sq.launches["aggregate"] == 1
+    assert torch.equal(got, sq.aggregate_plain(idx_c, signs_c, theta_c, w_ok, q))
+    # the corrupted planes add nothing: the same sum over the clean planes
+    assert torch.equal(got, sq.aggregate_plain(idx, signs, theta_c, w_ok, q))
+
+
+def test_corrupt_planes_u16_card_equals_cpu(cuda):
+    from repro_torch.sim import engine
+    from repro_torch.sim.entropy import DeviceEntropy
+    from repro_torch.sim.scenario import FaultSpec
+
+    s, zpad = 8, 1984 * 128
+    gen = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, 2**16, (s, zpad), generator=gen, dtype=torch.int32).to(torch.uint16)
+    signs = (torch.rand((s, zpad), generator=gen) < 0.5).to(torch.uint8)
+    draws = DeviceEntropy(9, "cpu").fault_draws(0, s, s, zpad)
+    fv = torch.from_numpy(FaultSpec(corrupt_p=0.7, corrupt_frac=0.2).dyn_vector())
+    cpu = engine.corrupt_planes(draws.hit, draws.site, draws.bits, idx, signs, fv)
+    card = engine.corrupt_planes(draws.hit.to(cuda), draws.site.to(cuda), draws.bits.to(cuda),
+                                 idx.to(cuda), signs.to(cuda), fv.to(cuda))
+    assert card[0].dtype == torch.uint16
+    for a, b in zip(cpu, card):
+        assert torch.equal(a.to(torch.int32), b.cpu().to(torch.int32))
+    assert not torch.equal(cpu[0].to(torch.int32), idx.to(torch.int32))
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"scenario": "cellfree_a4"}, {"scenario": "noniid_a01"}, {"downlink": "delta"},
+    {"scenario": "single_bs_faulty", "downlink": "quant"},
+], ids=["cellfree", "noniid", "downlink-delta", "faulty-quant"])
+def test_engine_options_launch_aggregate_once_per_round(deterministic_cudnn, kwargs):
+    """Scenarios, the downlink and faults on the card: one ``aggregate``
+    launch per round, and the compiled run equals its host replay."""
+    from repro_torch.sim import build_sim
+
+    kw = dict(n_clients=8, n_channels=4, seed=0, n_test=32, **kwargs)
+    sim = build_sim("tiny", **kw)
+    sq.reset_launches()
+    res = sim.run_compiled(3)
+    assert sq.launches["aggregate"] == 3
+    assert res.n_scheduled.max() > 0 and torch.isfinite(sim.final_flat).all()
+    host_sim = build_sim("tiny", **kw)
+    host = host_sim.run_host_policy(host_sim.make_host_policy(), 3)
+    np.testing.assert_array_equal(res.q_levels, np.stack([r.q_levels for r in host.records]))
+    assert torch.equal(sim.final_flat, host_sim.final_flat)
+
+
+def test_segmented_resume_on_card(deterministic_cudnn, tmp_path):
+    """The card's generator state checkpoints and restores: segmented and
+    resumed runs equal the unsegmented one bit for bit."""
+    from repro_torch.sim import build_sim
+    from repro_torch.sim.scenario import FaultSpec
+
+    kw = dict(n_clients=8, n_channels=4, seed=0, n_test=32, downlink="delta",
+              faults=FaultSpec(outage_p=0.2, corrupt_p=0.2, nan_p=0.1))
+    full_sim = build_sim("tiny", **kw)
+    full = full_sim.run_compiled(6)
+    seg_sim = build_sim("tiny", **kw)
+    seg = seg_sim.run_compiled(6, segment=2, ckpt_dir=str(tmp_path))
+    res_sim = build_sim("tiny", **kw)
+    resumed = res_sim.resume_compiled(str(tmp_path))
+    for other, flat in ((seg, seg_sim.final_flat), (resumed, res_sim.final_flat)):
+        for f in ("energy", "accuracy", "q_levels", "lambda1", "lambda2"):
+            np.testing.assert_array_equal(getattr(full, f), getattr(other, f), err_msg=f)
+        assert torch.equal(full_sim.final_flat, flat)

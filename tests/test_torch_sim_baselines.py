@@ -35,7 +35,7 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.sim import engine as teng
 from repro_torch.sim import policy as tpol
 from repro_torch.sim import search as tsearch
-from torch_replay import ReplayEntropy, jax_ga_draws
+from torch_replay import ReplayEntropy, jax_ga_draws, one_torch_thread  # noqa: F401 (autouse fixture)
 
 JSYSP, TSYSP = JSystemParams(), SystemParams()
 SEED, U, ROUNDS = 21, 8, 6

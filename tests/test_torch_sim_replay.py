@@ -39,7 +39,7 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.sim import engine as teng
 from repro_torch.sim import policy as tpol
 from repro_torch.sim import search as tsearch
-from torch_replay import ReplayEntropy, jax_ga_draws
+from torch_replay import ReplayEntropy, jax_ga_draws, one_torch_thread  # noqa: F401 (autouse fixture)
 
 JSYSP, TSYSP = JSystemParams(), SystemParams()
 GA_KW = dict(generations=4, population=8, elitism=2, repair_infeasible=True)

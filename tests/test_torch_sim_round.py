@@ -26,7 +26,7 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.sim import engine as teng
 from repro_torch.sim import fleet as tfleet
 from repro_torch.sim.entropy import DeviceEntropy
-from torch_replay import ReplayEntropy, batch_indices
+from torch_replay import ReplayEntropy, batch_indices, one_torch_thread  # noqa: F401 (autouse fixture)
 
 U, C, ROUNDS, SEED = 8, 4, 3, 0
 
@@ -147,16 +147,7 @@ def test_default_entropy_runs_and_is_seeded():
     assert int(idx[1].max()) <= 6 and int(idx[2].max()) <= 299 and int(idx.min()) >= 0
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"downlink": "delta"}, {"scenario": "single_bs"}, {"downlink": "quant"},
-    {"faults": object()}, {"telemetry": object()},
-], ids=["downlink_delta", "scenario", "downlink", "faults", "telemetry"])
+@pytest.mark.parametrize("kwargs", [{"telemetry": object()}], ids=["telemetry"])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         teng.build_sim("tiny", n_clients=4, n_channels=2, n_test=8, device="cpu", **kwargs)
-
-
-def test_segmented_run_raises():
-    sim = teng.build_sim("tiny", n_clients=4, n_channels=2, n_test=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sim.run_compiled(2, segment=1)

@@ -26,7 +26,7 @@ from repro.wireless.channel import ChannelModel, ChannelParams
 from repro_torch.core.genetic import GAConfig, SystemParams
 from repro_torch.sim import search as tsearch
 from repro_torch.sim.entropy import DeviceEntropy
-from torch_replay import jax_ga_draws
+from torch_replay import jax_ga_draws, one_torch_thread  # noqa: F401 (autouse fixture)
 
 JSYSP, TSYSP = JSystemParams(), SystemParams()
 

@@ -4,17 +4,38 @@ module itself).
 
 ``ReplayEntropy`` hands ``repro_torch.sim.engine`` the JAX engine's draws
 for round ``ridx``: the round key ``split(PRNGKey(seed + 1), N)[ridx]``
-split into channel / batch / quantizer keys, and the GA's record from
-``fold_in(round_key, GA_KEY_TAG)`` (``jax_ga_draws``).
+split into channel / batch / quantizer keys, the GA's record from
+``fold_in(round_key, GA_KEY_TAG)`` (``jax_ga_draws``), the fault draws from
+``fault_keys(round_key)`` (``jax_fault_draws``) and the downlink's uniforms
+from ``fold_in(round_key, DOWNLINK_KEY_TAG)``; and the set-up draws of a
+cell-free scenario from ``fold_in(PRNGKey(seed), DROP_KEY_TAG)`` (the drop)
+and ``fold_in(PRNGKey(seed), PROBE_KEY_TAG)`` (the eps probe's normals).
+
+``one_torch_thread`` is a module fixture the suites import: their torch work
+is tiny ops, and under pytest-xdist each worker's idle OpenMP threads spin
+against the other workers' (the new sim suites ran ~4x slower in wall time
+with the default thread count).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.sim import channel as jch
+from repro.sim import engine as jeng
 from repro.sim import search as jsearch
-from repro_torch.sim.entropy import GADraws
+from repro_torch.sim.entropy import FaultDraws, GADraws
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread for the importing test module, restored
+    after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def batch_indices(key, n_s, tau, batch_size):
@@ -61,6 +82,26 @@ def jax_ga_draws(key, n_clients, n_channels, cfg) -> GADraws:
                    mut_val=t64(mut_val))
 
 
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def jax_fault_draws(round_key, n_clients, s, zpad) -> FaultDraws:
+    """The draws ``repro.sim.engine``'s fault helpers make from
+    ``fault_keys(round_key)``: outage, fade, burst, corrupt (hit, site,
+    bytes)."""
+    k_out, k_fade, k_corr, k_burst = jeng.fault_keys(round_key)
+    k_hit, k_site, k_bits = jax.random.split(k_corr, 3)
+    return FaultDraws(
+        outage=_t(jax.random.uniform(k_out, (n_clients,))),
+        fade=_t(jax.random.uniform(k_fade, (n_clients,))),
+        burst=_t(jax.random.uniform(k_burst, (s,))),
+        hit=_t(jax.random.uniform(k_hit, (s,))),
+        site=_t(jax.random.uniform(k_site, (s, zpad))),
+        bits=_t(jax.random.randint(k_bits, (s, zpad), 0, 256, jnp.int32)),
+    )
+
+
 class ReplayEntropy:
     """The JAX engine's per-round draws (``_scan_xs`` round keys), handed
     to the port as tensors through the entropy seam."""
@@ -89,3 +130,21 @@ class ReplayEntropy:
     def uniforms(self, ridx, s, zpad):
         return torch.tensor(np.asarray(
             jax.random.uniform(self._split(ridx)[2], (s, zpad), jnp.float32)))
+
+    def fault_draws(self, ridx, n_clients, s, zpad):
+        return jax_fault_draws(self.keys[ridx], n_clients, s, zpad)
+
+    def downlink_uniforms(self, ridx, z):
+        key = jax.random.fold_in(self.keys[ridx], jeng.DOWNLINK_KEY_TAG)
+        return _t(jax.random.uniform(key, (z,), jnp.float32))
+
+    def drop_uniforms(self, n_clients):
+        key = jax.random.fold_in(jax.random.PRNGKey(self.jsim.seed), jeng.DROP_KEY_TAG)
+        k_r, k_phi = jax.random.split(key)
+        return (_t(jax.random.uniform(k_r, (n_clients,))),
+                _t(jax.random.uniform(k_phi, (n_clients,))))
+
+    def probe_normals(self, shape):
+        key = jax.random.fold_in(jax.random.PRNGKey(self.jsim.seed), jeng.PROBE_KEY_TAG)
+        kx, ky = jax.random.split(key)
+        return _t(jax.random.normal(kx, shape)), _t(jax.random.normal(ky, shape))
