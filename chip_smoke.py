@@ -6,21 +6,25 @@
 Phases, each timed and printed on its own line; any failure exits non-zero:
 
   1. environment: card name and power limit, torch/CUDA versions; TF32 off
-     for convolutions and matmuls (parity is checked in full fp32);
+     for convolutions and matmuls (the kernels' parity checks run in full
+     fp32; the fleet engine fixes its own numeric mode whatever is set);
   2. build the CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
      (one nvcc per source, all at once, into ``build/repro_torch_kernels/``);
      print ptxas's registers and spills, the wgmma flash kernel's shared
      memory per CTA and the count of HGMMA (tensor-core) instructions in its
-     SASS, and require HGMMAs and no spills there;
+     SASS, and require HGMMAs there and no spills in either flash kernel;
   3. every kernel against its plain torch version on the card, at the
      shapes of the paths below: max abs error, and times beside the bound,
      the plain version's time and, for flash attention, the time of
      ``scaled_dot_product_attention`` on the same inputs (timed only; the
-     port never calls it). Flash attention is checked in bf16 (the wgmma
-     kernel) and fp32 (the SIMT kernel) at Llama-3-8B's serve shape,
-     StarCoder2-7B's heads with its 4096 window at S = 8192, and a
-     non-causal ragged shape; at the serve shape bf16 inputs that TMA cannot
-     describe (one element off alignment) time the SIMT kernel beside it;
+     port never calls it). ``dequantize`` runs its 4-element kernel on
+     aligned planes and its one-element kernel on a view 3 bytes off, both
+     bit-equal, beside an empty kernel's device time (the launch floor).
+     Flash attention is checked in bf16 (the wgmma kernel) and fp32 (the
+     SIMT kernel, cp.async loads) at Llama-3-8B's serve shape, StarCoder2-7B's
+     heads (g = 9) with its 4096 window at S = 8192, and a non-causal ragged
+     shape; at each, bf16 inputs that TMA cannot describe (one element off
+     alignment) time the SIMT kernel's register-staged loads beside it;
   4. the main path: ``build_sim("femnist", n_clients=1024, n_channels=8)``
      on the card, 5 QCCF rounds of ``run_compiled`` at the full FEMNIST
      CNN width (Z = 246,590), with ``aggregate`` launched once per round;
@@ -36,9 +40,13 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      3 rounds each, ``aggregate`` once per round): the ``cellfree_a4``
      drop, ``single_bs_faulty``, ``downlink="quant"`` and ``"delta"``, an
      aggressive ``FaultSpec`` (every fault channel fires, the model stays
-     finite), ``noniid_a01`` on its own Dirichlet(0.1) data; a segmented run
-     with checkpoints and a resume from the round-4 checkpoint, bit-equal to
-     the unsegmented run; tiny card-vs-CPU references (faults, downlink,
+     finite), ``noniid_a01`` on its own Dirichlet(0.1) data; on one sim,
+     two unsegmented runs, a segmented run with checkpoints and a resume
+     from the round-4 checkpoint, all bit-equal; the engine's numeric scope
+     (a run with TF32 and autotuned cuDNN set globally bit-equal to one
+     without, the caller's flags restored, a convolution fp32-exact inside
+     the scope) and what deterministic cuDNN costs one greedy round's local
+     SGD; tiny card-vs-CPU references (faults, downlink,
      cell-free, the GA with the downlink) and run_compiled vs
      run_host_policy on the card under faults and under the downlink;
   6. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
@@ -203,24 +211,34 @@ def build_kernels():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}")
     _wgmma_build_report(*built["flash_attention_wgmma"])
+    _no_spills("flash_fwd_kernel (SIMT)", *built["flash_attention"])
+
+
+def _no_spills(what: str, path: Path, seconds: float, log: str) -> None:
+    """A kernel library built in this run spills no register (ptxas): a
+    spill in a kernel loop waits on local memory where it stands."""
+    if seconds == 0:
+        print(f"{what}: spills not checked (library reused)")
+        return
+    spills = [line.strip() for line in log.splitlines() if "spill" in line]
+    require(spills and all(line.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                            "0 bytes spill loads") for line in spills),
+            f"{what} spills: {spills}")
+    print(f"{what}: no spills in its {len(spills)} instantiations (ptxas)")
 
 
 def _wgmma_build_report(path: Path, seconds: float, log: str) -> None:
-    """The wgmma flash kernel as built: no spills (from ptxas, when this
-    run built it), its dynamic shared memory per CTA, and the HGMMA
-    instructions in its SASS (cuobjdump of the toolkit that built it)."""
+    """The wgmma flash kernel as built: no spills (when this run built
+    it), its dynamic shared memory per CTA, and the HGMMA instructions in
+    its SASS (cuobjdump of the toolkit that built it)."""
     from repro_torch.kernels import build
 
-    spills = [line.strip() for line in log.splitlines() if "spill" in line]
-    if seconds > 0:
-        require(spills and all(line.startswith("0 bytes stack frame, 0 bytes spill stores, "
-                                                "0 bytes spill loads") for line in spills),
-                f"the wgmma flash kernel spills: {spills}")
+    _no_spills("flash_fwd_wgmma_kernel", path, seconds, log)
     lib = build.library("flash_attention_wgmma")
     print(f"flash_fwd_wgmma_kernel: dynamic shared memory per CTA "
           f"{lib.faw_shared_bytes(128)} B (hd 65-128), {lib.faw_shared_bytes(64)} B "
           f"(hd <= 64); 384 threads, setmaxnreg 240 (two consumer warpgroups) / 24 "
-          f"(producer); spills: {'none' if seconds > 0 else 'not checked (library reused)'}")
+          f"(producer)")
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(path)],
                           capture_output=True, text=True, timeout=300)
@@ -257,6 +275,7 @@ def _agg_inputs(k: int, m: int, q_max: int, dtype, gen):
 @phase("kernels vs plain on the card")
 def kernels_vs_plain(zpad: int, wire_m: int):
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import stochastic_quant as sq
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -321,9 +340,28 @@ def kernels_vs_plain(zpad: int, wire_m: int):
         plain_ms=cuda_ms(lambda: sq.quantize_plain(x, rbits, scale, 4), 50),
         bound_ms=b_ms, bound_by=b_by,
     )
+    # dequantize's two variants: 4 elements per thread on aligned planes (the
+    # wire entry point's), one per thread on a view 3 bytes off
+    buf = torch.empty(i4.numel() + 16, dtype=torch.uint8, device="cuda")
+    i4_off = buf[3:3 + i4.numel()].view(i4.shape)
+    i4_off.copy_(i4)
+    out_probe = torch.empty(i4.shape, device="cuda")
+    require(sq.dequantize_variant(i4, s4, out_probe) == "vec4"
+            and sq.dequantize_variant(i4_off, s4, out_probe) == "scalar",
+            "dequantize variants: aligned planes must take vec4, an offset view scalar")
+    require(torch.equal(sq.dequantize(i4_off, s4, scale, 4), sq.dequantize_plain(i4, s4, scale, 4)),
+            "dequantize of an offset view (scalar kernel) is not bit-equal to its plain version")
+    off_ms = kernel_ms(lambda: sq.dequantize(i4_off, s4, scale, 4), "dequantize_kernel")
+    lib = build.library("stochastic_quant")
+    dev, stream = torch.cuda.current_device(), build.stream(torch.device("cuda"))
+    empty_ms = kernel_ms(lambda: build.check("stochastic_quant", "empty",
+                                             lib.sq_empty(dev, stream)), "empty_kernel")
+    print(f"dequantize M={wire_m} q=4 on a view 3 bytes off (one element per thread): "
+          f"{off_ms * 1e3:.2f} us (profiler), bit-equal to plain; an empty kernel: "
+          f"{empty_ms * 1e3:.2f} us (profiler), the floor of any launch")
     b_ms, b_by = bound(n * 6 + 4, 3.0 * n)
     report["dequantize"] = dict(
-        shape=f"M={wire_m} q=4", max_abs_err=d_err, kernel="dequantize_kernel",
+        shape=f"M={wire_m} q=4", max_abs_err=d_err, kernel="dequantize_kernel_vec4",
         call=lambda: sq.dequantize(i4, s4, scale, 4),
         plain_ms=cuda_ms(lambda: sq.dequantize_plain(i4, s4, scale, 4), 50),
         bound_ms=b_ms, bound_by=b_by,
@@ -598,13 +636,13 @@ def scenarios(sim):
 
 
 def _segments(sim, faults, downlink) -> dict:
-    """run_compiled(6) against run_compiled(6, segment=2, ckpt_dir) and a
-    fresh sim's resume_compiled from the round-4 checkpoint, under the
-    faulty scenario's faults and the delta downlink (every carry slot and
-    the generator state). cuDNN may pick a convolution algorithm that
-    accumulates in a varying order, so bit-equality is checked with its
-    deterministic algorithms on; the default's run-to-run equality is
-    printed beside it."""
+    """On one sim, under the faulty scenario's faults and the delta downlink
+    (every carry slot and the generator state): run_compiled(6) twice, then
+    run_compiled(6, segment=2, ckpt_dir) and resume_compiled from the
+    round-4 checkpoint; all four bit-equal. Each run starts from the sim's
+    own generator state and runs in the engine's fixed numeric mode (fp32,
+    cuDNN's deterministic algorithms), so no fresh sim and no flag of the
+    caller's is needed."""
     import tempfile
     from unittest import mock
 
@@ -612,19 +650,11 @@ def _segments(sim, faults, downlink) -> dict:
     import torch
     from repro_torch.sim import engine
 
-    def make():
-        return _sim_for(sim, "greedy", 8, faults=faults, downlink=downlink)
-
     fields = ("energy", "accuracy", "loss", "q_levels", "rates", "lambda1", "lambda2")
 
     def same(a, b):
         return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in fields)
 
-    a_sim, b_sim = make(), make()
-    a, b = a_sim.run_compiled(6), b_sim.run_compiled(6)
-    default_equal = same(a, b) and torch.equal(a_sim.final_flat, b_sim.final_flat)
-    print(f"segments: two unsegmented 6-round runs with cuDNN's default algorithms "
-          f"{'bit-equal' if default_equal else 'NOT bit-equal'}")
     saves = []
     real_save = engine.ckpt.save_checkpoint
 
@@ -634,33 +664,123 @@ def _segments(sim, faults, downlink) -> dict:
         saves.append((time.perf_counter() - t0, Path(path).stat().st_size))
         return path
 
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        full_sim = make()
-        full = full_sim.run_compiled(6)
-        with tempfile.TemporaryDirectory() as tmp, \
-                mock.patch.object(engine.ckpt, "save_checkpoint", timed_save):
-            seg_sim = make()
-            seg = seg_sim.run_compiled(6, segment=2, ckpt_dir=tmp)
-            res_sim = make()
-            resumed = res_sim.resume_compiled(tmp)
-    finally:
-        torch.backends.cudnn.deterministic = prev
-    require(same(full, seg) and torch.equal(full_sim.final_flat, seg_sim.final_flat),
-            "segmented run differs from the unsegmented one")
-    require(same(full, resumed) and torch.equal(full_sim.final_flat, res_sim.final_flat),
+    seg_sim = _sim_for(sim, "greedy", 8, faults=faults, downlink=downlink)
+    full = seg_sim.run_compiled(6)
+    full_flat = seg_sim.final_flat.clone()
+    again = seg_sim.run_compiled(6)
+    require(same(full, again) and torch.equal(full_flat, seg_sim.final_flat),
+            "two run_compiled(6) calls on one sim differ")
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(engine.ckpt, "save_checkpoint", timed_save):
+        seg = seg_sim.run_compiled(6, segment=2, ckpt_dir=tmp)
+        require(same(full, seg) and torch.equal(full_flat, seg_sim.final_flat),
+                "segmented run differs from the unsegmented one")
+        resumed = seg_sim.resume_compiled(tmp)
+    require(same(full, resumed) and torch.equal(full_flat, seg_sim.final_flat),
             "resumed run differs from the unsegmented one")
     # the resume runs rounds 4-5, the last segment, which writes none
     require(len(saves) == 2, f"{len(saves)} checkpoints written, want after rounds 2 and 4")
     for (sec, size), step in zip(saves, (2, 4)):
         print(f"segments: checkpoint after round {step}: {size / 1e6:.3f} MB npz in "
               f"{sec * 1e3:.2f} ms")
-    print("segments (cuDNN deterministic): run_compiled(6, segment=2, ckpt_dir) and "
-          "resume_compiled from the round-4 checkpoint bit-equal to run_compiled(6) "
-          f"(q, schedule, energy, accuracy, queues, final parameters); scheduled "
-          f"{full.n_scheduled.tolist()}")
-    return dict(default_bit_equal=default_equal, saves=saves)
+    print("segments, one sim: run_compiled(6) twice, run_compiled(6, segment=2, ckpt_dir) and "
+          "resume_compiled from the round-4 checkpoint all bit-equal (q, schedule, energy, "
+          f"accuracy, queues, final parameters); scheduled {full.n_scheduled.tolist()}")
+    return dict(saves=saves)
+
+
+def _numeric_flags():
+    """The four flags a caller may set that change a run's convolutions."""
+    import torch
+
+    return ((torch.backends.cudnn, "allow_tf32"), (torch.backends.cuda.matmul, "allow_tf32"),
+            (torch.backends.cudnn, "deterministic"), (torch.backends.cudnn, "benchmark"))
+
+
+def _flag_values() -> list:
+    return [getattr(mod, name) for mod, name in _numeric_flags()]
+
+
+def _set_flags(values) -> None:
+    for (mod, name), value in zip(_numeric_flags(), values):
+        setattr(mod, name, value)
+
+
+@phase("numeric scope: the engine's fp32 and deterministic cuDNN, whatever the caller set")
+def numeric_scope(sim) -> dict:
+    """A greedy run with TF32 and cuDNN's autotuned algorithms set globally
+    is bit-equal to one under this script's flags, and the caller's flags
+    come back; a convolution inside the engine's scope is fp32-exact where
+    the same one under global TF32 is not; and what cuDNN's deterministic
+    algorithms cost one greedy round's local SGD (S = 8 slots, tau = 6,
+    batch 32 at the FEMNIST width), against its default algorithms, TF32
+    off in both."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.device import exact_fp32
+    from repro_torch.sim.entropy import DeviceEntropy
+    from repro_torch.sim.fleet import fleet_local_sgd, gather_active
+
+    fields = ("energy", "accuracy", "loss", "q_levels", "rates", "lambda1", "lambda2")
+    psim = _sim_for(sim, "greedy", 8)
+    ours = _flag_values()
+    exact = psim.run_compiled(3)
+    exact_flat = psim.final_flat.clone()
+    loose = [True, True, False, True]
+    _set_flags(loose)
+    try:
+        res = psim.run_compiled(3)
+        after = _flag_values()
+    finally:
+        _set_flags(ours)
+    require(after == loose, f"the run left the caller's flags {loose} as {after}")
+    require(all(np.array_equal(getattr(exact, f), getattr(res, f)) for f in fields)
+            and torch.equal(exact_flat, psim.final_flat),
+            "a run under global TF32 and autotuned cuDNN differs from one under fp32 flags")
+    print(f"greedy run_compiled(3) with {dict(zip(['cudnn.allow_tf32', 'matmul.allow_tf32', 'deterministic', 'benchmark'], loose))} set "
+          "globally: bit-equal to the run under TF32-off flags; the caller's flags restored")
+
+    # a convolution of the CNN's shape inside and outside the scope, against fp64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((32, 32, 28, 28), generator=gen, device="cuda")
+    w = torch.randn((64, 32, 5, 5), generator=gen, device="cuda") * 0.05
+    want = F.conv2d(x.double().cpu(), w.double().cpu(), padding=2)
+    _set_flags(loose)
+    try:
+        tf32 = F.conv2d(x, w, padding=2).double().cpu()
+        with exact_fp32():
+            fp32 = F.conv2d(x, w, padding=2).double().cpu()
+    finally:
+        _set_flags(ours)
+    scale = want.abs().max().item()
+    err_fp32 = (fp32 - want).abs().max().item() / scale
+    err_tf32 = (tf32 - want).abs().max().item() / scale
+    require(err_fp32 < 1e-5, f"conv inside the engine's scope: rel err {err_fp32:.2e} (not fp32)")
+    print(f"conv2d (32x32x28x28, 5x5x64) vs fp64, relative to max |out|: inside the scope "
+          f"{err_fp32:.2e}, under global TF32 {err_tf32:.2e}")
+
+    # the cost of deterministic cuDNN in one greedy round's local SGD
+    slots = torch.arange(FEMNIST_C, device="cuda")
+    x_s, y_s, n_s = gather_active(sim.fleet, slots)
+    bidx = DeviceEntropy(5, "cuda").batch_indices(0, n_s, sim.sysp.tau, sim.batch_size)
+    params = sim.unravel(sim.flat0)
+
+    def sgd():
+        return fleet_local_sgd(sim.loss_fn, sim.sysp.tau, params, x_s, y_s, bidx, sim.lr)
+
+    times = {True: [], False: []}
+    with torch.no_grad():
+        for det in (True, False, False, True):    # in turns
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=det,
+                                            allow_tf32=False):
+                times[det].append(cuda_ms(sgd, 10, warmup=2))
+    det_ms, def_ms = (float(np.mean(times[k])) for k in (True, False))
+    print(f"fleet_local_sgd of one greedy round (S={FEMNIST_C}, tau={sim.sysp.tau}, batch "
+          f"{sim.batch_size}, TF32 off): deterministic cuDNN {det_ms:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times[True])}), default algorithms {def_ms:.3f} ms "
+          f"({', '.join(f'{t:.3f}' for t in times[False])}): {det_ms / def_ms - 1:+.1%}")
+    return dict(sgd_deterministic_ms=det_ms, sgd_default_ms=def_ms)
 
 
 SCENARIO_REFERENCES = (
@@ -1041,6 +1161,8 @@ def flash_vs_plain():
             out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
             require(fa.launches[f"flash_attention_{route}"] == 1,
                     f"flash {name} {dtype} did not take the {route} route: {fa.launches}")
+            require(dtype != torch.float32 or fa._load_variant(q, k, v) == "async",
+                    f"flash {name}: contiguous fp32 must take the async loads")
             want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
             torch.cuda.synchronize()
             err, lse_err = _flash_errors(f"flash {name} {dtype}", out, lse, want, want_lse)
@@ -1057,8 +1179,9 @@ def flash_vs_plain():
                 lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 20)
             elif name == "llama3_8b serve":
                 lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 3, warmup=1)
+            variant = f", {fa._load_variant(q, k, v)} loads" if route == "simt" else ""
             print(f"flash {name} B={b} S={s} T={t} H={h}/{kv} hd={hd} causal={causal} "
-                  f"window={window} {str(dtype)[6:]} ({route}): max_abs_err={err:.3e} "
+                  f"window={window} {str(dtype)[6:]} ({route}{variant}): max_abs_err={err:.3e} "
                   f"(tol rtol {FLASH_TOL[str(dtype)[6:]][0]:g} atol "
                   f"{FLASH_TOL[str(dtype)[6:]][1]:g}), lse err {lse_err:.3e}; "
                   f"kernel {k_ms:.3f} ms (profiler), bound {b_ms:.3f} ms ({b_by}), "
@@ -1068,8 +1191,11 @@ def flash_vs_plain():
                 report[f"flash_attention_{route}"] = dict(
                     max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
-                if dtype == torch.bfloat16:
-                    _simt_bf16_beside(q, k, v, kw, want, want_lse)
+            if dtype == torch.bfloat16:
+                # the SIMT kernel's operations are fp32 FMAs: its bound is at the fp32 rate
+                simt_bound, _ = bound((q.numel() + k.numel() + v.numel() + out.numel()) * esz,
+                                      4.0 * b * h * hd * pairs, FP32_FLOPS)
+                _simt_bf16_beside(q, k, v, kw, want, want_lse, simt_bound, lib_ms)
             del q, k, v, out, lse, want, want_lse
         del base
     torch.cuda.empty_cache()
@@ -1089,10 +1215,11 @@ def _flash_errors(label, out, lse, want, want_lse) -> tuple[float, float]:
     return err.max().item(), lse_err.max().item()
 
 
-def _simt_bf16_beside(q, k, v, kw, want, want_lse):
+def _simt_bf16_beside(q, k, v, kw, want, want_lse, bound_ms, sdpa_ms):
     """The SIMT kernel on the same bf16 inputs, copied one element off
-    16-byte alignment so that TMA cannot describe them: checked and timed
-    beside the wgmma kernel in this run."""
+    16-byte alignment so that TMA cannot describe them (register-staged
+    loads): checked and timed beside the wgmma kernel in this run, with its
+    fp32-rate bound and the bf16 SDPA time beside it."""
     from repro_torch.kernels import flash_attention as fa
 
     def shifted(x):
@@ -1105,9 +1232,11 @@ def _simt_bf16_beside(q, k, v, kw, want, want_lse):
     require(fa._kernel_route(qs, ks, vs) == "simt", "shifted bf16 inputs did not route to simt")
     out, lse = fa.flash_attention(qs, ks, vs, with_lse=True, **kw)
     err, _ = _flash_errors("flash serve bf16 (simt)", out, lse, want, want_lse)
+    require(fa._load_variant(qs, ks, vs) == "sync", "misaligned bf16 must take the sync loads")
     ms = kernel_ms(lambda: fa.flash_attention(qs, ks, vs, **kw), "flash_fwd_kernel", iters=3)
-    print(f"  the SIMT kernel on the same bf16 inputs, misaligned: {ms:.3f} ms (profiler), "
-          f"max_abs_err={err:.3e}", flush=True)
+    print(f"  the SIMT kernel on the same bf16 inputs, misaligned (sync loads): {ms:.3f} ms "
+          f"(profiler), bound {bound_ms:.3f} ms (fp32 operations), scaled_dot_product_attention "
+          f"{sdpa_ms:.3f} ms (bf16, aligned), max_abs_err={err:.3e}", flush=True)
 
 
 # ---------------------------------------------------------------- serve path
@@ -1325,6 +1454,7 @@ def main() -> int:
     sim, main_launches = main_path()
     policies(sim)
     scenarios(sim)
+    numeric_scope(sim)
     scenario_references()
     small_reference()
     replay_reference()

@@ -43,12 +43,17 @@ LIBRARIES = {
         # idx, signs, scale, out, n, levels, 1 / levels, device, stream
         "sq_dequantize": (_PTR, _PTR, _PTR, _PTR, _I64, ctypes.c_float,
                           ctypes.c_float, _INT, _PTR),
+        "sq_dequantize_vec4": (_PTR, _PTR, _PTR, _PTR, _I64, ctypes.c_float,
+                               ctypes.c_float, _INT, _PTR),
+        # device, stream: one launch of an empty kernel (the launch floor)
+        "sq_empty": (_INT, _PTR),
     }),
     "flash_attention": ("fa_error_string", {
         # q, k, v, out, lse, q/k/v strides (batch, position, head),
-        # batch, s, t, h, kv heads, hd, causal, window, scale, is_bf16, device, stream
+        # batch, s, t, h, kv heads, hd, causal, window, scale, is_bf16,
+        # async_loads (flash_attention._load_variant), device, stream
         "fa_forward": (_PTR, _PTR, _PTR, _PTR, _PTR, *(_I64,) * 9, *(_INT,) * 8,
-                       ctypes.c_float, _INT, _INT, _PTR),
+                       ctypes.c_float, _INT, _INT, _INT, _PTR),
     }),
     "flash_attention_wgmma": ("faw_error_string", {
         # q, k, v, out, lse, 3 x 11 tensor-map plans (flash_attention.tma_plan),

@@ -13,8 +13,11 @@
 // All three are elementwise or short per-element reductions on a flat
 // (M * 128) wire layout, so each is bound by device-memory bytes, not by
 // arithmetic (a few flops per byte moved against the H100's ~20 flop/byte
-// fp32 ridge). The design is the plain one: one thread per output element,
-// neighbouring threads on neighbouring bytes so every warp load coalesces.
+// fp32 ridge). quantize and aggregate are the plain design: one thread per
+// output element, neighbouring threads on neighbouring bytes so every warp
+// load coalesces. dequantize was redesigned to 4 elements per thread (one
+// word of each plane in, one float4 out), with the one-element kernel kept
+// for views that are not aligned for it (see below).
 // The TPU's (block_m, 128) VMEM tiling has no role here; a ragged tail is
 // masked instead of padded.
 //
@@ -96,7 +99,25 @@ __global__ void quantize_kernel(const float* __restrict__ x,
 // multiplies by the fp32 reciprocal of L, as the Pallas kernel does once
 // XLA has rewritten its division by the constant L.
 // Byte bound: 1 + 1 read + 4 written = 6 B per element; 262,144 elements
-// -> 1.6 MB, ~0.5 us at 3.35 TB/s.
+// (M = 2048) -> 1.6 MB, ~0.47 us at 3.35 TB/s, under the ~0.9 us an empty
+// kernel takes on the card: the time is a launch and one memory round trip.
+// The redesign (dequantize_kernel_vec4) gives each thread 4 elements: one
+// 4-byte load of idx, one of signs, one 16-byte store, every access of a
+// warp contiguous, and n / 4 threads (256 blocks of 256 at M = 2048).
+// Measured against it (scripts/dequantize_layouts.py): 16 elements per
+// thread from one 16-byte load each is slower, since a lane's four float4
+// stores are 64 bytes apart from its neighbours' and a quarter of the
+// threads hide less latency. The wire layout is (M, 128), so n is a
+// multiple of 4; the wrapper takes the vec4 kernel for idx and signs on
+// 4-byte and out on 16-byte boundaries, and gives any other view to the
+// one-element-per-thread dequantize_kernel. Both do the same two rounded
+// multiplies per element, bit-equal to the plain version.
+__device__ __forceinline__ float dequant_one(unsigned int i, unsigned int sign, float levels,
+                                             float step) {
+  const float mag = __fmul_rn(fminf(static_cast<float>(i), levels), step);
+  return sign ? -mag : mag;
+}
+
 __global__ void dequantize_kernel(const uint8_t* __restrict__ idx,
                                   const uint8_t* __restrict__ signs,
                                   const float* __restrict__ scale_p,
@@ -105,9 +126,28 @@ __global__ void dequantize_kernel(const uint8_t* __restrict__ idx,
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n) return;
   const float step = __fmul_rn(__ldg(scale_p), inv_levels);
-  const float mag = __fmul_rn(fminf(static_cast<float>(idx[e]), levels), step);
-  out[e] = signs[e] ? -mag : mag;
+  out[e] = dequant_one(idx[e], signs[e], levels, step);
 }
+
+__global__ void dequantize_kernel_vec4(const uint32_t* __restrict__ idx,
+                                       const uint32_t* __restrict__ signs,
+                                       const float* __restrict__ scale_p,
+                                       float4* __restrict__ out,
+                                       int64_t n4, float levels, float inv_levels) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= n4) return;
+  const float step = __fmul_rn(__ldg(scale_p), inv_levels);
+  const uint32_t iw = __ldg(idx + v), sw = __ldg(signs + v);
+  // element 4v + j is byte j of the little-endian word
+  out[v] = make_float4(dequant_one(iw & 0xffu, sw & 0xffu, levels, step),
+                       dequant_one((iw >> 8) & 0xffu, (sw >> 8) & 0xffu, levels, step),
+                       dequant_one((iw >> 16) & 0xffu, (sw >> 16) & 0xffu, levels, step),
+                       dequant_one(iw >> 24, sw >> 24, levels, step));
+}
+
+// No work: its device time is the floor of any launch on this card, the
+// yardstick a kernel of a few microseconds is read against.
+__global__ void empty_kernel() {}
 
 // The library keeps its own (static) CUDA runtime, whose current device is
 // not the caller's: select the tensors' device before each launch.
@@ -162,6 +202,30 @@ int sq_dequantize(const void* idx, const void* signs, const void* scale,
   dequantize_kernel<<<n_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(idx), static_cast<const uint8_t*>(signs),
       static_cast<const float*>(scale), static_cast<float*>(out), n, levels, inv_levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n a multiple of 4; idx and signs 4-byte, out 16-byte aligned (the
+// wrapper checks).
+int sq_dequantize_vec4(const void* idx, const void* signs, const void* scale,
+                       void* out, int64_t n, float levels, float inv_levels, int device,
+                       void* stream) {
+  if (n % 4 != 0 || (reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(signs)) % 4 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n4 = n / 4;
+  dequantize_kernel_vec4<<<n_blocks(n4), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(idx), static_cast<const uint32_t*>(signs),
+      static_cast<const float*>(scale), static_cast<float4*>(out), n4, levels, inv_levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sq_empty(int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,7 +28,11 @@ dtype, strides and data pointers), or raises:
            and byte strides): tensor cores fed by TMA, 128 query rows x
            64 keys per tile;
   "simt":  ``flash_fwd_kernel`` (``csrc/flash_attention.cu``), fp32, and
-           bf16 that TMA cannot describe: fp32 FMAs, 64 x 64 tiles.
+           bf16 that TMA cannot describe: fp32 FMAs, the g query heads of
+           a KV head folded into 128 rows, 128-key tiles streamed through
+           a 4-stage shared-memory ring; K/V come in by ``cp.async`` where
+           ``_load_variant`` allows it (fp32 with 16-byte aligned pointers
+           and strides), else through registers.
 
 Both keep s, m, l and the accumulator in fp32; the wgmma kernel feeds p to
 the tensor cores as two bf16 halves (``p_hi + p_lo``, 2^-16 relative), so
@@ -293,6 +297,26 @@ def _kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "simt"
 
 
+SIMT_ALIGN = 16   # bytes: one cp.async copy
+
+
+def _load_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """How the SIMT kernel streams K and V: ``"async"`` (``cp.async``
+    16-byte copies) for fp32 with hd a multiple of 4 and k, v whose data
+    pointers, and strides of every dim holding more than one element, are
+    multiples of 16 bytes; else ``"sync"`` (loads staged through registers:
+    every bf16 input, odd fp32 strides). A pure function of dtype, shapes,
+    strides and data pointers; it launches nothing."""
+    if q.dtype != torch.float32 or q.shape[3] % 4:
+        return "sync"
+    for x in (k, v):
+        es = x.element_size()
+        if x.data_ptr() % SIMT_ALIGN or any(
+                x.shape[d] > 1 and x.stride(d) * es % SIMT_ALIGN for d in range(3)):
+            return "sync"
+    return "async"
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, with_lse: bool = False,
@@ -330,7 +354,8 @@ def flash_attention(
                     q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
                     v.stride(0), v.stride(1), v.stride(2),
                     b, s, t, h, kvh, hd, int(causal), int(window), scale,
-                    int(q.dtype == torch.bfloat16), q.device.index or 0, build.stream(q.device),
+                    int(q.dtype == torch.bfloat16), int(_load_variant(q, k, v) == "async"),
+                    q.device.index or 0, build.stream(q.device),
                 )
         build.check(lib_name, f"flash_attention ({route})", err)
         launches["flash_attention"] += 1

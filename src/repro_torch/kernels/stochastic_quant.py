@@ -138,10 +138,22 @@ def dequantize_plain(idx: torch.Tensor, signs: torch.Tensor, scale: torch.Tensor
     return torch.where(signs > 0, -mag, mag)
 
 
+def dequantize_variant(idx: torch.Tensor, signs: torch.Tensor, out: torch.Tensor) -> str:
+    """``"vec4"`` (4 elements per thread: one 4-byte word of each plane in,
+    one 16-byte store out) when idx and signs start on 4-byte and out on
+    16-byte boundaries and they hold a multiple of 4 elements, else
+    ``"scalar"`` (one element per thread). A pure function of the data
+    pointers and sizes of contiguous planes; it launches nothing."""
+    aligned = (idx.data_ptr() % 4 == 0 and signs.data_ptr() % 4 == 0
+               and out.data_ptr() % 16 == 0)
+    return "vec4" if aligned and idx.numel() % 4 == 0 else "scalar"
+
+
 def dequantize(idx: torch.Tensor, signs: torch.Tensor, scale: torch.Tensor,
                q_bits: int) -> torch.Tensor:
     """idx and signs u8 (M, 128), scale 1-element fp32 -> (M, 128) fp32.
-    The clamp to 2^q - 1 keeps a corrupted plane inside [-scale, scale]."""
+    The clamp to 2^q - 1 keeps a corrupted plane inside [-scale, scale].
+    On the card the kernel's variant is :func:`dequantize_variant`'s."""
     if idx.ndim != 2 or idx.shape[1] != LANES:
         raise ValueError(
             f"dequantize expects lane-tiled (M, {LANES}) input, got idx {tuple(idx.shape)}")
@@ -153,8 +165,10 @@ def dequantize(idx: torch.Tensor, signs: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     if idx.numel():
         lib = build.library("stochastic_quant")
+        fn = (lib.sq_dequantize_vec4 if dequantize_variant(idx, signs, out) == "vec4"
+              else lib.sq_dequantize)
         with _profile_scope("cuda_dequantize"):
-            err = lib.sq_dequantize(
+            err = fn(
                 idx.data_ptr(), signs.data_ptr(), scale.data_ptr(), out.data_ptr(),
                 idx.numel(), float(2.0**q_bits - 1.0), _inv_levels(q_bits),
                 idx.device.index or 0, build.stream(idx.device),

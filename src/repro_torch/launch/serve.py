@@ -1,12 +1,14 @@
 """Serving launcher: batched greedy decode with the ring-buffer cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_7b \\
-        --batch 4 --context 96 --new-tokens 32
+        --batch 4 --context 96 --new-tokens 32 [--ckpt-dir DIR]
 
 The port of ``repro.launch.serve``, with its flags, for the dense family:
 :func:`generate` runs the prefill, then greedy argmax decode, one
 ``decode_step`` per token. ``main`` serves the reduced (smoke) variant of
-``--arch`` with random weights from ``--seed``, on ``cuda``.
+``--arch`` on ``cuda``, with random weights from ``--seed`` or the latest
+checkpoint in ``--ckpt-dir`` (the JAX package's or this package's
+``save_checkpoint`` of a parameter tree; loaded as fp32 copies).
 """
 from __future__ import annotations
 
@@ -68,16 +70,19 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoint loading is not ported yet (ROADMAP Queue 1, item 5)")
 
+    from repro_torch.ckpt import load_checkpoint
     from repro_torch.configs import get_reduced
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import init_params, params_from_numpy
 
     cfg = get_reduced(args.arch)
     dev = resolve_device(device)
-    params = init_params(cfg, args.seed, device=dev)
+    if args.ckpt_dir:
+        tree, meta = load_checkpoint(args.ckpt_dir)
+        params = params_from_numpy(tree, dev)
+        print(f"restored step {meta['step']}")
+    else:
+        params = init_params(cfg, args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
     ctx = rng.integers(0, cfg.vocab, (args.batch, args.context))
     gen = generate(cfg, params, ctx, args.new_tokens, device=dev)

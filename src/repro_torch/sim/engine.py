@@ -35,7 +35,11 @@ device. One round:
 ``make_host_policy``) make the decisions while the slot work runs through
 the same ``_exec_round`` as the compiled round. The round's random draws
 come from an entropy source (``repro_torch.sim.entropy``), in one order
-for both runs. ``run_compiled(n, segment=k, ckpt_dir=d)`` checkpoints the
+for both runs; each run starts from the source's state when the sim was
+built, so two runs of one sim are the same run. Every round runs in full
+fp32 with cuDNN's deterministic algorithms (``repro_torch.device.exact_fp32``),
+whatever flags the caller set, and the caller's flags come back after the
+run. ``run_compiled(n, segment=k, ckpt_dir=d)`` checkpoints the
 state at every segment boundary (``repro_torch.ckpt``), the entropy
 source's generator state included, and ``resume_compiled(d)`` finishes a
 run from its latest checkpoint. Telemetry and the ledger are not ported
@@ -64,7 +68,7 @@ from repro_torch.data.synthetic import (
     SyntheticImageTask, gaussian_sizes, hetero_kl, make_federated_datasets,
     make_test_set,
 )
-from repro_torch.device import resolve_device
+from repro_torch.device import exact_fp32, resolve_device
 from repro_torch.fl import baselines as fl_baselines
 from repro_torch.fl.experiment import TASKS, task_data_sizes
 from repro_torch.fl.trainer import ExperimentResult, RoundRecord
@@ -344,6 +348,11 @@ class FleetSim:
         self._eps = torch.tensor([self.eps1, self.eps2], dtype=torch.float32,
                                  device=self.device)
         self.entropy = DeviceEntropy(self.seed, self.device) if entropy is None else entropy
+        # a sequential source's state before any round: every run starts
+        # from it, as every JAX run starts from the same round keys (a
+        # replay source keyed by the round is stateless and has none)
+        stateful = hasattr(self.entropy, "get_state") and hasattr(self.entropy, "set_state")
+        self._entropy0 = self.entropy.get_state() if stateful else None
         self.downlink = DOWNLINK_OFF if downlink is None else downlink
         self.faults = FAULTS_OFF if faults is None else faults
         self._fv = (torch.tensor(self.faults.dyn_vector(), device=self.device)
@@ -566,6 +575,13 @@ class FleetSim:
 
     # ---------------------------------------------------------------- runs
 
+    def _rewind(self) -> None:
+        """Put the entropy source back to its state when the sim was built,
+        so a run is a pure function of the sim (``resume_compiled`` restores
+        the checkpoint's state instead)."""
+        if self._entropy0 is not None:
+            self.entropy.set_state(self._entropy0)
+
     def _init_carry(self):
         u = self.fleet.n_clients
         ones = torch.ones((u,), dtype=torch.float32, device=self.device)
@@ -598,6 +614,7 @@ class FleetSim:
             segment = max(int(n_rounds), 1)
         elif segment < 1:
             raise ValueError(f"segment={segment} must be >= 1")
+        self._rewind()
         return self._run_segments(n_rounds, with_eval, int(segment), ckpt_dir)
 
     def _run_segments(self, n_rounds: int, with_eval: bool, segment: int,
@@ -610,7 +627,7 @@ class FleetSim:
         t0 = time.perf_counter()
         carry = self._init_carry() if carry is None else carry
         parts = [] if parts is None else list(parts)
-        with torch.no_grad():
+        with torch.no_grad(), exact_fp32():
             for b in range(start, n_rounds, segment):
                 e = min(b + segment, n_rounds)
                 outs = []
@@ -777,8 +794,9 @@ class FleetSim:
         out_state = torch.zeros((u,), dtype=torch.float32, device=dev) if faults_on else None
         records: list[RoundRecord] = []
         cum = 0.0
+        self._rewind()
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), exact_fp32():
             for n in range(n_rounds):
                 sim_rates = self.entropy.rates(n, self.channel)
                 if channel == "sim":

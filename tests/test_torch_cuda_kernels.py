@@ -25,17 +25,6 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.fixture
-def deterministic_cudnn(cuda):
-    """cuDNN's deterministic convolution algorithms, for the checks that
-    compare two runs of the local SGD bit for bit (a default algorithm may
-    accumulate in a varying order)."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    yield cuda
-    torch.backends.cudnn.deterministic = prev
-
-
 def _planes(k, m, q_max, dtype, seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randint(1, q_max + 1, (k,), generator=gen, device=dev)
@@ -59,6 +48,27 @@ def test_aggregate_kernel_matches_plain(cuda, k, m, q_max, dtype):
     assert sq.launches["aggregate"] == 1
     want = sq.aggregate_plain(idx, signs, scales, w, q)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("offset", [0, 8, 3], ids=["aligned", "offset-8", "offset-3"])
+def test_dequantize_variants_bit_equal(cuda, offset):
+    """The 4-element kernel on planes at 4-byte boundaries, the one-element
+    kernel on a view 3 bytes off; both bit-equal to the plain version, one
+    launch each, the clamp included (a corrupted plane)."""
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    m = 2048
+    buf = torch.randint(0, 256, (m * 128 + 64,), generator=gen, device=cuda).to(torch.uint8)
+    idx = buf[offset:offset + m * 128].view(m, 128)
+    signs = (torch.rand((m, 128), generator=gen, device=cuda) < 0.5).to(torch.uint8)
+    scale = torch.rand((1,), generator=gen, device=cuda) + 0.5
+    out = torch.empty((m, 128), device=cuda)
+    want_variant = "scalar" if offset % 4 else "vec4"
+    assert sq.dequantize_variant(idx, signs, out) == want_variant
+    for q_bits in (1, 4, 8):
+        sq.reset_launches()
+        got = sq.dequantize(idx, signs, scale, q_bits)
+        assert sq.launches["dequantize"] == 1
+        assert torch.equal(got, sq.dequantize_plain(idx, signs, scale, q_bits))
 
 
 @pytest.mark.parametrize("q_bits", [1, 2, 4, 8])
@@ -100,7 +110,10 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rto
     (2, 200, 333, 4, 1, 112, False, 0),      # non-causal, ragged S != T, hd 112
     (1, 130, 70, 6, 3, 32, False, 40),       # window without causality
     (1, 200, 50, 2, 1, 32, True, 30),        # rows past T + window are fully masked
-], ids=["gqa4", "window", "ragged-noncausal", "window-noncausal", "masked-rows"])
+    (1, 150, 150, 18, 2, 128, True, 64),     # g = 9 as StarCoder2: 126 of 128 rows used
+    (2, 129, 300, 4, 4, 64, False, 0),       # g = 1: a second position tile of one row
+], ids=["gqa4", "window", "ragged-noncausal", "window-noncausal", "masked-rows", "gqa9",
+        "gqa1-ragged"])
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, t, h, kv, hd, causal, window):
     gen = torch.Generator(device=cuda).manual_seed(s + t + h)
     q = (0.3 * torch.randn((b, s, h, hd), generator=gen, device=cuda)).to(dtype)
@@ -171,6 +184,36 @@ def test_flash_kernel_takes_strided_views(cuda):
     k, v = stack[1, 0], stack[1, 1]
     torch.testing.assert_close(fa.flash_attention(q, k, v),
                                fa.flash_attention_plain(q, k, v), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case,variant", [
+    ("contiguous", "async"), ("per-layer views", "async"), ("odd position stride", "sync"),
+    ("hd 30", "sync"), ("4 bytes off", "sync"),
+])
+def test_flash_kernel_load_variants(cuda, case, variant):
+    """fp32 K/V that cp.async can copy take the async variant, anything
+    else the register-staged one; both match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    b, t, kv, hd = 2, 300, 2, 64
+
+    def randn(*shape):
+        return 0.3 * torch.randn(shape, generator=gen, device=cuda)
+
+    q = randn(b, 280, 8, hd)
+    if case == "contiguous":
+        k, v = randn(b, t, kv, hd), randn(b, t, kv, hd)
+    elif case == "per-layer views":
+        stack = randn(2, 2, b, t, kv, hd)
+        k, v = stack[1, 0], stack[1, 1]
+    elif case == "odd position stride":          # rows of hd + 1 floats
+        k, v = randn(b, t, kv, hd + 1)[..., :hd], randn(b, t, kv, hd + 1)[..., :hd]
+    elif case == "hd 30":
+        q, k, v = randn(b, 280, 8, 30), randn(b, t, kv, 30), randn(b, t, kv, 30)
+    else:                                        # base pointer one float past a boundary
+        k = randn(b * t * kv * hd + 1)[1:].view(b, t, kv, hd)
+        v = randn(b, t, kv, hd)
+    assert fa._load_variant(q, k, v) == variant
+    _check_flash(q, k, v, True, 0, "simt")
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -278,7 +321,7 @@ def test_corrupt_planes_u16_card_equals_cpu(cuda):
     {"scenario": "cellfree_a4"}, {"scenario": "noniid_a01"}, {"downlink": "delta"},
     {"scenario": "single_bs_faulty", "downlink": "quant"},
 ], ids=["cellfree", "noniid", "downlink-delta", "faulty-quant"])
-def test_engine_options_launch_aggregate_once_per_round(deterministic_cudnn, kwargs):
+def test_engine_options_launch_aggregate_once_per_round(cuda, kwargs):
     """Scenarios, the downlink and faults on the card: one ``aggregate``
     launch per round, and the compiled run equals its host replay."""
     from repro_torch.sim import build_sim
@@ -295,7 +338,7 @@ def test_engine_options_launch_aggregate_once_per_round(deterministic_cudnn, kwa
     assert torch.equal(sim.final_flat, host_sim.final_flat)
 
 
-def test_segmented_resume_on_card(deterministic_cudnn, tmp_path):
+def test_segmented_resume_on_card(cuda, tmp_path):
     """The card's generator state checkpoints and restores: segmented and
     resumed runs equal the unsegmented one bit for bit."""
     from repro_torch.sim import build_sim
@@ -313,3 +356,39 @@ def test_segmented_resume_on_card(deterministic_cudnn, tmp_path):
         for f in ("energy", "accuracy", "q_levels", "lambda1", "lambda2"):
             np.testing.assert_array_equal(getattr(full, f), getattr(other, f), err_msg=f)
         assert torch.equal(full_sim.final_flat, flat)
+
+
+def test_run_compiled_twice_on_one_sim_bit_equal(cuda):
+    """A run is a pure function of the sim on the card too: the generator
+    rewinds to its state at build time."""
+    from repro_torch.sim import build_sim
+
+    sim = build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=32)
+    a = sim.run_compiled(3)
+    flat = sim.final_flat.clone()
+    b = sim.run_compiled(3)
+    for f in ("energy", "accuracy", "q_levels", "lambda1", "lambda2"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    assert torch.equal(flat, sim.final_flat)
+
+
+def test_engine_numbers_do_not_depend_on_the_callers_flags(cuda):
+    """TF32 and cuDNN's autotuned algorithms set globally change nothing in
+    a run, and come back as the caller set them."""
+    from repro_torch.sim import build_sim
+
+    flags = ((torch.backends.cudnn, "allow_tf32"), (torch.backends.cuda.matmul, "allow_tf32"),
+             (torch.backends.cudnn, "deterministic"), (torch.backends.cudnn, "benchmark"))
+    before = [getattr(mod, name) for mod, name in flags]
+    sim = build_sim("tiny", n_clients=8, n_channels=4, seed=0, n_test=32)
+    exact = sim.run_compiled(3)
+    try:
+        for (mod, name), value in zip(flags, (True, True, False, True)):
+            setattr(mod, name, value)
+        loose = sim.run_compiled(3)
+        assert [getattr(mod, name) for mod, name in flags] == [True, True, False, True]
+    finally:
+        for (mod, name), value in zip(flags, before):
+            setattr(mod, name, value)
+    for f in ("energy", "accuracy", "loss", "q_levels", "lambda1", "lambda2"):
+        np.testing.assert_array_equal(getattr(exact, f), getattr(loose, f), err_msg=f)

@@ -134,6 +134,38 @@ def test_tma_describable_bounds_the_stride(batch_stride, want):
     assert fa.tma_describable(x) is want
 
 
+# name -> (q, k, v, the SIMT kernel's load variant)
+def _variant_cases():
+    q = _aligned((2, 300, 8, 128), torch.float32)
+    kv = _aligned((2, 300, 2, 128), torch.float32)
+    stack = _aligned((2, 2, 2, 300, 2, 128), torch.float32)
+    wide = _aligned((2, 300, 2, 129), torch.float32)
+    return {
+        "fp32 contiguous": (q, kv, kv, "async"),
+        "fp32 per-layer k/v views": (q, stack[1, 0], stack[1, 1], "async"),
+        "fp32 head-slice view of q (q is not streamed)": (
+            _aligned((2, 300, 16, 128), torch.float32)[:, :, 1::2], kv, kv, "async"),
+        "fp32 k 4 bytes past a boundary": (q, _strided((2, 300, 2, 128), (76800, 256, 128, 1),
+                                                       torch.float32, offset=1), kv, "sync"),
+        "fp32 rows of 129 floats": (q, wide[..., :128], kv, "sync"),
+        "fp32 hd 30": (_aligned((1, 50, 4, 30), torch.float32), _aligned((1, 50, 2, 30), torch.float32),
+                       _aligned((1, 50, 2, 30), torch.float32), "sync"),
+        "fp32 batch of one with an odd batch stride": (
+            q[:1], _strided((1, 300, 2, 128), (7, 256, 128, 1), torch.float32), kv[:1], "async"),
+        "fp32 heads broadcast (stride 0)": (q, kv[:, :, :1].expand(2, 300, 2, 128), kv, "async"),
+        "bf16 aligned": (q.bfloat16(), kv.bfloat16(), kv.bfloat16(), "sync"),
+    }
+
+
+VARIANT_CASES = _variant_cases()
+
+
+@pytest.mark.parametrize("name", list(VARIANT_CASES))
+def test_load_variant(name):
+    q, k, v, want = VARIANT_CASES[name]
+    assert fa._load_variant(q, k, v) == want
+
+
 @pytest.fixture
 def as_if_on_the_card(monkeypatch):
     """CPU tensors take the kernel route; building or loading a library

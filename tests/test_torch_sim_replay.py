@@ -172,8 +172,7 @@ def greedy_runs():
     want = _records(jsim.run_host_policy(
         jpol.HostFastPolicy(jsim.sysp, jsim.eps1, jsim.eps2, jsim.v_weight, q_cap=8), 6))
     scan = tsim.run_compiled(6)
-    _jsim, tsim2 = _pair("greedy", 6)
-    replay = tsim2.run_host_policy(tsim2.make_host_policy(), 6, channel="sim")
+    replay = tsim.run_host_policy(tsim.make_host_policy(), 6, channel="sim")
     return want, scan, replay
 
 
@@ -193,6 +192,7 @@ def ga_runs():
     jsim, tsim = _pair("compiled-ga", 5)
     want = _records(jsim.run_host_policy(jsim.make_host_ga_policy(), 5, channel="sim"))
     scan = tsim.run_compiled(5)
+    # run() dispatches on the sim's mode: host-ga needs a sim of its own
     _jsim, tsim2 = _pair("host-ga", 5)
     replay = tsim2.run(5)
     return want, scan, replay

@@ -137,3 +137,75 @@ def test_wrappers_check_inputs():
         tsq.aggregate(_t(idx), _t(signs), _t(scales), _t(w), _t(q)[:2])
     with pytest.raises(ValueError):
         tsq.aggregate(_t(idx).transpose(1, 2), _t(signs), _t(scales), _t(w), _t(q))
+
+
+# ---------------------------------------------------- dequantize's variants
+
+def _plane_at(m, byte_offset, dtype=torch.uint8):
+    """A contiguous (m, 128) plane starting ``byte_offset`` bytes past a
+    16-byte boundary of a larger buffer."""
+    es = torch.empty((), dtype=dtype).element_size()
+    buf = torch.zeros(m * 128 + 64 // es, dtype=dtype)
+    lead = ((-buf.data_ptr()) % 16 + byte_offset) // es
+    return buf[lead:lead + m * 128].view(m, 128)
+
+
+@pytest.mark.parametrize("idx_off,signs_off,out_off,want", [
+    (0, 0, 0, "vec4"),        # fresh planes
+    (16, 48, 0, "vec4"),      # views at other 16-byte boundaries
+    (4, 8, 0, "vec4"),        # the planes need only 4-byte words
+    (1, 0, 0, "scalar"),      # idx one byte off
+    (0, 2, 0, "scalar"),      # signs 2 bytes off
+    (0, 0, 4, "scalar"),      # out one fp32 element off a 16-byte boundary
+], ids=["aligned", "offset-16", "offset-4-8", "idx-offset-1", "signs-offset-2",
+        "out-offset-4"])
+def test_dequantize_variant(idx_off, signs_off, out_off, want):
+    idx, signs = _plane_at(4, idx_off), _plane_at(4, signs_off)
+    out = _plane_at(4, out_off, torch.float32)
+    assert tsq.dequantize_variant(idx, signs, out) == want
+
+
+def test_dequantize_variant_of_row_slices():
+    # rows of a (M, 128) plane start 128 bytes apart: every row slice of an
+    # aligned plane stays aligned; a flat view 2 bytes in does not
+    plane = _plane_at(8, 0)
+    out = torch.empty((5, 128))
+    assert tsq.dequantize_variant(plane[3:], plane[1:6], out) == "vec4"
+    flat = _plane_at(8, 0).reshape(-1)
+    odd = flat[2:2 + 256].view(2, 128)
+    assert tsq.dequantize_variant(odd, plane[:2], out) == "scalar"
+
+
+@pytest.mark.parametrize("idx_off,entry", [(0, "sq_dequantize_vec4"), (3, "sq_dequantize")])
+def test_dequantize_launches_its_variant(monkeypatch, idx_off, entry):
+    """The wrapper hands an aligned view to the 4-element kernel and an
+    offset one to the one-element kernel, each counted as one launch; a
+    strided plane is refused before any library call."""
+    from repro_torch.kernels import build
+
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: called.append(name) or 0
+
+    monkeypatch.setattr(build, "route", lambda name, *tensors: True)
+    monkeypatch.setattr(build, "library", lambda name: Lib())
+    monkeypatch.setattr(build, "stream", lambda dev: 0)
+    idx, signs = _plane_at(16, idx_off), _plane_at(16, 0)
+    tsq.reset_launches()
+    tsq.dequantize(idx, signs, torch.ones(1), 4)
+    assert called == [entry] and tsq.launches["dequantize"] == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        tsq.dequantize(_plane_at(16, 0).t().contiguous().t(), signs, torch.ones(1), 4)
+    assert called == [entry]
+
+
+def test_dequantize_of_an_offset_view_equals_the_aligned_copy():
+    x, rbits, scale = _wire_inputs(64, 3)
+    idx, signs = tsq.quantize(_t(x), _t(rbits), torch.tensor([scale]), 5)
+    view = _plane_at(64, 5)
+    view.copy_(idx)
+    assert tsq.dequantize_variant(view, signs, torch.empty(64, 128)) == "scalar"
+    assert torch.equal(tsq.dequantize(view, signs, torch.tensor([scale]), 5),
+                       tsq.dequantize(idx, signs, torch.tensor([scale]), 5))

@@ -148,3 +148,42 @@ class ReplayEntropy:
         key = jax.random.fold_in(jax.random.PRNGKey(self.jsim.seed), jeng.PROBE_KEY_TAG)
         kx, ky = jax.random.split(key)
         return _t(jax.random.normal(kx, shape)), _t(jax.random.normal(ky, shape))
+
+
+class SequentialReplay(ReplayEntropy):
+    """The JAX engine's draws handed out as a sequential generator hands
+    out its own: each round takes the next round key, whatever round index
+    it is asked for, and ``get_state``/``set_state`` carry the position, as
+    ``DeviceEntropy``'s generator state does. A run that does not start
+    from the sim's initial state draws another run's keys."""
+
+    def __init__(self, jsim, n_rounds):
+        super().__init__(jsim, n_rounds)
+        self.cursor = 0
+        self._round = 0
+
+    def rates(self, ridx, channel):
+        # the first draw of every round: it takes the next key
+        self._round, self.cursor = self.cursor, self.cursor + 1
+        return super().rates(self._round, channel)
+
+    def ga_draws(self, ridx, n_clients, n_channels, cfg):
+        return super().ga_draws(self._round, n_clients, n_channels, cfg)
+
+    def batch_indices(self, ridx, n_s, tau, batch_size):
+        return super().batch_indices(self._round, n_s, tau, batch_size)
+
+    def uniforms(self, ridx, s, zpad):
+        return super().uniforms(self._round, s, zpad)
+
+    def fault_draws(self, ridx, n_clients, s, zpad):
+        return super().fault_draws(self._round, n_clients, s, zpad)
+
+    def downlink_uniforms(self, ridx, z):
+        return super().downlink_uniforms(self._round, z)
+
+    def get_state(self) -> dict:
+        return {"round": np.array([self.cursor], np.int64)}
+
+    def set_state(self, state: dict) -> None:
+        self.cursor = int(np.asarray(state["round"]).reshape(-1)[0])
