@@ -17,9 +17,10 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      shapes of the paths below: max abs error, and times beside the bound,
      the plain version's time and, for flash attention, the time of
      ``scaled_dot_product_attention`` on the same inputs (timed only; the
-     port never calls it). ``dequantize`` runs its 4-element kernel on
-     aligned planes and its one-element kernel on a view 3 bytes off, both
-     bit-equal, beside an empty kernel's device time (the launch floor).
+     port never calls it). ``quantize`` and ``dequantize`` run their
+     4-element kernels on aligned planes and their one-element kernels on
+     views off alignment (x 4 bytes off, idx 3 bytes off), all bit-equal,
+     beside an empty kernel's device time (the launch floor).
      Flash attention is checked in bf16 (the wgmma kernel) and fp32 (the
      SIMT kernel, cp.async loads) at Llama-3-8B's serve shape, StarCoder2-7B's
      heads (g = 9) with its 4096 window at S = 8192, and a non-causal ragged
@@ -35,7 +36,12 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      C = 4, the same draws on the card and on the CPU, greedy and GA); the
      compiled runs against ``run_host_policy`` of their numpy oracles on
      the card, and ``host-ga`` through ``run()``; and a profile of one
-     greedy round;
+     greedy round. Telemetry on the same fleet: greedy rounds with every
+     tap on (``MetricsConfig(enabled=True)``) and a ``Ledger`` against the
+     same rounds with telemetry off (bit-equal outputs, s/round of both,
+     ``aggregate`` once per round), one compiled-GA round the same way
+     (``ga_best <= ga_median``), every ledger event validated and the
+     ledger's summaries printed (``repro_torch.obs.report``);
   5. scenarios, downlink, faults and segments on the same fleet (greedy,
      3 rounds each, ``aggregate`` once per round): the ``cellfree_a4``
      drop, ``single_bs_faulty``, ``downlink="quant"`` and ``"delta"``, an
@@ -50,7 +56,8 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      cell-free, the GA with the downlink) and run_compiled vs
      run_host_policy on the card under faults and under the downlink;
   6. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
-     parameters at q = 4, round-trip error against scale / (2^q - 1);
+     parameters at q = 4 (``quantize_kernel_vec4``, ``dequantize_kernel_vec4``),
+     round-trip error against scale / (2^q - 1);
   7. the serve path (after the FEMNIST sim is freed): ``serve.generate`` on
      Llama-3-8B at full width and depth (32 layers, random bf16 weights from
      a seed) with ``attn_impl="flash"``, batch 4, a 4096-token context from
@@ -333,12 +340,34 @@ def kernels_vs_plain(zpad: int, wire_m: int):
               "(own planes and a corrupted plane)")
     n = x.numel()
     i4, s4 = sq.quantize(x, rbits, scale, 4)
+    require(sq.quantize_variant(x, rbits, i4, s4) == "vec4",
+            "quantize variants: the wire entry point's planes must take vec4")
+    # quantize's one-element kernel: x a view 4 bytes off a 16-byte boundary
+    xbuf = torch.empty(n + 4, device="cuda")
+    x_off = xbuf[1:1 + n].view(x.shape)
+    x_off.copy_(x)
+    require(sq.quantize_variant(x_off, rbits, i4, s4) == "scalar",
+            "quantize variants: an x view 4 bytes off must take the scalar kernel")
+    for qb in range(1, 9):
+        got = sq.quantize(x_off, rbits, scale, qb)
+        want = sq.quantize_plain(x, rbits, scale, qb)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"quantize q={qb} of an offset view (scalar kernel) is not bit-equal to plain")
+    q_off_ms = kernel_ms(lambda: sq.quantize(x_off, rbits, scale, 4), "quantize_kernel")
+    lib = build.library("stochastic_quant")
+    dev, stream = torch.cuda.current_device(), build.stream(torch.device("cuda"))
+    empty_ms = kernel_ms(lambda: build.check("stochastic_quant", "empty",
+                                             lib.sq_empty(dev, stream)), "empty_kernel")
     b_ms, b_by = bound(n * 10 + 4, 8.0 * n)
+    print(f"quantize M={wire_m} q=4 on an x view 4 bytes off (one element per thread, "
+          f"bit-equal to plain for q=1..8): {q_off_ms * 1e3:.2f} us (profiler); an empty "
+          f"kernel: {empty_ms * 1e3:.2f} us (profiler), the floor of any launch; "
+          f"bound {b_ms * 1e3:.2f} us ({b_by})")
     report["quantize"] = dict(
-        shape=f"M={wire_m} q=4", max_abs_err=q_err, kernel="quantize_kernel",
+        shape=f"M={wire_m} q=4", max_abs_err=q_err, kernel="quantize_kernel_vec4",
         call=lambda: sq.quantize(x, rbits, scale, 4),
         plain_ms=cuda_ms(lambda: sq.quantize_plain(x, rbits, scale, 4), 50),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, scalar_ms=q_off_ms, empty_ms=empty_ms,
     )
     # dequantize's two variants: 4 elements per thread on aligned planes (the
     # wire entry point's), one per thread on a view 3 bytes off
@@ -352,13 +381,8 @@ def kernels_vs_plain(zpad: int, wire_m: int):
     require(torch.equal(sq.dequantize(i4_off, s4, scale, 4), sq.dequantize_plain(i4, s4, scale, 4)),
             "dequantize of an offset view (scalar kernel) is not bit-equal to its plain version")
     off_ms = kernel_ms(lambda: sq.dequantize(i4_off, s4, scale, 4), "dequantize_kernel")
-    lib = build.library("stochastic_quant")
-    dev, stream = torch.cuda.current_device(), build.stream(torch.device("cuda"))
-    empty_ms = kernel_ms(lambda: build.check("stochastic_quant", "empty",
-                                             lib.sq_empty(dev, stream)), "empty_kernel")
     print(f"dequantize M={wire_m} q=4 on a view 3 bytes off (one element per thread): "
-          f"{off_ms * 1e3:.2f} us (profiler), bit-equal to plain; an empty kernel: "
-          f"{empty_ms * 1e3:.2f} us (profiler), the floor of any launch")
+          f"{off_ms * 1e3:.2f} us (profiler), bit-equal to plain")
     b_ms, b_by = bound(n * 6 + 4, 3.0 * n)
     report["dequantize"] = dict(
         shape=f"M={wire_m} q=4", max_abs_err=d_err, kernel="dequantize_kernel_vec4",
@@ -515,6 +539,121 @@ def policies(sim):
             del psim
     _profile_ga_round(ga_sim)
     return out
+
+
+TELEMETRY_ROUNDS = 3
+# the taps a greedy round without faults or downlink defines in every round
+_GREEDY_TAPS = ("data_term", "quant_term", "energy_comp", "energy_comm", "energy_timeout",
+                "n_timeout", "q_mean", "q_max", "q_cont_mean", "quant_mse")
+_OUTPUTS = ("energy", "accuracy", "loss", "n_scheduled", "q_levels", "latency", "payload_bits",
+            "rates", "lambda1", "lambda2")
+
+
+def _same_outputs(label: str, a, b, sim_a, sim_b) -> None:
+    import numpy as np
+    import torch
+
+    for k in _OUTPUTS:
+        require(np.array_equal(getattr(a, k), getattr(b, k)),
+                f"{label}: {k} differs between telemetry on and off")
+    require(torch.equal(sim_a.final_flat, sim_b.final_flat),
+            f"{label}: the final model differs between telemetry on and off")
+
+
+@phase("telemetry: taps and the run ledger, FEMNIST U=1024 C=8")
+def telemetry(sim):
+    """Greedy rounds with every tap on and a ledger against the same rounds
+    with telemetry off (bit-equal outputs), then one compiled-GA round the
+    same way; the ledger validated and summarized."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.obs import METRIC_FIELDS, Ledger, MetricsConfig, read_ledger, report
+
+    on_cfg = MetricsConfig(enabled=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ledger.jsonl")
+        on = _sim_for(sim, "greedy", 8, telemetry=on_cfg)
+        off = _sim_for(sim, "greedy", 8)
+        on.run_compiled(1)         # warm-up: the taps' first launches
+        secs = {"on": [], "off": []}
+        for i, turn in enumerate(("off", "on") * 3):
+            psim = on if turn == "on" else off
+            # each tapped run its own run in the ledger
+            on.ledger = Ledger(path, run_id=f"greedy-{i}")
+            _reset_all_launches()
+            res = psim.run_compiled(TELEMETRY_ROUNDS)
+            launches = _all_launches()
+            require(launches["aggregate"] == TELEMETRY_ROUNDS,
+                    f"telemetry {turn}: aggregate launched {launches['aggregate']} times in "
+                    f"{TELEMETRY_ROUNDS} rounds")
+            secs[turn].append(psim.run_seconds / TELEMETRY_ROUNDS)
+            if turn == "on":
+                res_on = res
+            else:
+                res_off = res
+        _same_outputs("greedy", res_on, res_off, on, off)
+        m = res_on.metrics
+        require(res_off.metrics is None and set(m) == set(METRIC_FIELDS),
+                "telemetry: the taps are missing or present when off")
+        for k in _GREEDY_TAPS:
+            require(bool(np.isfinite(m[k]).all()), f"telemetry: non-finite {k} {m[k]}")
+        for k in ("ga_best", "ga_median", "dl_payload_bits", "dl_mse", "n_dropped"):
+            require(bool(np.isnan(m[k]).all()), f"telemetry: {k} defined in a greedy round")
+        require(np.allclose(m["energy_comp"] + m["energy_comm"], res_on.energy, rtol=1e-5),
+                "telemetry: the energy split does not add up to the round's energy")
+        for n in range(TELEMETRY_ROUNDS):
+            print(f"taps round {n}: " + " ".join(f"{k}={m[k][n]:.6g}" for k in (
+                "q_mean", "q_max", "q_cont_mean", "corr_q_d", "quant_mse", "energy_comp",
+                "energy_comm", "data_term", "quant_term")))
+        s_on, s_off = float(np.mean(secs["on"])), float(np.mean(secs["off"]))
+        fastest = min(secs["on"]) / min(secs["off"]) - 1
+        print(f"greedy s/round with telemetry on {s_on:.4f} (turns {secs['on']}) against off "
+              f"{s_off:.4f} (turns {secs['off']}), off and on alternating: "
+              f"{100 * (s_on / s_off - 1):+.1f} % (means), {100 * fastest:+.1f} % (fastest "
+              f"turns); aggregate launches {TELEMETRY_ROUNDS} per run of {TELEMETRY_ROUNDS} rounds")
+        # what the taps add to a round, free of the host clock's spread: its
+        # kernel launches and device time under the profiler
+        cost = {}
+        for turn, psim in (("off", off), ("on", on)):
+            on.ledger = Ledger(None)
+            _, prof = _profiled(f"greedy round, telemetry {turn}",
+                                lambda: psim.run_compiled(1), top=0)
+            kernels = [e for e in prof.key_averages() if _is_device(e)]
+            cost[turn] = (sum(e.count for e in kernels),
+                          sum(e.self_device_time_total for e in kernels) / 1e3)
+        print(f"the taps add {cost['on'][0] - cost['off'][0]} kernel launches to a greedy "
+              f"round ({cost['off'][0]} -> {cost['on'][0]}) and "
+              f"{cost['on'][1] - cost['off'][1]:+.3f} ms of device time "
+              f"({cost['off'][1]:.3f} -> {cost['on'][1]:.3f} ms)")
+
+        ga = _sim_for(sim, "compiled-ga", 8, telemetry=on_cfg, ledger=Ledger(path, run_id="ga"))
+        ga_off = _sim_for(sim, "compiled-ga", 8)
+        _reset_all_launches()
+        g = ga.run_compiled(1)
+        launches = _all_launches()
+        require(launches["aggregate"] == 1,
+                f"telemetry GA: aggregate launched {launches['aggregate']} times in one round")
+        g_off = ga_off.run_compiled(1)
+        _same_outputs("compiled-ga", g, g_off, ga, ga_off)
+        gm = g.metrics
+        require(bool(np.isfinite(gm["ga_best"]).all() and np.isfinite(gm["ga_median"]).all()),
+                f"telemetry GA: ga_best {gm['ga_best']} ga_median {gm['ga_median']}")
+        require(bool((gm["ga_best"] <= gm["ga_median"]).all()),
+                f"telemetry GA: ga_best {gm['ga_best']} above ga_median {gm['ga_median']}")
+        print(f"compiled-ga round with taps: {ga.run_seconds:.3f} s (off {ga_off.run_seconds:.3f}"
+              f" s), ga_best={gm['ga_best'][0]:.6g} ga_median={gm['ga_median'][0]:.6g}, "
+              f"scheduled {int(g.n_scheduled[0])}, bit-equal to the round without taps")
+
+        events = read_ledger(path)      # validates every event
+        kinds = [e["event"] for e in events]
+        require(kinds.count("run_header") == 4 and kinds.count("timing") == 4
+                and kinds.count("round") == 3 * TELEMETRY_ROUNDS + 1,
+                f"ledger events {sorted(set(kinds))}: {len(events)} in all")
+        print(f"ledger: {len(events)} events, every one valid; its summaries:")
+        for summary in report.summarize(path):
+            print(report.render(summary))
+    return dict(s_on=s_on, s_off=s_off)
 
 
 SCENARIO_ROUNDS = 3
@@ -1076,12 +1215,27 @@ def wire_entry(sim):
     from repro_torch import tree as tree_util
     from repro_torch.kernels import ops
 
+    from unittest import mock
+
+    from repro_torch.kernels import stochastic_quant as sq
+
     params = sim.unravel(sim.final_flat)
     gen = torch.Generator(device="cuda").manual_seed(4)
+    # the variant each wrapper launched (the wrappers take the vec4 entry
+    # point exactly when their variant function says "vec4")
+    variants = []
+
+    def spy(fn):
+        return lambda *a: variants.append((fn.__name__, fn(*a))) or variants[-1][1]
+
     _reset_all_launches()
-    deq, scale = ops.quantize_pytree_kernel(params, 4, generator=gen)
+    with mock.patch.object(sq, "quantize_variant", spy(sq.quantize_variant)), \
+            mock.patch.object(sq, "dequantize_variant", spy(sq.dequantize_variant)):
+        deq, scale = ops.quantize_pytree_kernel(params, 4, generator=gen)
     torch.cuda.synchronize()
     launches = _all_launches()
+    require(variants == [("quantize_variant", "vec4"), ("dequantize_variant", "vec4")],
+            f"wire entry point: kernel variants {variants}, want vec4 for both")
     err = max((a - b).abs().max().item()
               for a, b in zip(tree_util.leaves(deq), tree_util.leaves(params)))
     step = scale.item() / (2**4 - 1)
@@ -1089,7 +1243,7 @@ def wire_entry(sim):
     require(launches["quantize"] >= 1 and launches["dequantize"] >= 1,
             f"wire entry point launches {launches}")
     print(f"round trip max abs err {err:.4e} <= scale/(2^q-1) = {step:.4e}; "
-          f"launches {launches}")
+          f"launches {launches}, through quantize_kernel_vec4 and dequantize_kernel_vec4")
     return launches
 
 
@@ -1453,6 +1607,7 @@ def main() -> int:
     report.update(flash_vs_plain())
     sim, main_launches = main_path()
     policies(sim)
+    telemetry(sim)
     scenarios(sim)
     numeric_scope(sim)
     scenario_references()

@@ -40,6 +40,7 @@ LIBRARIES = {
         "sq_aggregate_u16": (_PTR, _PTR, _PTR, _PTR, _I64, _I64, _INT, _PTR),
         # x, rbits, scale, idx, signs, n, levels, device, stream
         "sq_quantize": (_PTR, _PTR, _PTR, _PTR, _PTR, _I64, ctypes.c_float, _INT, _PTR),
+        "sq_quantize_vec4": (_PTR, _PTR, _PTR, _PTR, _PTR, _I64, ctypes.c_float, _INT, _PTR),
         # idx, signs, scale, out, n, levels, 1 / levels, device, stream
         "sq_dequantize": (_PTR, _PTR, _PTR, _PTR, _I64, ctypes.c_float,
                           ctypes.c_float, _INT, _PTR),

@@ -13,11 +13,12 @@
 // All three are elementwise or short per-element reductions on a flat
 // (M * 128) wire layout, so each is bound by device-memory bytes, not by
 // arithmetic (a few flops per byte moved against the H100's ~20 flop/byte
-// fp32 ridge). quantize and aggregate are the plain design: one thread per
-// output element, neighbouring threads on neighbouring bytes so every warp
-// load coalesces. dequantize was redesigned to 4 elements per thread (one
-// word of each plane in, one float4 out), with the one-element kernel kept
-// for views that are not aligned for it (see below).
+// fp32 ridge). aggregate is the plain design: one thread per output
+// element, neighbouring threads on neighbouring bytes so every warp load
+// coalesces. quantize and dequantize were redesigned to 4 elements per
+// thread (16-byte loads and 4-byte words of each plane, every access of a
+// warp contiguous), with their one-element kernels kept for views that are
+// not aligned for it (see below).
 // The TPU's (block_m, 128) VMEM tiling has no role here; a ragged tail is
 // masked instead of padded.
 //
@@ -66,13 +67,42 @@ __global__ void aggregate_kernel(const IdxT* __restrict__ idx,
 }
 
 // Replaces _quant_kernel / quantize (stochastic_quant.py:35-84).
-//   u = (rbits >> 8) * 2^-24, scaled = min(|x| * L / safe, L),
+//   u = (rbits >> 8) * 2^-24, scaled = min(|x| * (L / safe), L),
 //   idx = min(floor(scaled) + [u < frac], L) as u8, sign = x < 0.
 // The range scalar stays on the device (a 1-element fp32 tensor), read once
 // per thread from the read-only cache.
 // Byte bound: 4 (x) + 4 (rbits) read + 1 + 1 written = 10 B per element;
-// 262,144 elements (one 256-row tile stack of the FEMNIST CNN) -> 2.6 MB,
-// ~0.8 us at 3.35 TB/s.
+// 262,144 elements (M = 2048, the wire entry point's FEMNIST planes) ->
+// 2.6 MB, ~0.78 us at 3.35 TB/s: under an empty kernel's ~0.9 us, so, as
+// for dequantize, the time is a launch and one memory round trip. The
+// redesign (quantize_kernel_vec4) gives each thread 4 elements: one 16-byte
+// load of x and one of rbits, one 4-byte store of each plane (element
+// 4v + j is byte j of the little-endian word, as dequantize_kernel_vec4
+// reads it), L / safe once per thread, n / 4 threads (256 blocks of 256 at
+// M = 2048). Each thread issues its loads of x and rbits before it reads
+// the range and divides: the division's slow path is a branch the loads
+// would otherwise wait behind, a second memory round trip in a kernel that
+// is one round trip long. Measured against it (scripts/quantize_layouts.py):
+// 2 or 8 elements per thread and blocks of 64 to 512 are no faster; the
+// same loads and stores with no arithmetic take ~1.4 us. The wrapper takes
+// it for x and rbits on 16-byte and the planes on 4-byte boundaries with n
+// a multiple of 4, and gives any other view to the one-element
+// quantize_kernel. Both do the same rounded operations per element,
+// bit-equal to the plain version.
+__device__ __forceinline__ uint32_t quant_one(float xv, uint32_t bits, float ratio,
+                                              float levels) {
+  const float scaled = fminf(__fmul_rn(fabsf(xv), ratio), levels);
+  const float lower = floorf(scaled);
+  const float frac = __fsub_rn(scaled, lower);
+  const float u = __fmul_rn(static_cast<float>(bits >> 8), 5.9604644775390625e-08f);
+  return static_cast<uint32_t>(fminf(__fadd_rn(lower, u < frac ? 1.0f : 0.0f), levels));
+}
+
+__device__ __forceinline__ float quant_ratio(const float* __restrict__ scale_p, float levels) {
+  const float scale = __ldg(scale_p);
+  return __fdiv_rn(levels, scale > 0.0f ? scale : 1.0f);
+}
+
 __global__ void quantize_kernel(const float* __restrict__ x,
                                 const uint32_t* __restrict__ rbits,
                                 const float* __restrict__ scale_p,
@@ -81,16 +111,27 @@ __global__ void quantize_kernel(const float* __restrict__ x,
                                 int64_t n, float levels) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  const float scale = __ldg(scale_p);
-  const float safe = scale > 0.0f ? scale : 1.0f;
   const float xv = x[e];
-  const float scaled = fminf(__fmul_rn(fabsf(xv), __fdiv_rn(levels, safe)), levels);
-  const float lower = floorf(scaled);
-  const float frac = __fsub_rn(scaled, lower);
-  const float u = __fmul_rn(static_cast<float>(rbits[e] >> 8), 5.9604644775390625e-08f);
-  const float q = fminf(__fadd_rn(lower, u < frac ? 1.0f : 0.0f), levels);
-  idx[e] = static_cast<uint8_t>(q);
+  const uint32_t bits = rbits[e];
+  idx[e] = static_cast<uint8_t>(quant_one(xv, bits, quant_ratio(scale_p, levels), levels));
   signs[e] = xv < 0.0f ? 1 : 0;
+}
+
+__global__ void quantize_kernel_vec4(const float4* __restrict__ x,
+                                     const uint4* __restrict__ rbits,
+                                     const float* __restrict__ scale_p,
+                                     uint32_t* __restrict__ idx,
+                                     uint32_t* __restrict__ signs,
+                                     int64_t n4, float levels) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= n4) return;
+  const float4 xv = __ldg(x + v);
+  const uint4 bv = __ldg(rbits + v);
+  const float ratio = quant_ratio(scale_p, levels);
+  idx[v] = quant_one(xv.x, bv.x, ratio, levels) | quant_one(xv.y, bv.y, ratio, levels) << 8 |
+           quant_one(xv.z, bv.z, ratio, levels) << 16 | quant_one(xv.w, bv.w, ratio, levels) << 24;
+  signs[v] = (xv.x < 0.0f ? 1u : 0u) | (xv.y < 0.0f ? 1u : 0u) << 8 |
+             (xv.z < 0.0f ? 1u : 0u) << 16 | (xv.w < 0.0f ? 1u : 0u) << 24;
 }
 
 // Replaces _dequant_kernel / dequantize (stochastic_quant.py:87-124).
@@ -191,6 +232,23 @@ int sq_quantize(const void* x, const void* rbits, const void* scale, void* idx,
       static_cast<const float*>(x), static_cast<const uint32_t*>(rbits),
       static_cast<const float*>(scale), static_cast<uint8_t*>(idx),
       static_cast<uint8_t*>(signs), n, levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n a multiple of 4; x and rbits 16-byte, idx and signs 4-byte aligned (the
+// wrapper checks).
+int sq_quantize_vec4(const void* x, const void* rbits, const void* scale, void* idx,
+                     void* signs, int64_t n, float levels, int device, void* stream) {
+  if (n % 4 != 0 || (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(rbits)) % 16 ||
+      (reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(signs)) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n4 = n / 4;
+  quantize_kernel_vec4<<<n_blocks(n4), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<const uint4*>(rbits),
+      static_cast<const float*>(scale), static_cast<uint32_t*>(idx),
+      static_cast<uint32_t*>(signs), n4, levels);
   return static_cast<int>(cudaGetLastError());
 }
 

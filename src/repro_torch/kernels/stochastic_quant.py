@@ -91,10 +91,24 @@ def quantize_plain(x: torch.Tensor, rbits: torch.Tensor, scale: torch.Tensor,
     return idx.to(torch.uint8), (x < 0).to(torch.uint8)
 
 
+def quantize_variant(x: torch.Tensor, rbits: torch.Tensor, idx: torch.Tensor,
+                     signs: torch.Tensor) -> str:
+    """``"vec4"`` (4 elements per thread: one 16-byte load of x and of
+    rbits, one 4-byte word of each plane out) when x and rbits start on
+    16-byte and idx and signs on 4-byte boundaries and they hold a multiple
+    of 4 elements, else ``"scalar"`` (one element per thread). A pure
+    function of the data pointers and sizes of contiguous planes; it
+    launches nothing."""
+    aligned = (x.data_ptr() % 16 == 0 and rbits.data_ptr() % 16 == 0
+               and idx.data_ptr() % 4 == 0 and signs.data_ptr() % 4 == 0)
+    return "vec4" if aligned and x.numel() % 4 == 0 else "scalar"
+
+
 def quantize(x: torch.Tensor, rbits: torch.Tensor, scale: torch.Tensor,
              q_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
     """x fp32 and rbits uint32, both (M, 128); scale 1-element fp32.
-    Returns (idx u8, signs u8), each (M, 128)."""
+    Returns (idx u8, signs u8), each (M, 128). On the card the kernel's
+    variant is :func:`quantize_variant`'s."""
     _check_q8(q_bits)
     if x.ndim != 2 or x.shape[1] != LANES:
         raise ValueError(f"quantize expects lane-tiled (M, {LANES}) input, got {tuple(x.shape)}")
@@ -107,8 +121,10 @@ def quantize(x: torch.Tensor, rbits: torch.Tensor, scale: torch.Tensor,
     signs = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     if x.numel():
         lib = build.library("stochastic_quant")
+        fn = (lib.sq_quantize_vec4 if quantize_variant(x, rbits, idx, signs) == "vec4"
+              else lib.sq_quantize)
         with _profile_scope("cuda_quantize"):
-            err = lib.sq_quantize(
+            err = fn(
                 x.data_ptr(), rbits.data_ptr(), scale.data_ptr(), idx.data_ptr(),
                 signs.data_ptr(), x.numel(), float(2.0**q_bits - 1.0),
                 x.device.index or 0, build.stream(x.device),

@@ -42,9 +42,14 @@ whatever flags the caller set, and the caller's flags come back after the
 run. ``run_compiled(n, segment=k, ckpt_dir=d)`` checkpoints the
 state at every segment boundary (``repro_torch.ckpt``), the entropy
 source's generator state included, and ``resume_compiled(d)`` finishes a
-run from its latest checkpoint. Telemetry and the ledger are not ported
-yet; asking for either raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+run from its latest checkpoint.
+
+Telemetry (``telemetry=MetricsConfig(enabled=True)``, ``repro_torch.obs``)
+adds per-round taps that stay on the device and are stacked into
+``SimResult.metrics``; a ledger (``ledger=Ledger(path)``) gets a run
+header, one row per round and the run's timing after every run, and a
+``resume`` event per checkpoint saved or loaded. Both only add outputs:
+with telemetry on or off every other output is the same, bit for bit.
 """
 from __future__ import annotations
 
@@ -75,6 +80,9 @@ from repro_torch.fl.trainer import ExperimentResult, RoundRecord
 from repro_torch.kernels import ops
 from repro_torch.kernels import stochastic_quant as sq
 from repro_torch.models import cnn
+from repro_torch.obs import ledger as obs_ledger
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.metrics import MetricsConfig
 from repro_torch.sim import policy as fast_policy
 from repro_torch.sim import search
 from repro_torch.sim.channel import SimChannel, draw_rates
@@ -101,12 +109,6 @@ POLICY_MODES = ("greedy", "host-ga", "compiled-ga", "no_quant", "channel_allocat
 _QCCF_MODES = ("greedy", "compiled-ga", "host-ga")
 # the checkpoint kind a segmented run writes
 _SEGMENT_KIND = "sim_segment"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch.sim: {what} is not ported yet (ROADMAP.md Queue 1, {item})"
-    )
 
 
 # ------------------------------------------------------------------ faults
@@ -234,6 +236,9 @@ class SimResult:
     rates: np.ndarray         # (N, U) assigned uplink rates
     lambda1: np.ndarray       # (N,)
     lambda2: np.ndarray       # (N,)
+    # telemetry taps ({field: (N,) fp32}, see repro_torch.obs.metrics); None
+    # unless the sim was built with telemetry enabled
+    metrics: Optional[dict] = None
 
     @property
     def cum_energy(self) -> np.ndarray:
@@ -258,6 +263,28 @@ class SimResult:
             for n in range(len(self.energy))
         ]
         return ExperimentResult(self.name, records)
+
+
+def _stack_out(outs: list) -> dict:
+    """Per-round output dicts of a segment -> one dict of (n, ...) numpy
+    arrays, the telemetry taps flattened to a ``{field: (n,)}`` sub-dict
+    (one copy to the host for all of them)."""
+    out = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+           for k in outs[0] if k != "metrics"}
+    if "metrics" in outs[0]:
+        fields = obs_metrics.METRIC_FIELDS
+        taps = torch.stack([torch.stack([getattr(o["metrics"], f) for o in outs])
+                            for f in fields]).cpu().numpy()
+        out["metrics"] = dict(zip(fields, taps))
+    return out
+
+
+def _concat_out(parts: list) -> dict:
+    """Concatenate per-segment :func:`_stack_out` dicts along the round
+    axis (the checkpoint's and the result's format)."""
+    return {k: ({kk: np.concatenate([p[k][kk] for p in parts]) for kk in v}
+                if isinstance(v, dict) else np.concatenate([p[k] for p in parts]))
+            for k, v in parts[0].items()}
 
 
 def _pad_len(z: int) -> int:
@@ -313,7 +340,13 @@ class FleetSim:
         ga_config: Optional[GAConfig] = None,
         downlink: Optional[DownlinkConfig] = None,
         faults: Optional[FaultSpec] = None,
+        telemetry: Optional[MetricsConfig] = None,
+        ledger: Optional[obs_ledger.Ledger] = None,
     ) -> None:
+        if telemetry is not None and not isinstance(telemetry, MetricsConfig):
+            raise TypeError(f"telemetry must be a MetricsConfig or None, got {type(telemetry)}")
+        if ledger is not None and not isinstance(ledger, obs_ledger.Ledger):
+            raise TypeError(f"ledger must be a repro_torch.obs Ledger or None, got {type(ledger)}")
         flat0, self._meta = ops.flatten_pytree(init_params)
         self.device = flat0.device
         self.flat0 = flat0
@@ -363,6 +396,15 @@ class FleetSim:
             # multiply by its reciprocal on the card
             self._dl_den = torch.tensor(4.0 * levels**2, dtype=torch.float32,
                                         device=self.device)
+            # the broadcast's payload, the telemetry's dl_payload_bits tap
+            self._dl_bits = torch.tensor(core_quant.payload_bits(self.z, self.downlink.q_bits),
+                                         dtype=torch.float32, device=self.device)
+        # telemetry (repro_torch.obs): the gate selects what a round
+        # computes; the ledger is the JSONL sink every run writes through
+        self.metrics_cfg = obs_metrics.METRICS_OFF if telemetry is None else telemetry
+        self.ledger = obs_ledger.Ledger(None) if ledger is None else ledger
+        # Z as a device scalar: the MSE taps' true division (see _dl_den)
+        self._z_t = torch.tensor(float(self.z), dtype=torch.float32, device=self.device)
 
     def unravel(self, flat: torch.Tensor) -> dict:
         return ops.unflatten_pytree(flat, self._meta)
@@ -406,10 +448,13 @@ class FleetSim:
         dl_next = self.sysp.lipschitz / 2.0 * self.z * theta_d**2 / self._dl_den
         return bcast, dl_next
 
-    def _decide(self, rates, g_n, s_n, theta_max, lam1, lam2, ridx: int, dl_term=None):
+    def _decide(self, rates, g_n, s_n, theta_max, lam1, lam2, ridx: int, dl_term=None,
+                with_stats: bool = False):
         """The round's decision in this sim's ``policy_mode``. The
         heterogeneity multiplier and the downlink term reach greedy and the
-        GA only; the baselines and SameSize are blind to both."""
+        GA only; the baselines and SameSize are blind to both. In the GA
+        modes ``with_stats`` returns ``(decision, GA taps)`` instead (see
+        ``search.ga_decide``); the other modes ignore it."""
         sysp, z, mode = self.sysp, self.z, self.policy_mode
         d_sizes = self.fleet.n_samples.to(torch.float32)
         base = (rates, d_sizes, g_n, s_n, theta_max)
@@ -420,10 +465,10 @@ class FleetSim:
                 return search.ga_decide(
                     draws, *base, lam1, lam2, sysp, z, self.v_weight,
                     cfg=self.ga_config, q_cap=self.q_cap, hetero=self._hetero,
-                    dl_term=dl_term)
+                    dl_term=dl_term, with_stats=with_stats)
             return search.baseline_same_size(
                 draws, *base, lam1, lam2, sysp, z, self.v_weight,
-                cfg=self.ga_config, q_cap=self.q_cap)
+                cfg=self.ga_config, q_cap=self.q_cap, with_stats=with_stats)
         if mode == "no_quant":
             return fast_policy.baseline_no_quant(*base, sysp, z, self.q_cap)
         if mode == "channel_allocate":
@@ -451,9 +496,15 @@ class FleetSim:
         Returns ``(new_flat, g_obs, s_obs, theta, acc, loss, extra)``, the
         observations per slot; ``extra`` holds, with faults on, the screen's
         verdict ``ok``, the new ``out_state`` and the fault counters, and
-        with the downlink on, ``dl_next`` and ``dl_payload_bits``.
+        with the downlink on, ``dl_next`` and ``dl_payload_bits``. With the
+        ``quant_mse`` tap on it also holds ``quant_mse``, the realized wire
+        error ||agg - sum_s w_s theta_s||^2 / Z (NaN when nothing was
+        delivered), and with the downlink ``dl_mse``, the broadcast's error
+        against the exact aggregate; the tap adds operations and changes
+        none.
         """
         faults_on, dl_on = self.faults.enabled, self.downlink.enabled
+        tap_mse = self.metrics_cfg.enabled and self.metrics_cfg.quant_mse
         x_s, y_s, n_s = gather_active(self.fleet, slots)
         batch_idx = self.entropy.batch_indices(ridx, n_s, self.sysp.tau, self.batch_size)
         stacked, g_obs, s_obs = fleet_local_sgd(
@@ -486,16 +537,30 @@ class FleetSim:
             w_slot = d_eff / torch.clamp(d_n, min=1e-12)
             agg = self._aggregate(idx, signs, torch.where(ok, theta, torch.zeros_like(theta)),
                                   w_slot, q_slot)
-            new_flat = torch.where(d_n > 0, agg[: self.z], flat)
+            any_payload = d_n > 0
+            new_flat = torch.where(any_payload, agg[: self.z], flat)
             extra.update(ok=ok, out_state=down_u.to(torch.float32), n_dropped=n_dropped,
                          n_timeout_real=n_timeout_real, n_screened=n_screened)
         else:
-            agg = self._aggregate(idx, signs, theta, wd_slot, q_slot)
-            new_flat = torch.where(torch.sum(wd_slot) > 0, agg[: self.z], flat)
+            w_slot = wd_slot
+            agg = self._aggregate(idx, signs, theta, w_slot, q_slot)
+            any_payload = torch.sum(w_slot) > 0
+            new_flat = torch.where(any_payload, agg[: self.z], flat)
+        if tap_mse:
+            # against the unquantized eq.-2 aggregate of the delivered slots
+            # (a screened slot's update may be NaN/Inf: zero it, weight 0)
+            flat_ok = flat_s if not faults_on else torch.where(
+                extra["ok"][:, None], flat_s, torch.zeros_like(flat_s))
+            exact = torch.einsum("s,sz->z", w_slot, flat_ok)
+            mse = torch.sum((agg[: self.z] - exact) ** 2) / self._z_t
+            extra["quant_mse"] = torch.where(any_payload, mse, torch.full_like(mse, math.nan))
         if dl_on:
             # the carried model becomes what the clients decode
+            exact_flat = new_flat
             new_flat, extra["dl_next"] = self._downlink_apply(u_dl, new_flat, flat)
             extra["dl_payload_bits"] = core_quant.payload_bits(self.z, self.downlink.q_bits)
+            if tap_mse:
+                extra["dl_mse"] = torch.sum((new_flat - exact_flat) ** 2) / self._z_t
         if with_eval:
             acc, loss = self.eval_fn(new_flat)
         else:
@@ -512,7 +577,15 @@ class FleetSim:
         rates = self.entropy.rates(ridx, self.channel)
         g_n = g_sq / torch.clamp(torch.mean(g_sq), min=1e-12)
         s_n = sigma_sq / torch.clamp(torch.mean(sigma_sq), min=1e-12)
-        dec = self._decide(rates, g_n, s_n, theta_max, lam1, lam2, ridx, dl_prev)
+        mcfg = self.metrics_cfg
+        # the GA's fitness taps exist only when asked for
+        tap_ga = (mcfg.enabled and mcfg.ga_fitness
+                  and self.policy_mode in ("compiled-ga", "same_size"))
+        dec = self._decide(rates, g_n, s_n, theta_max, lam1, lam2, ridx, dl_prev,
+                           with_stats=tap_ga)
+        ga_stats = None
+        if tap_ga:
+            dec, ga_stats = dec
         # ---- active-set compaction: everything below is on the S slots
         u = self.fleet.n_clients
         slots = dec.slots                                  # (S,) ids, -1 pad
@@ -571,7 +644,30 @@ class FleetSim:
         if faults_on:
             out.update({k: extra[k] for k in ("n_dropped", "n_timeout_real", "n_screened")})
             new_carry += (extra["out_state"],)
+        if mcfg.enabled:
+            out["metrics"] = self._round_metrics(dec, d_sizes, extra, ga_stats)
         return new_carry, out
+
+    def _round_metrics(self, dec, d_sizes, extra: dict, ga_stats) -> obs_metrics.RoundMetrics:
+        """The round's telemetry taps, on the device: the decision's
+        (``obs.metrics.decision_metrics``) with the wire, GA, downlink and
+        fault slots filled where those are on."""
+        rm = obs_metrics.decision_metrics(
+            dec.a, dec.q, dec.q_cont, dec.f, dec.energy, d_sizes,
+            dec.data_term, dec.quant_term, self.sysp)
+        fill = {}
+        if "quant_mse" in extra:
+            fill["quant_mse"] = extra["quant_mse"]
+        if ga_stats is not None:
+            fill.update(ga_stats)
+        if self.downlink.enabled:
+            # the broadcast's payload (eq.-5 format) and, tapped, its error
+            fill["dl_payload_bits"] = self._dl_bits
+            if "dl_mse" in extra:
+                fill["dl_mse"] = extra["dl_mse"]
+        if self.faults.enabled:
+            fill.update({k: extra[k] for k in ("n_dropped", "n_screened", "n_timeout_real")})
+        return dataclasses.replace(rm, **fill)
 
     # ---------------------------------------------------------------- runs
 
@@ -619,11 +715,12 @@ class FleetSim:
 
     def _run_segments(self, n_rounds: int, with_eval: bool, segment: int,
                       ckpt_dir: Optional[str], *, start: int = 0, carry=None,
-                      parts: Optional[list] = None) -> SimResult:
+                      parts: Optional[list] = None,
+                      entry: str = "run_compiled") -> SimResult:
         """Rounds ``start`` to ``n_rounds`` in segments of ``segment``, each
         segment's per-round results copied to the host at its end; the
         carry threads through unchanged, so the trajectory is the
-        unsegmented one."""
+        unsegmented one. The ledger gets the run as ``entry``."""
         t0 = time.perf_counter()
         carry = self._init_carry() if carry is None else carry
         parts = [] if parts is None else list(parts)
@@ -634,16 +731,15 @@ class FleetSim:
                 for n in range(b, e):
                     carry, out = self._round_body(carry, n, with_eval)
                     outs.append(out)
-                parts.append({k: torch.stack([x[k] for x in outs]).cpu().numpy()
-                              for k in outs[0]})
+                parts.append(_stack_out(outs))
                 if ckpt_dir is not None and e < n_rounds:
                     self._save_segment(ckpt_dir, e, n_rounds, segment, with_eval, carry,
                                        parts)
         self.final_flat = carry[0]
         self.run_seconds = time.perf_counter() - t0
-        o = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        o = _concat_out(parts)
         f64 = np.float64
-        return SimResult(
+        res = SimResult(
             name=self.name,
             energy=o["energy"].astype(f64), accuracy=o["accuracy"].astype(f64),
             loss=o["loss"].astype(f64), n_scheduled=o["n_scheduled"],
@@ -651,7 +747,10 @@ class FleetSim:
             payload_bits=o["payload_bits"].astype(f64),
             rates=o["rates"].astype(f64), lambda1=o["lambda1"].astype(f64),
             lambda2=o["lambda2"].astype(f64),
+            metrics=dict(o["metrics"]) if "metrics" in o else None,
         )
+        self._write_run_ledger(entry, n_rounds, res, self.run_seconds)
+        return res
 
     def _save_segment(self, ckpt_dir: str, next_round: int, n_rounds: int, segment: int,
                       with_eval: bool, carry, parts: list) -> None:
@@ -660,7 +759,7 @@ class FleetSim:
         the JAX engine's draws are a pure function of the round key."""
         tree = {
             "carry": {f"c{i:02d}": leaf for i, leaf in enumerate(carry)},
-            "out": {k: np.concatenate([p[k] for p in parts]) for k in parts[0]},
+            "out": _concat_out(parts),
         }
         if hasattr(self.entropy, "get_state"):
             tree["entropy"] = self.entropy.get_state()
@@ -671,6 +770,7 @@ class FleetSim:
             "dyn_hash": tree_util.pytree_hash(self._dyn()),
             "sim_name": self.name, "device_type": self.device.type,
         })
+        self.ledger.write("resume", step=int(next_round), action="save", dir=str(ckpt_dir))
 
     def resume_compiled(self, ckpt_dir: str) -> SimResult:
         """Finish a segmented :meth:`run_compiled` from its latest checkpoint:
@@ -706,11 +806,60 @@ class FleetSim:
             raise ckpt.CheckpointError(
                 "the checkpoint's entropy state does not fit this sim's entropy source "
                 f"(saved: {'entropy' in tree}, this source keeps state: {stateful})")
+        if ("metrics" in tree["out"]) != self.metrics_cfg.enabled:
+            raise ckpt.CheckpointError(
+                "the checkpoint's rounds were run with telemetry "
+                f"{'on' if 'metrics' in tree['out'] else 'off'}, this sim has it "
+                f"{'on' if self.metrics_cfg.enabled else 'off'}")
         if stateful:
             self.entropy.set_state(tree["entropy"])
+        self.ledger.write("resume", step=int(meta["next_round"]), action="load",
+                          dir=str(ckpt_dir))
         return self._run_segments(
             int(meta["n_rounds"]), bool(meta["with_eval"]), int(meta["segment"]), ckpt_dir,
-            start=int(meta["next_round"]), carry=carry, parts=[tree["out"]])
+            start=int(meta["next_round"]), carry=carry, parts=[tree["out"]],
+            entry="resume_compiled")
+
+    # ------------------------------------------------------------- ledger
+
+    def _ledger_header(self, entry: str, n_rounds: int) -> None:
+        """One run header per run: scenario fingerprint, fleet shape,
+        policy, telemetry gate (the ledger stamps the git rev and the torch
+        version)."""
+        self.ledger.run_header(
+            self.name, entry,
+            scenario_hash=tree_util.pytree_hash(self._dyn()),
+            policy=self.policy_mode,
+            u=int(self.fleet.n_clients),
+            c=int(self.channel.params.n_channels),
+            z=int(self.z), rounds=int(n_rounds), seed=self.seed,
+            telemetry=self.metrics_cfg.enabled,
+            downlink=self.downlink.mode,
+        )
+
+    @staticmethod
+    def _ledger_row(res: SimResult, n: int) -> dict:
+        """Round n of a SimResult -> a ledger round row (the RoundRecord
+        columns plus the telemetry taps when present)."""
+        row = dict(
+            energy=float(res.energy[n]), accuracy=float(res.accuracy[n]),
+            loss=float(res.loss[n]), n_scheduled=int(res.n_scheduled[n]),
+            latency=float(res.latency[n]),
+            payload_bits=float(res.payload_bits[n]),
+            lambda1=float(res.lambda1[n]), lambda2=float(res.lambda2[n]),
+        )
+        if res.metrics is not None:
+            row.update({k: float(v[n]) for k, v in res.metrics.items()})
+        return row
+
+    def _write_run_ledger(self, entry: str, n_rounds: int, res: SimResult,
+                          run_s: float) -> None:
+        if not self.ledger.enabled:
+            return
+        self._ledger_header(entry, n_rounds)
+        for n in range(n_rounds):
+            self.ledger.round_row(n, **self._ledger_row(res, n))
+        self.ledger.timing("run", run_s, entry=entry, rounds=int(n_rounds))
 
     # ------------------------------------------------- host policies
 
@@ -772,9 +921,14 @@ class FleetSim:
 
         Decisions above ``q_cap`` are clamped to it for execution and in the
         records: the index planes are sized for ``q_cap`` levels (build with
-        ``q_cap=16`` for baselines that quantize up to 16 bits). The
-        telemetry branch of the JAX engine's replay is not ported (ROADMAP.md
-        Queue 1, item 7).
+        ``q_cap=16`` for baselines that quantize up to 16 bits).
+
+        With telemetry on, ``last_host_metrics`` holds one dict of taps per
+        round, in the compiled run's schema (``obs.metrics.decision_metrics_host``
+        on the host decision, on the sim's device; the wire, downlink and
+        fault taps from ``_exec_round``); the host GA records no
+        ``ga_median``. With a ledger, the run is written to it as
+        ``run_host_policy``.
         """
         if channel not in ("sim", "host"):
             raise ValueError(f"channel must be sim or host, got {channel!r}")
@@ -784,6 +938,7 @@ class FleetSim:
         c = self.channel.params.n_channels
         dev = self.device
         faults_on, dl_on = self.faults.enabled, self.downlink.enabled
+        mcfg = self.metrics_cfg
         qccf = self.policy_mode in _QCCF_MODES
         consts = self.sysp.bound_constants()
         d_sizes = self.fleet.d_sizes.astype(np.float64)
@@ -793,6 +948,8 @@ class FleetSim:
         dl_prev = 0.0
         out_state = torch.zeros((u,), dtype=torch.float32, device=dev) if faults_on else None
         records: list[RoundRecord] = []
+        # per-round taps of this replay (the compiled run's schema)
+        host_metrics: list[dict] = []
         cum = 0.0
         self._rewind()
         t0 = time.perf_counter()
@@ -814,6 +971,9 @@ class FleetSim:
                 if dl_on and hasattr(policy, "set_downlink_term"):
                     policy.set_downlink_term(dl_prev)
                 dec = policy.decide(ctx)
+                # the continuous-q tap: KKT policies attach the clipped q_hat,
+                # the baselines fall back to their level before the clamp
+                q_cont_host = getattr(dec, "q_cont", np.asarray(dec.q, np.float64).copy())
                 # clamp into the wire format: an index plane sized for q_cap
                 # would wrap above it
                 q_exec = np.clip(dec.q, 1, self.q_cap) * dec.a
@@ -873,6 +1033,7 @@ class FleetSim:
                 g_sq[sel] = 0.7 * g_sq[sel] + 0.3 * g_obs[upd]
                 sigma_sq[sel] = 0.7 * sigma_sq[sel] + 0.3 * np.maximum(s_obs[upd], 1e-8)
                 theta_max[sel] = theta[upd]
+                planned_dt, planned_qt = float(dec.data_term), float(dec.quant_term)
                 if faults_on:
                     # the queues take the terms at the realized participation
                     a_real = np.zeros(u)
@@ -893,11 +1054,44 @@ class FleetSim:
                         dec.a > 0, self.z * np.maximum(dec.q, 1) + self.z + 32.0, 0.0))),
                     rates=v_assigned,
                 ))
+                if mcfg.enabled:
+                    host_metrics.append(self._host_metrics(
+                        a_np, dec, q_cont_host, d_sizes, planned_dt, planned_qt, extra))
                 if dl_on:
                     dl_prev = float(extra["dl_next"])
         self.final_flat = flat
         self.run_seconds = time.perf_counter() - t0
-        return ExperimentResult(getattr(policy, "name", "host_policy"), records)
+        self.last_host_metrics = host_metrics if mcfg.enabled else None
+        result = ExperimentResult(getattr(policy, "name", "host_policy"), records)
+        if self.ledger.enabled:
+            self._ledger_header("run_host_policy", n_rounds)
+            for n, rec in enumerate(records):
+                row = dict(energy=rec.energy, accuracy=rec.accuracy, loss=rec.loss,
+                           n_scheduled=rec.n_scheduled, latency=rec.latency,
+                           payload_bits=rec.payload_bits)
+                if mcfg.enabled:
+                    row.update(host_metrics[n])
+                self.ledger.round_row(n, **row)
+            self.ledger.timing("run", self.run_seconds, entry="run_host_policy",
+                               rounds=int(n_rounds))
+        return result
+
+    def _host_metrics(self, a_np, dec, q_cont, d_sizes, data_term: float, quant_term: float,
+                      extra: dict) -> dict:
+        """One host round's taps, the compiled round's fields: the decision's
+        through ``decision_metrics_host`` (planned drift terms, as the
+        compiled tap takes them), the wire, downlink and fault taps of
+        ``_exec_round``, and the host GA's best J0 where it has one."""
+        def tap(name):
+            return float(extra[name]) if name in extra else None
+
+        return obs_metrics.decision_metrics_host(
+            a_np, np.asarray(dec.q), np.asarray(q_cont), np.asarray(dec.f),
+            np.asarray(dec.energy), d_sizes, data_term, quant_term, self.sysp,
+            quant_mse=tap("quant_mse"), ga_best=getattr(dec, "ga_best", None),
+            dl_payload_bits=tap("dl_payload_bits"), dl_mse=tap("dl_mse"),
+            n_dropped=tap("n_dropped"), n_screened=tap("n_screened"),
+            n_timeout_real=tap("n_timeout_real"), device=self.device)
 
 
 # ------------------------------------------------------------------- build
@@ -951,8 +1145,8 @@ def build_sim(
     ga_config=None,
     hetero_weight: Optional[float] = None,
     name: Optional[str] = None,
-    telemetry=None,
-    ledger=None,
+    telemetry: Optional[MetricsConfig] = None,
+    ledger: Optional[obs_ledger.Ledger] = None,
     downlink=None,
     faults: Optional[FaultSpec] = None,
     init_params: Optional[dict] = None,
@@ -974,14 +1168,16 @@ def build_sim(
     :class:`DownlinkConfig` or its mode (``"off"``, ``"quant"``,
     ``"delta"``); ``faults`` a :class:`FaultSpec` (default: the scenario's).
 
+    ``telemetry`` (a :class:`~repro_torch.obs.MetricsConfig`) turns the
+    per-round taps on, and ``ledger`` (a :class:`~repro_torch.obs.Ledger`)
+    takes every run's header, rows and timing.
+
     ``init_params`` (a parameter tree of ``repro_torch.models.cnn``, e.g.
     from ``params_from_numpy`` of the JAX package's weights) replaces the
     port's own seeded init; ``entropy`` replaces the default
     :class:`~repro_torch.sim.entropy.DeviceEntropy`.
     """
     dev = resolve_device(device)
-    if telemetry is not None or ledger is not None:
-        raise _not_ported("telemetry and the ledger", "item 7 (obs)")
     n_channels = n_clients if n_channels is None else n_channels
     if isinstance(scenario, str):
         scenario = get_scenario(scenario, n_clients=n_clients, n_channels=n_channels)
@@ -1049,5 +1245,5 @@ def build_sim(
         batch_size=batch_size, q_cap=q_cap, seed=seed,
         hetero=hetero, name=name, entropy=entropy,
         host_channel=host_channel, policy_mode=policy_mode, ga_config=ga_config,
-        downlink=downlink, faults=faults,
+        downlink=downlink, faults=faults, telemetry=telemetry, ledger=ledger,
     )

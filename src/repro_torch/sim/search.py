@@ -44,11 +44,14 @@ from repro_torch.obs.profile import scope as _profile_scope
 from repro_torch.sim import policy as fast_policy
 from repro_torch.sim.entropy import GADraws, ga_shapes
 
-def _stats_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "repro_torch.sim.search: with_stats (the ga_best/ga_median taps) is not "
-        "ported yet (ROADMAP.md Queue 1, item 7 (obs))"
-    )
+
+def median(x: torch.Tensor) -> torch.Tensor:
+    """Median of a 1-D tensor as ``jnp.median`` takes it: the mean of the
+    two middle values of an even count, ``(lo + hi) * 0.5`` in the input's
+    dtype (``torch.median`` returns the lower one), on the device."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
 # ----------------------------------------------------------------- operators
@@ -202,15 +205,21 @@ def ga_decide(
     returned (schedule nobody). The best-so-far bookkeeping stays on the
     device (``index_select`` of the argmin, ``where`` on the comparison):
     no ``.item()``, no tensor in a Python condition, no ``nonzero``.
+
+    ``with_stats=True`` (the telemetry gate, see ``repro_torch.obs``) also
+    returns ``{"ga_best", "ga_median"}``, 0-d device tensors: the running
+    best J0 after the last evaluated generation and that generation's median
+    population J0 (:func:`median`), the taps behind
+    ``RoundMetrics.ga_best``/``ga_median``. The default False runs no
+    extra operation.
     """
-    if with_stats:
-        raise _stats_not_ported()
     u, c = rates.shape
     assert c >= 2, "population search needs at least two channels"
     _check_draws(draws, u, c, cfg)
     pop = random_assignment(draws.n_sched, draws.perm_u, draws.perm_c)
     best_assign = torch.full((c,), -1, dtype=pop.dtype, device=pop.device)
     best_j0 = torch.full((), J0_INFEASIBLE, dtype=torch.float32, device=pop.device)
+    j0 = None
     for g in range(cfg.generations):
         j0 = evaluate_population(
             pop, rates, d_sizes, g_sq, sigma_sq, theta_max, lam1, lam2,
@@ -227,10 +236,15 @@ def ga_decide(
     # re-evaluate the winner to materialize its full record; an
     # all-infeasible search leaves best_assign empty == schedule nobody
     v_assigned, a0 = fast_policy.participation_from_assign(best_assign, rates)
-    return fast_policy.finish_decision(
+    fd = fast_policy.finish_decision(
         best_assign, v_assigned, a0, d_sizes, g_sq, sigma_sq, theta_max,
         lam2, sysp, z, v_weight, q_cap=q_cap, hetero=hetero, dl_term=dl_term,
     )
+    if with_stats:
+        nan = torch.full((), float("nan"), dtype=torch.float32, device=pop.device)
+        return fd, {"ga_best": best_j0 if j0 is not None else nan,
+                    "ga_median": median(j0) if j0 is not None else nan}
+    return fd
 
 
 # ------------------------------------------------------------ SameSize [26]
@@ -254,12 +268,13 @@ def baseline_same_size(
     """``fl.baselines.SameSizePolicy`` on the device: the GA+KKT search
     pretending every client holds the MEAN dataset size, then energy and
     latency re-accounted with the true sizes. Deadline-missers escalate to
-    f_max; clients still late then time out. Heterogeneity-blind."""
-    if with_stats:
-        raise _stats_not_ported()
+    f_max; clients still late then time out. Heterogeneity-blind.
+    ``with_stats`` also returns the search's taps, as :func:`ga_decide`."""
     fake_d = torch.mean(d_sizes).expand_as(d_sizes)
     fd = ga_decide(draws, rates, fake_d, g_sq, sigma_sq, theta_max, lam1, lam2,
-                   sysp, z, v_weight, cfg=cfg, q_cap=q_cap)
+                   sysp, z, v_weight, cfg=cfg, q_cap=q_cap, with_stats=with_stats)
+    if with_stats:
+        fd, ga_stats = fd
     q_raw = fd.q.to(torch.float32)
     f0 = torch.where(fd.f > 0, fd.f, torch.full_like(fd.f, sysp.f_min))
     first = fast_policy.account_baseline(
@@ -269,10 +284,11 @@ def baseline_same_size(
     # the host escalation loop raises one f at a time, but each client's
     # latency depends only on its own f, so one vectorised pass is exact
     f2 = torch.where(first.latency > sysp.t_max, torch.full_like(f0, sysp.f_max), f0)
-    return fast_policy.account_baseline(
+    final = fast_policy.account_baseline(
         fd.assign, rates, d_sizes, g_sq, sigma_sq, theta_max, q_raw, f2,
         sysp, z, q_cap, drop_late=True, late_tol=1.0 + 1e-9,
     )
+    return (final, ga_stats) if with_stats else final
 
 
 # ------------------------------------------------------------- host oracle
@@ -413,7 +429,11 @@ class HostGAPolicy:
             data_term=float(fd.data_term), quant_term=float(fd.quant_term),
             feasible=True,
         )
+        # telemetry taps for run_host_policy's rows: the scalar solver's
+        # clipped q_hat, and the search's best J0 (the host loop keeps no
+        # per-generation population median)
         dec.q_cont = fd.q_cont
+        dec.ga_best = dec.j0
         return dec
 
     def commit(self, dec) -> None:

@@ -88,6 +88,30 @@ def test_quantize_dequantize_kernels_bit_equal(cuda, q_bits):
     assert sq.launches == {"aggregate": 0, "quantize": 1, "dequantize": 2}
 
 
+@pytest.mark.parametrize("m,offset", [(2048, 0), (2048, 4), (37, 0), (37, 12)],
+                         ids=["aligned", "offset-4", "ragged", "ragged-offset-12"])
+def test_quantize_variants_bit_equal(cuda, m, offset):
+    """The 4-element kernel on 16-byte aligned inputs, the one-element
+    kernel on an x view ``offset`` bytes off a 16-byte boundary; both
+    bit-equal to the plain version for every q, one launch each."""
+    gen = torch.Generator(device=cuda).manual_seed(m + offset)
+    buf = torch.empty(m * 128 + 16, device=cuda)
+    x = buf[offset // 4:offset // 4 + m * 128].view(m, 128)
+    x.copy_(torch.randn((m, 128), generator=gen, device=cuda) * 0.05)
+    x[0, :4] = torch.tensor([0.0, -0.0, 1e-30, -1e-30], device=cuda)
+    rbits = ops.random_bits(x.shape, gen)
+    scale = x.abs().amax().reshape(1)
+    want_variant = "scalar" if offset % 16 else "vec4"
+    probe = torch.empty((m, 128), dtype=torch.uint8, device=cuda)
+    assert sq.quantize_variant(x, rbits, probe, probe) == want_variant
+    for q_bits in range(1, 9):
+        sq.reset_launches()
+        idx, signs = sq.quantize(x, rbits, scale, q_bits)
+        assert sq.launches["quantize"] == 1
+        want_idx, want_signs = sq.quantize_plain(x, rbits, scale, q_bits)
+        assert torch.equal(idx, want_idx) and torch.equal(signs, want_signs), q_bits
+
+
 def test_cuda_wrappers_reject_mixed_devices(cuda):
     x = torch.zeros((256, 128), device=cuda)
     rbits = torch.zeros((256, 128), dtype=torch.int32).view(torch.uint32)
@@ -392,3 +416,107 @@ def test_engine_numbers_do_not_depend_on_the_callers_flags(cuda):
             setattr(mod, name, value)
     for f in ("energy", "accuracy", "loss", "q_levels", "lambda1", "lambda2"):
         np.testing.assert_array_equal(getattr(exact, f), getattr(loose, f), err_msg=f)
+
+
+class _CpuDraws:
+    """The default entropy source's draws made on the CPU and moved to the
+    run's device, so a card run and a CPU run see the same numbers."""
+
+    def __init__(self, seed, device):
+        from repro_torch.sim.entropy import DeviceEntropy
+
+        self.inner, self.device = DeviceEntropy(seed, "cpu"), torch.device(device)
+
+    def rates(self, ridx, channel):
+        import dataclasses
+
+        host = dataclasses.replace(channel, distances=channel.distances.cpu())
+        return self.inner.rates(ridx, host).to(self.device)
+
+    def ga_draws(self, ridx, n_clients, n_channels, cfg):
+        return self.inner.ga_draws(ridx, n_clients, n_channels, cfg).to(self.device)
+
+    def batch_indices(self, ridx, n_s, tau, b):
+        return self.inner.batch_indices(ridx, n_s.cpu(), tau, b).to(self.device)
+
+    def uniforms(self, ridx, s, zpad):
+        return self.inner.uniforms(ridx, s, zpad).to(self.device)
+
+
+# card vs CPU on the same draws: q and the schedule are identical, so the
+# exact-input taps are equal; the decision's float taps differ as the KKT's
+# fp32 arithmetic does (and corr(q, D) by the order of its sums), within
+# 1e-4; the wire error takes the SGD's last-bit differences, which move a
+# coordinate whose uniform sits at a rounding boundary by one quantizer
+# level (a few coordinates of ~5,000), so it is held to 5e-2
+_TAP_EXACT = ("q_mean", "q_max", "n_timeout")
+
+
+@pytest.mark.parametrize("mode", ["greedy", "compiled-ga"])
+def test_telemetry_taps_card_equal_cpu(cuda, mode):
+    from repro_torch.core.genetic import GAConfig
+    from repro_torch.models import cnn
+    from repro_torch.obs import METRIC_FIELDS, MetricsConfig
+    from repro_torch.sim import build_sim
+
+    params = cnn.init_params(cnn.TINY_CNN, 0, device="cpu")
+    kw = dict(n_clients=8, n_channels=4, seed=0, n_test=64, init_params=params,
+              policy_mode=mode, ga_config=GAConfig(generations=4, population=8, elitism=2,
+                                                   repair_infeasible=True))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        on = build_sim("tiny", device=dev, entropy=_CpuDraws(0, dev),
+                       telemetry=MetricsConfig(enabled=True), **kw)
+        off = build_sim("tiny", device=dev, entropy=_CpuDraws(0, dev), **kw)
+        sq.reset_launches()
+        runs[dev] = on.run_compiled(3)
+        if dev == "cuda":
+            assert sq.launches["aggregate"] == 3
+        plain = off.run_compiled(3)
+        # on changes only what is reported, on either device
+        for f in ("energy", "accuracy", "loss", "q_levels", "rates", "lambda1", "lambda2"):
+            np.testing.assert_array_equal(getattr(runs[dev], f), getattr(plain, f), err_msg=f)
+        assert torch.equal(on.final_flat, off.final_flat)
+    g, c = runs["cuda"].metrics, runs["cpu"].metrics
+    np.testing.assert_array_equal(runs["cuda"].q_levels, runs["cpu"].q_levels)
+    for f in METRIC_FIELDS:
+        if f in _TAP_EXACT:
+            np.testing.assert_array_equal(g[f], c[f], err_msg=f)
+        elif f in ("quant_mse", "dl_mse"):
+            np.testing.assert_allclose(g[f], c[f], rtol=5e-2, atol=0, equal_nan=True, err_msg=f)
+        else:
+            np.testing.assert_allclose(g[f], c[f], rtol=1e-4, atol=1e-12, equal_nan=True,
+                                       err_msg=f)
+    assert np.isfinite(g["ga_best"]).all() == (mode == "compiled-ga")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"policy_mode": "no_quant", "q_cap": 16}, {"scenario": "single_bs_faulty"},
+    {"downlink": "delta"}, {"policy_mode": "same_size", "q_cap": 16},
+], ids=["no_quant", "faults", "delta", "same_size"])
+def test_telemetry_and_ledger_on_card(cuda, tmp_path, kwargs):
+    """Every tap and a ledger on the card, in a baseline, under faults,
+    with the downlink and a segmented run with its resume: outputs bit-equal
+    to the run without telemetry, ``aggregate`` once per round, every ledger
+    event valid."""
+    from repro_torch.core.genetic import GAConfig
+    from repro_torch.obs import Ledger, MetricsConfig, read_ledger
+    from repro_torch.sim import build_sim
+
+    kw = dict(n_clients=8, n_channels=4, seed=0, n_test=32,
+              ga_config=GAConfig(generations=3, population=6, repair_infeasible=True), **kwargs)
+    path = str(tmp_path / "run.jsonl")
+    on = build_sim("tiny", telemetry=MetricsConfig(enabled=True), ledger=Ledger(path), **kw)
+    sq.reset_launches()
+    res = on.run_compiled(4, segment=2, ckpt_dir=str(tmp_path / "ck"))
+    assert sq.launches["aggregate"] == 4
+    plain = build_sim("tiny", **kw).run_compiled(4)
+    for f in ("energy", "accuracy", "loss", "q_levels", "rates", "lambda1", "lambda2"):
+        np.testing.assert_array_equal(getattr(res, f), getattr(plain, f), err_msg=f)
+    resumed = build_sim("tiny", telemetry=MetricsConfig(enabled=True), ledger=Ledger(path),
+                        **kw).resume_compiled(str(tmp_path / "ck"))
+    for k, v in res.metrics.items():
+        np.testing.assert_array_equal(resumed.metrics[k], v, err_msg=k)
+    assert np.isfinite(res.metrics["q_mean"]).all() and np.isfinite(res.metrics["energy_comp"]).all()
+    kinds = [e["event"] for e in read_ledger(path)]
+    assert kinds.count("run_header") == 2 and kinds.count("resume") == 2

@@ -149,5 +149,7 @@ def test_default_entropy_runs_and_is_seeded():
 
 @pytest.mark.parametrize("kwargs", [{"telemetry": object()}], ids=["telemetry"])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # telemetry is ported: what is refused now is a gate that is not a
+    # MetricsConfig, before any set-up work
+    with pytest.raises(TypeError, match="MetricsConfig"):
         teng.build_sim("tiny", n_clients=4, n_channels=2, n_test=8, device="cpu", **kwargs)

@@ -249,6 +249,14 @@ def test_scenario_overrides_and_policy():
 @pytest.mark.parametrize("kwargs", [{"telemetry": object()}, {"ledger": object()}],
                          ids=["telemetry", "ledger"])
 def test_telemetry_and_ledger_still_refused_under_a_scenario(kwargs):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # both are ported: a scenario takes a MetricsConfig and a Ledger, and
+    # refuses anything else of either name
+    from repro_torch.obs import Ledger, MetricsConfig
+
+    with pytest.raises(TypeError, match="MetricsConfig or None|Ledger or None"):
         teng.build_sim("tiny", scenario="cellfree_a4", n_clients=4, n_channels=2, n_test=8,
                        device="cpu", **kwargs)
+    sim = teng.build_sim("tiny", scenario="cellfree_a4", n_clients=4, n_channels=2, n_test=8,
+                         device="cpu", telemetry=MetricsConfig(enabled=True),
+                         ledger=Ledger(None))
+    assert sim.metrics_cfg.enabled and not sim.ledger.enabled

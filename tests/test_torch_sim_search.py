@@ -237,10 +237,15 @@ def test_ga_refuses_what_is_not_ported():
     draws = DeviceEntropy(0, "cpu").ga_draws(0, u, c, cfg)
     args = [_f32(a) for a in (rates, d, g, s, th)] + [torch.tensor(1.0), torch.tensor(1.0),
                                                       TSYSP, 5122, 100.0]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsearch.ga_decide(draws, *args, cfg=cfg, with_stats=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsearch.baseline_same_size(draws, *args, cfg=cfg, with_stats=True)
+    # with_stats is ported: the decision is the stat-free one, plus the taps
+    plain = tsearch.ga_decide(draws, *args, cfg=cfg)
+    for fn in (tsearch.ga_decide, tsearch.baseline_same_size):
+        fd, stats = fn(draws, *args, cfg=cfg, with_stats=True)
+        assert set(stats) == {"ga_best", "ga_median"}
+        assert all(v.shape == () and v.dtype == torch.float32 for v in stats.values())
+        assert float(stats["ga_best"]) <= float(stats["ga_median"])
+    fd, _ = tsearch.ga_decide(draws, *args, cfg=cfg, with_stats=True)
+    assert torch.equal(fd.assign, plain.assign) and torch.equal(fd.energy, plain.energy)
     with pytest.raises(ValueError, match="perm_u"):
         tsearch.ga_decide(DeviceEntropy(0, "cpu").ga_draws(0, u + 1, c, cfg), *args, cfg=cfg)
     with pytest.raises(AssertionError, match="two channels"):

@@ -209,3 +209,55 @@ def test_dequantize_of_an_offset_view_equals_the_aligned_copy():
     assert tsq.dequantize_variant(view, signs, torch.empty(64, 128)) == "scalar"
     assert torch.equal(tsq.dequantize(view, signs, torch.tensor([scale]), 5),
                        tsq.dequantize(idx, signs, torch.tensor([scale]), 5))
+
+
+# ------------------------------------------------------ quantize's variants
+
+@pytest.mark.parametrize("x_off,rbits_off,idx_off,signs_off,want", [
+    (0, 0, 0, 0, "vec4"),       # fresh planes
+    (16, 32, 4, 8, "vec4"),     # views at other 16-byte (inputs), 4-byte (planes) boundaries
+    (4, 0, 0, 0, "scalar"),     # x one fp32 element off a 16-byte boundary
+    (0, 8, 0, 0, "scalar"),     # rbits two elements off
+    (0, 0, 1, 0, "scalar"),     # idx one byte off
+    (0, 0, 0, 2, "scalar"),     # signs 2 bytes off
+], ids=["aligned", "offset-16-4", "x-offset-4", "rbits-offset-8", "idx-offset-1",
+        "signs-offset-2"])
+def test_quantize_variant(x_off, rbits_off, idx_off, signs_off, want):
+    x = _plane_at(4, x_off, torch.float32)
+    rbits = _plane_at(4, rbits_off, torch.int32).view(torch.uint32)
+    idx, signs = _plane_at(4, idx_off), _plane_at(4, signs_off)
+    assert tsq.quantize_variant(x, rbits, idx, signs) == want
+
+
+def test_quantize_variant_of_a_ragged_flat_view():
+    # a size that is not a multiple of 4 takes the one-element kernel even
+    # on aligned pointers (the wrappers only pass (M, 128) planes, but the
+    # rule is the kernel's own)
+    x = _plane_at(1, 0, torch.float32).reshape(-1)[:6]
+    rbits = _plane_at(1, 0, torch.int32).view(torch.uint32).reshape(-1)[:6]
+    idx, signs = _plane_at(1, 0).reshape(-1)[:6], _plane_at(1, 0).reshape(-1)[:6]
+    assert tsq.quantize_variant(x, rbits, idx, signs) == "scalar"
+    assert tsq.quantize_variant(x[:4], rbits[:4], idx[:4], signs[:4]) == "vec4"
+
+
+@pytest.mark.parametrize("x_off,entry", [(0, "sq_quantize_vec4"), (4, "sq_quantize")])
+def test_quantize_launches_its_variant(monkeypatch, x_off, entry):
+    """The wrapper hands aligned planes to the 4-element kernel and an
+    offset x to the one-element kernel, each counted as one launch (the
+    planes it allocates are always aligned)."""
+    from repro_torch.kernels import build
+
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: called.append(name) or 0
+
+    monkeypatch.setattr(build, "route", lambda name, *tensors: True)
+    monkeypatch.setattr(build, "library", lambda name: Lib())
+    monkeypatch.setattr(build, "stream", lambda dev: 0)
+    x = _plane_at(16, x_off, torch.float32)
+    rbits = _plane_at(16, 0, torch.int32).view(torch.uint32)
+    tsq.reset_launches()
+    tsq.quantize(x, rbits, torch.ones(1), 4)
+    assert called == [entry] and tsq.launches["quantize"] == 1
