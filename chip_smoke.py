@@ -58,7 +58,22 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
   6. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
      parameters at q = 4 (``quantize_kernel_vec4``, ``dequantize_kernel_vec4``),
      round-trip error against scale / (2^q - 1);
-  7. the serve path (after the FEMNIST sim is freed): ``serve.generate`` on
+  7. the object runtime (``object_runtime``, after the FEMNIST sim is
+     freed): ``build_experiment(pol, task="femnist", beta=150, seed=1)``,
+     the paper's Fig.-3 setting (10 clients on 10 channels, Z = 246,590),
+     for the five policies, one warm-up round then 3 timed: s/round, final
+     accuracy, cumulative energy, mean q, scheduled counts; finite outputs,
+     QCCF's energy below NoQuant's, every QCCF round within T_max. Then a
+     profile of one QCCF and one NoQuant round (host spans ``fl_decide``,
+     ``fl_local_quant``, ``fl_aggregate``); the tiny task on the card and
+     on the CPU from the same weights and upload uniforms (schedule and q
+     identical, accuracy within 1e-3, parameters within one quantization
+     level); the fleet sim against the object runtime driven by
+     ``HostFastPolicy`` on the card (U = 8, 12 rounds: scheduled counts and
+     q identical). No kernel lies on this path: the object runtime
+     quantizes with ``core.quantization.quantize_pytree``, as the JAX
+     package's does;
+  8. the serve path: ``serve.generate`` on
      Llama-3-8B at full width and depth (32 layers, random bf16 weights from
      a seed) with ``attn_impl="flash"``, batch 4, a 4096-token context from
      ``np.random.default_rng(0)`` and 32 new tokens; the wgmma flash kernel
@@ -68,7 +83,7 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      Llama-3-8B, fp32, context 2560, the same weights on the card and on the
      CPU: identical greedy tokens, logits within 1e-4; its prefill runs the
      SIMT flash kernel);
-  8. one JSON line with each kernel's launches, error and times.
+  9. one JSON line with each kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the repository's sources beside this file, it exits non-zero
@@ -141,8 +156,9 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+FL_SCOPES = ("fl_decide", "fl_local_quant", "fl_aggregate")      # the object runtime's
 SCOPES = ("kkt_solve", "evaluate_population", "fleet_local_sgd", "cuda_aggregate",
-          "cuda_quantize", "cuda_dequantize", "cuda_flash_attention")
+          "cuda_quantize", "cuda_dequantize", "cuda_flash_attention") + FL_SCOPES
 
 
 def _is_device(e) -> bool:
@@ -1247,6 +1263,181 @@ def wire_entry(sim):
     return launches
 
 
+# ---------------------------------------------------------- object runtime
+
+FIG3_POLICIES = ("qccf", "no_quant", "channel_allocate", "principle_24", "same_size_26")
+FIG3_ROUNDS = 3
+# card vs CPU on the object runtime: fp32 tolerance of a coordinate that
+# no stochastic rounding moved, and the share of coordinates within it
+FL_PARAM_ATOL, FL_WITHIN_SHARE = 1e-5, 0.99
+
+
+class _DecisionSpy:
+    """A policy that records the decisions of the policy it wraps."""
+
+    def __init__(self, inner) -> None:
+        self.inner, self.name, self.decisions = inner, inner.name, []
+
+    def decide(self, ctx):
+        self.decisions.append(self.inner.decide(ctx))
+        return self.decisions[-1]
+
+    def commit(self, dec) -> None:
+        self.inner.commit(dec)
+
+
+class _HostUploads:
+    """The default upload entropy drawn on the CPU and moved to the run's
+    device, so a CPU run and a card run round with the same uniforms."""
+
+    def __init__(self, seed: int, device) -> None:
+        from repro_torch.fl.trainer import UploadEntropy
+
+        self.inner, self.device = UploadEntropy(seed, "cpu"), device
+
+    def upload_uniforms(self, shapes):
+        return [u.to(self.device) for u in self.inner.upload_uniforms(shapes)]
+
+
+def _fl_fig3():
+    """(a) The paper's Fig.-3 setting on the card: each policy one warm-up
+    round, then FIG3_ROUNDS timed; returns {policy: experiment}."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.fl import ExperimentResult, build_experiment
+
+    out = {}
+    for pol in FIG3_POLICIES:
+        exp = build_experiment(pol, task="femnist", beta=150.0, seed=1)
+        require(exp.z == 246_590 and len(exp.clients) == 10, f"{pol}: Z={exp.z}")
+        warm = exp.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = exp.run(FIG3_ROUNDS)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / FIG3_ROUNDS
+        recs = warm.records + res.records
+        vals = [v for r in recs for v in (r.energy, r.cum_energy, r.accuracy, r.loss, r.latency)]
+        require(np.all(np.isfinite(vals)), f"{pol}: a record is not finite")
+        require(all(bool(torch.isfinite(leaf).all()) for leaf in tree_util.leaves(exp.params)),
+                f"{pol}: the model is not finite")
+        summary = ExperimentResult(pol, recs).summary()
+        print(f"{pol}: {sec:.4f} s per round ({FIG3_ROUNDS} rounds after 1 warm-up), final acc "
+              f"{summary['final_accuracy']:.4f}, cumulative energy "
+              f"{summary['total_energy_J']:.6e} J, mean q {summary['mean_q']:.3f}, scheduled "
+              f"{[r.n_scheduled for r in recs]}, max latency {max(r.latency for r in recs):.6e} s")
+        out[pol] = (recs, exp)
+    t_max = out["qccf"][1].sysp.t_max
+    e_q, e_n = out["qccf"][0][-1].cum_energy, out["no_quant"][0][-1].cum_energy
+    require(e_q < e_n, f"QCCF energy {e_q} not below NoQuant's {e_n}")
+    require(all(r.latency <= t_max * (1 + 1e-6) for r in out["qccf"][0]),
+            f"QCCF busts T_max={t_max}: {[r.latency for r in out['qccf'][0]]}")
+    print(f"QCCF energy {e_q:.6e} J < NoQuant {e_n:.6e} J ({e_q / e_n:.4f} of it); every QCCF "
+          f"round within T_max = {t_max} s")
+    return {pol: exp for pol, (_recs, exp) in out.items()}
+
+
+def _fl_profile(exp):
+    """(b) One profiled round from the state after the timed rounds:
+    launches, busy share, the round's host spans."""
+    res, prof = _profiled(f"object-runtime {exp.policy.name} round (FEMNIST, U=C=10)",
+                          lambda: exp.run(1), top=8)
+    spans = {name: 0.0 for name in FL_SCOPES}
+    for e in prof.events():
+        if e.name in FL_SCOPES and not str(e.device_type).endswith("CUDA"):
+            spans[e.name] += e.cpu_time_total
+    require(all(v > 0 for v in spans.values()), f"object-runtime spans missing: {spans}")
+    print(f"host spans of the {exp.policy.name} round, {res.records[0].n_scheduled} clients "
+          "scheduled (ms, under the profiler): " + ", ".join(
+              f"{k}={v / 1e3:.2f}" for k, v in spans.items()))
+
+
+def _fl_card_vs_cpu(rounds: int = 4):
+    """(c) The tiny task on the card and on the CPU from the same weights
+    and uniforms: schedules and q identical, accuracy within 1e-3, every
+    final parameter within one quantization level of the CPU run (the
+    largest w_i theta_i / (2^q_i - 1) of an upload in any round) plus
+    FL_PARAM_ATOL, and FL_WITHIN_SHARE of them within FL_PARAM_ATOL."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.fl import build_experiment
+    from repro_torch.models import cnn
+
+    params = cnn.init_params(cnn.TINY_CNN, 3, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        exp = build_experiment("qccf", task="tiny", n_clients=8, n_channels=8, seed=3,
+                               device=dev, init_params=params, entropy=_HostUploads(3, dev))
+        exp.policy = _DecisionSpy(exp.policy)
+        recs, level = [], 0.0
+        for _ in range(rounds):
+            recs += exp.run(1).records
+            dec = exp.policy.decisions[-1]
+            a = dec.a.astype(bool)
+            if a.any():
+                w = exp.d_sizes / float(np.sum(dec.a * exp.d_sizes))
+                step = w * exp.theta_max / (2.0 ** np.maximum(dec.q, 1) - 1.0)
+                level = max(level, float(step[a].max()))
+        runs[dev] = (recs, level, exp.params)
+    (g, _, gp), (c, level, cp) = runs["cuda"], runs["cpu"]
+    require([r.n_scheduled for r in g] == [r.n_scheduled for r in c]
+            and np.array_equal(np.stack([r.rates for r in g]), np.stack([r.rates for r in c])),
+            "object runtime: schedule differs between card and CPU")
+    require(np.array_equal(np.stack([r.q_levels for r in g]), np.stack([r.q_levels for r in c])),
+            "object runtime: q differs between card and CPU")
+    acc = max(abs(a.accuracy - b.accuracy) for a, b in zip(g, c))
+    require(acc <= 1e-3, f"object runtime: accuracy differs by {acc} > 1e-3")
+    e_g, e_c = np.array([r.energy for r in g]), np.array([r.energy for r in c])
+    require(np.allclose(e_g, e_c, rtol=1e-5, atol=0), f"energy card {e_g} vs CPU {e_c}")
+    diff = torch.cat([(x.cpu() - y).abs().reshape(-1)
+                      for x, y in zip(tree_util.leaves(gp), tree_util.leaves(cp))])
+    share = (diff <= FL_PARAM_ATOL).double().mean().item()
+    require(diff.max().item() <= level + FL_PARAM_ATOL,
+            f"final params differ by {diff.max().item():.3e}, above one level {level:.3e}")
+    require(share >= FL_WITHIN_SHARE, f"only {share:.5f} of coordinates within {FL_PARAM_ATOL}")
+    print(f"object runtime card vs CPU (tiny, U=C=8, {rounds} rounds): schedule and q identical, "
+          f"scheduled {[r.n_scheduled for r in g]}, accuracy max abs {acc:.3e}, energy max rel "
+          f"{np.max(np.abs(e_g - e_c) / np.maximum(e_c, 1e-30)):.2e}, final params max abs "
+          f"{diff.max().item():.3e} (one-level bound {level:.3e}), {share:.5f} within "
+          f"{FL_PARAM_ATOL:g}")
+
+
+def _fl_sim_vs_object(rounds: int = 12):
+    """(d) The fleet sim against the object runtime driven by the greedy
+    KKT oracle, both on the card (tests/test_sim_parity.py's pairing)."""
+    import numpy as np
+    from repro_torch.fl import build_experiment
+    from repro_torch.sim import build_sim
+    from repro_torch.sim.policy import HostFastPolicy
+
+    sim = build_sim("tiny", n_clients=8, seed=21)
+    res_sim = sim.run_compiled(rounds)
+    exp = build_experiment("qccf", task="tiny", n_clients=8, n_channels=8, seed=21)
+    exp.policy = HostFastPolicy(sim.sysp, sim.eps1, sim.eps2, sim.v_weight, q_cap=8)
+    res_obj = exp.run(rounds)
+    n_obj = [r.n_scheduled for r in res_obj.records]
+    q_obj = np.stack([r.q_levels for r in res_obj.records])
+    require(np.array_equal(n_obj, res_sim.n_scheduled),
+            f"sim vs object runtime: scheduled {res_sim.n_scheduled.tolist()} vs {n_obj}")
+    require(np.array_equal(q_obj, res_sim.q_levels), "sim vs object runtime: q differs")
+    print(f"fleet sim vs object runtime on the card (tiny, U=8, {rounds} rounds): scheduled "
+          f"and q identical, q per round {[sorted(set(q.tolist())) for q in q_obj]}, accuracy "
+          f"sim {res_sim.accuracy[-1]:.4f} / object {res_obj.records[-1].accuracy:.4f}")
+
+
+@phase("object_runtime: build_experiment/run_policy, FEMNIST Fig.-3 setting (U=C=10), "
+       "card vs CPU, sim vs object runtime")
+def object_runtime():
+    exps = _fl_fig3()
+    _fl_profile(exps["qccf"])
+    _fl_profile(exps["no_quant"])        # every client scheduled: the per-client cost
+    del exps
+    _fl_card_vs_cpu()
+    _fl_sim_vs_object()
+
+
 # ---------------------------------------------------------- flash attention
 
 # Tolerances of the flash kernels against their plain version on the same
@@ -1618,6 +1809,7 @@ def main() -> int:
     del sim                        # its 5.33 GB fleet tensor, before the 8B model
     gc.collect()
     torch.cuda.empty_cache()
+    object_runtime()
     cfg, params, ctx, serve_launches, _serve = serve_path()
     two_layer_prefill(cfg, params, ctx)
     profile_serve(cfg, params, ctx)

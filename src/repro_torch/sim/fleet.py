@@ -18,7 +18,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.fl.client import sgd_step
+from repro_torch.fl.client import _local_sgd
 from repro_torch.obs.profile import scope as _profile_scope
 
 
@@ -82,17 +82,11 @@ def fleet_local_sgd(
     leading S axis, and the per-slot G_i^2 (mean squared gradient norm) and
     sigma_i^2 (population variance of the per-step norms) observations.
     """
-    step = sgd_step(loss_fn, lr)
     rows = torch.arange(x_s.shape[0], device=x_s.device)[:, None, None]
     xb, yb = x_s[rows, batch_idx], y_s[rows, batch_idx]    # (S, tau, B, ...)
 
     def one_client(x, y):
-        p, gsq_acc, gsqs = params, 0.0, []
-        for t in range(tau):
-            p, _loss, gsq = step(p, {"x": x[t], "y": y[t]})
-            gsq_acc = gsq_acc + gsq
-            gsqs.append(gsq)
-        return p, gsq_acc / tau, torch.var(torch.stack(gsqs), correction=0)
+        return _local_sgd(loss_fn, tau, params, {"x": x, "y": y}, lr)
 
     with _profile_scope("fleet_local_sgd"):
         return torch.func.vmap(one_client)(xb, yb)

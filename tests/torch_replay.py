@@ -11,6 +11,9 @@ from ``fold_in(round_key, DOWNLINK_KEY_TAG)``; and the set-up draws of a
 cell-free scenario from ``fold_in(PRNGKey(seed), DROP_KEY_TAG)`` (the drop)
 and ``fold_in(PRNGKey(seed), PROBE_KEY_TAG)`` (the eps probe's normals).
 
+``UploadReplay`` hands ``repro_torch.fl.FLExperiment`` the uniforms of the
+JAX object runtime's upload key chain (``jax_upload_uniforms``).
+
 ``one_torch_thread`` is a module fixture the suites import: their torch work
 is tiny ops, and under pytest-xdist each worker's idle OpenMP threads spin
 against the other workers' (the new sim suites ran ~4x slower in wall time
@@ -187,3 +190,24 @@ class SequentialReplay(ReplayEntropy):
 
     def set_state(self, state: dict) -> None:
         self.cursor = int(np.asarray(state["round"]).reshape(-1)[0])
+
+
+def jax_upload_uniforms(key, shapes):
+    """The uniforms ``repro.core.quantization.quantize_pytree(key, ...)``
+    draws for leaves of ``shapes`` (in leaf order): one key per leaf from
+    ``split(key, len(shapes))``."""
+    keys = jax.random.split(key, len(shapes))
+    return [_t(jax.random.uniform(k, tuple(s), jnp.float32)) for k, s in zip(keys, shapes)]
+
+
+class UploadReplay:
+    """The JAX ``FLExperiment``'s upload entropy: ``PRNGKey(seed)`` split
+    once per scheduled client, in the order the clients upload."""
+
+    def __init__(self, seed, device="cpu"):
+        self.key = jax.random.PRNGKey(seed)
+        self.device = device
+
+    def upload_uniforms(self, shapes):
+        self.key, sub = jax.random.split(self.key)
+        return [u.to(self.device) for u in jax_upload_uniforms(sub, shapes)]
