@@ -23,9 +23,13 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      beside an empty kernel's device time (the launch floor).
      Flash attention is checked in bf16 (the wgmma kernel) and fp32 (the
      SIMT kernel, cp.async loads) at Llama-3-8B's serve shape, StarCoder2-7B's
-     heads (g = 9) with its 4096 window at S = 8192, and a non-causal ragged
-     shape; at each, bf16 inputs that TMA cannot describe (one element off
-     alignment) time the SIMT kernel's register-staged loads beside it;
+     heads (g = 9) with its 4096 window at S = 8192, a non-causal ragged
+     shape, Granite-3.0 1B-A400M's prefill (hd 64, g = 2, causal),
+     SeamlessM4T's encoder (hd 64, g = 1, non-causal) and InternVL2-26B's
+     prefill (hd 128, g = 6, causal), SDPA timed at each in both dtypes;
+     at each, bf16 inputs
+     that TMA cannot describe (one element off alignment) time the SIMT
+     kernel's register-staged loads beside it;
   4. the main path: ``build_sim("femnist", n_clients=1024, n_channels=8)``
      on the card, 5 QCCF rounds of ``run_compiled`` at the full FEMNIST
      CNN width (Z = 246,590), with ``aggregate`` launched once per round;
@@ -83,7 +87,19 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      Llama-3-8B, fp32, context 2560, the same weights on the card and on the
      CPU: identical greedy tokens, logits within 1e-4; its prefill runs the
      SIMT flash kernel);
-  9. one JSON line with each kernel's launches, error and times.
+  9. the other attention families, each model freed before the next:
+     Granite-3.0 1B-A400M at full size (24 layers, 32 experts top-8; B = 4,
+     context 4096, 32 new tokens; 24 causal wgmma launches in the prefill,
+     the mean dropped fraction of its routing), SeamlessM4T-large-v2 at full
+     size (24 + 24 layers; ``encode`` of 4 x 4096 normal frames, 24
+     non-causal wgmma launches, 32 greedy tokens from BOS) and InternVL2-26B
+     at full size (48 layers; 256 patch embeddings + 3840 tokens; 48 wgmma
+     launches), each parameter count held to the JAX package's;
+     then the small-input reference of each family's reduced config (fp32,
+     2560 positions, the card against the CPU on the same weights);
+ 10. one JSON line with each kernel's launches, error and times (the flash
+     rows: launches summed over their paths and listed per path, and each
+     checked shape's times).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the repository's sources beside this file, it exits non-zero
@@ -113,6 +129,8 @@ def _tiny_ga():
 
     return GAConfig(generations=4, population=8, elitism=2, repair_infeasible=True)
 SERVE_ARCH, SERVE_BATCH, SERVE_CONTEXT, SERVE_NEW = "llama3_8b", 4, 4096, 32
+GRANITE_ARCH, SEAMLESS_ARCH, INTERNVL2_ARCH = (
+    "granite_moe_1b_a400m", "seamless_m4t_large_v2", "internvl2_26b")
 
 
 class SmokeFailure(Exception):
@@ -1452,6 +1470,9 @@ FLASH_SHAPES = [
     ("llama3_8b serve", 4, 4096, 4096, 32, 8, 128, True, 0),
     ("starcoder2_7b window", 1, 8192, 8192, 36, 4, 128, True, 4096),
     ("non-causal ragged", 2, 1000, 1537, 16, 2, 112, False, 0),
+    ("granite prefill", 4, 4096, 4096, 16, 8, 64, True, 0),
+    ("seamless encoder", 4, 4096, 4096, 16, 16, 64, False, 0),
+    ("internvl2 prefill", 4, 4096, 4096, 48, 8, 128, True, 0),
 ]
 
 
@@ -1519,11 +1540,8 @@ def flash_vs_plain():
             call = lambda: fa.flash_attention(q, k, v, **kw)
             k_ms = kernel_ms(call, kernel, iters=5)
             p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2, warmup=1)
-            lib_ms = None
-            if dtype == torch.bfloat16:
-                lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 20)
-            elif name == "llama3_8b serve":
-                lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 3, warmup=1)
+            lib_ms = (cuda_ms(_sdpa(q, k, v, causal, window), 20) if dtype == torch.bfloat16
+                      else cuda_ms(_sdpa(q, k, v, causal, window), 3, warmup=1))
             variant = f", {fa._load_variant(q, k, v)} loads" if route == "simt" else ""
             print(f"flash {name} B={b} S={s} T={t} H={h}/{kv} hd={hd} causal={causal} "
                   f"window={window} {str(dtype)[6:]} ({route}{variant}): max_abs_err={err:.3e} "
@@ -1531,11 +1549,12 @@ def flash_vs_plain():
                   f"{FLASH_TOL[str(dtype)[6:]][1]:g}), lse err {lse_err:.3e}; "
                   f"kernel {k_ms:.3f} ms (profiler), bound {b_ms:.3f} ms ({b_by}), "
                   f"plain {p_ms:.3f} ms (events), scaled_dot_product_attention "
-                  f"{'-' if lib_ms is None else f'{lib_ms:.3f} ms'} (events)", flush=True)
+                  f"{lib_ms:.3f} ms (events)", flush=True)
+            row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms)
             if name == "llama3_8b serve":
-                report[f"flash_attention_{route}"] = dict(
-                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms)
+                report[f"flash_attention_{route}"] = {**row, "shapes": {}}
+            report[f"flash_attention_{route}"]["shapes"][name] = row
             if dtype == torch.bfloat16:
                 # the SIMT kernel's operations are fp32 FMAs: its bound is at the fp32 rate
                 simt_bound, _ = bound((q.numel() + k.numel() + v.numel() + out.numel()) * esz,
@@ -1601,17 +1620,23 @@ def _all_launches() -> dict:
     return {**sq.launches, **fa.launches}
 
 
-@phase("serve path: llama3_8b full width and depth, flash prefill, B=4, context 4096, "
-       "32 new tokens")
-def serve_path():
-    import numpy as np
+def uncounted_params(cfg) -> int:
+    """Parameters of ``init_params`` that ``ModelConfig.param_count()``
+    leaves out: the final norm's d_model scales in every family, the
+    encoder's norm for encdec, and ``vis_proj`` (d_model^2) for vlm
+    (held against the JAX package's ``init_params`` on the reduced
+    configs by ``tests/test_torch_families.py``)."""
+    d = cfg.d_model
+    return d + {"encdec": d, "vlm": d * d}.get(cfg.family, 0)
+
+
+def _serve_init(cfg):
+    """The model's random bf16 weights from seed 0 on the card, held to the
+    JAX package's parameter count."""
     import torch
     from repro_torch import tree as tree_util
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve
     from repro_torch.models import model
 
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), attn_impl="flash")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init_params(cfg, 0)
@@ -1620,37 +1645,165 @@ def serve_path():
     print(f"init_params: {n_params} parameters, matrices in {cfg.dtype}, "
           f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "allocated on the card")
-    # the analytic count leaves out the final norm's d_model scales
-    require(n_params == cfg.param_count() + cfg.d_model,
-            f"{n_params} parameters, want {cfg.param_count()} + {cfg.d_model}")
-    ctx = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_CONTEXT))
-    warm = serve.generate(cfg, params, ctx, 1)   # allocator, cuBLAS handles
+    want = cfg.param_count() + uncounted_params(cfg)
+    require(n_params == want, f"{n_params} parameters, want {cfg.param_count()} + "
+                              f"{uncounted_params(cfg)} = {want}")
+    return params
+
+
+def _serve_generate(label: str, cfg, params, ctx, n_attn: int, causal: bool, **inputs):
+    """``serve.generate`` once with one new token (allocator, cuBLAS
+    handles), then with SERVE_NEW, every launch count set to 0 just before
+    it: its prefill must run the wgmma flash kernel once per attention layer
+    (``n_attn``), every call ``causal`` as asked, and none through SIMT.
+    Returns the generation, its launches and the phase's numbers."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+
+    warm = serve.generate(cfg, params, ctx, 1, **inputs)
     print(f"warm-up generate (1 new token): prefill {warm.prefill_seconds:.3f} s")
+    masks, wrapper = set(), fa.flash_attention
+
+    def recording(q, k, v, **kw):     # keeps the mask, not the tensors (peak memory)
+        masks.add(kw["causal"])
+        return wrapper(q, k, v, **kw)
+
     _reset_all_launches()
-    gen = serve.generate(cfg, params, ctx, SERVE_NEW)
+    with mock.patch.object(fa, "flash_attention", recording):
+        gen = serve.generate(cfg, params, ctx, SERVE_NEW, **inputs)
     launches = _all_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    require(launches["flash_attention_wgmma"] == cfg.n_layers
-            and launches["flash_attention_simt"] == 0,
-            f"flash_attention launches in one prefill of {cfg.n_layers} layers: "
-            f"{ {k: v for k, v in launches.items() if k.startswith('flash')} }, want "
-            f"{cfg.n_layers} through wgmma and none through simt")
-    require(tuple(gen.tokens.shape) == (SERVE_BATCH, SERVE_NEW + 1),
-            f"tokens {tuple(gen.tokens.shape)}")
+    flash = {k: v for k, v in launches.items() if k.startswith("flash")}
+    require(flash["flash_attention_wgmma"] == n_attn and flash["flash_attention_simt"] == 0,
+            f"{label}: flash_attention launches {flash}, want {n_attn} through wgmma "
+            "and none through simt")
+    require(masks == {causal}, f"{label}: flash calls with causal in {masks}, want {causal}")
+    b = gen.tokens.shape[0]
+    require(tuple(gen.tokens.shape) == (b, SERVE_NEW + 1), f"tokens {tuple(gen.tokens.shape)}")
     require(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()), "token out of range")
     require(bool(torch.isfinite(gen.logits).all()), "non-finite logits")
     require(bool(torch.equal(gen.tokens[:, 0], warm.tokens[:, 0])),
             "the two prefills' greedy tokens differ")
-    tok_s = SERVE_NEW * SERVE_BATCH / gen.decode_seconds
-    print(f"prefill {SERVE_BATCH} x {SERVE_CONTEXT} tokens: {gen.prefill_seconds:.4f} s "
-          f"({SERVE_BATCH * SERVE_CONTEXT / gen.prefill_seconds:.0f} tok/s); decode "
-          f"{SERVE_NEW} tokens x {SERVE_BATCH} requests: {gen.decode_seconds:.4f} s "
-          f"({tok_s:.2f} tok/s, {gen.decode_seconds / SERVE_NEW * 1e3:.2f} ms/step); "
-          f"peak memory {peak:.2f} GB (max_memory_allocated)")
+    tok_s = SERVE_NEW * b / gen.decode_seconds
+    print(f"{label}: prefill {gen.prefill_seconds:.4f} s; decode {SERVE_NEW} tokens x {b} "
+          f"requests: {gen.decode_seconds:.4f} s ({tok_s:.2f} tok/s, "
+          f"{gen.decode_seconds / SERVE_NEW * 1e3:.2f} ms/step); peak memory {peak:.2f} GB "
+          f"(max_memory_allocated); {n_attn} {'causal' if causal else 'non-causal'} wgmma "
+          "flash launches")
     print(f"launches in the serve path: {launches}")
     print(f"req0 tokens: {gen.tokens[0, :16].tolist()}")
-    return cfg, params, ctx, launches, dict(prefill_s=gen.prefill_seconds, decode_tok_s=tok_s,
-                                            peak_gb=peak)
+    return gen, launches, dict(prefill_s=gen.prefill_seconds, decode_tok_s=tok_s, peak_gb=peak)
+
+
+def _release() -> None:
+    """Give the card back the memory of a model that went out of scope."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@phase("serve path: llama3_8b full width and depth, flash prefill, B=4, context 4096, "
+       "32 new tokens")
+def serve_path():
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), attn_impl="flash")
+    params = _serve_init(cfg)
+    ctx = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_CONTEXT))
+    gen, launches, numbers = _serve_generate(
+        f"{SERVE_ARCH} {SERVE_BATCH} x {SERVE_CONTEXT} tokens", cfg, params, ctx,
+        cfg.n_layers, True)
+    print(f"prefill rate {SERVE_BATCH * SERVE_CONTEXT / gen.prefill_seconds:.0f} tok/s")
+    return cfg, params, ctx, launches, numbers
+
+
+@phase("serve path: granite_moe_1b_a400m full size (24 layers, 32 experts top-8), flash "
+       "prefill, B=4, context 4096, 32 new tokens")
+def serve_granite():
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(GRANITE_ARCH), attn_impl="flash")
+    params = _serve_init(cfg)
+    ctx = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_CONTEXT))
+    drops, apply = [], moe.moe_apply
+
+    def recording(p, x, **kw):       # the prefill's routing: its dropped fraction
+        out, aux = apply(p, x, **kw)
+        if x.shape[1] > 1:
+            drops.append(aux["dropped_frac"])
+        return out, aux
+
+    with mock.patch.object(moe, "moe_apply", recording):
+        gen, launches, numbers = _serve_generate(
+            f"{GRANITE_ARCH} {SERVE_BATCH} x {SERVE_CONTEXT} tokens", cfg, params, ctx,
+            cfg.n_layers, True)
+    prefill_drops = drops[-cfg.n_layers:]      # the timed run's layers, after the warm-up's
+    require(len(drops) == 2 * cfg.n_layers, f"{len(drops)} MoE prefill calls, want "
+                                            f"{cfg.n_layers} in each of two prefills")
+    profile_serve(GRANITE_ARCH, cfg, params, ctx)
+    numbers["dropped_frac"] = torch.stack(prefill_drops).mean().item()
+    require(0.0 <= numbers["dropped_frac"] < 1.0, f"dropped_frac {numbers['dropped_frac']}")
+    print(f"routing: capacity factor {cfg.capacity_factor}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} in 512-token chunks; mean dropped_frac of the prefill "
+          f"{numbers['dropped_frac']:.4f} (per layer min "
+          f"{min(d.item() for d in prefill_drops):.4f}, max "
+          f"{max(d.item() for d in prefill_drops):.4f})")
+    return launches, numbers
+
+
+@phase("serve path: seamless_m4t_large_v2 full size (24 + 24 layers), non-causal flash "
+       "encode of B=4 x 4096 frames, 32 greedy tokens from BOS")
+def serve_seamless():
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode
+
+    cfg = dataclasses.replace(get_config(SEAMLESS_ARCH), attn_impl="flash")
+    params = _serve_init(cfg)
+    src = np.random.default_rng(0).normal(size=(SERVE_BATCH, SERVE_CONTEXT, cfg.d_model))
+    src = torch.as_tensor(src, dtype=torch.float32, device="cuda")
+    gen, launches, numbers = _serve_generate(
+        f"{SEAMLESS_ARCH} encode {SERVE_BATCH} x {SERVE_CONTEXT} frames + BOS step", cfg,
+        params, None, cfg.n_enc_layers, False, src_embeds=src)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode.encode(cfg, params, decode.init_cache(cfg, SERVE_BATCH, 1), src)
+    torch.cuda.synchronize()
+    numbers["encode_s"] = time.perf_counter() - t0
+    print(f"encode alone (host clock, synchronized): {numbers['encode_s']:.4f} s")
+    profile_serve(SEAMLESS_ARCH, cfg, params, None, src_embeds=src)
+    return launches, numbers
+
+
+@phase("serve path: internvl2_26b full size (48 layers), 256 patch embeddings + 3840 tokens, "
+       "flash prefill, B=4, 32 new tokens")
+def serve_internvl2():
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(INTERNVL2_ARCH), attn_impl="flash")
+    params = _serve_init(cfg)
+    rng = np.random.default_rng(0)
+    n_vis = cfg.n_vis_tokens
+    vis = rng.standard_normal((SERVE_BATCH, n_vis, cfg.d_model), dtype=np.float32)
+    ctx = rng.integers(0, cfg.vocab, (SERVE_BATCH, SERVE_CONTEXT - n_vis))
+    gen, launches, numbers = _serve_generate(
+        f"{INTERNVL2_ARCH} {SERVE_BATCH} x ({n_vis} patches + "
+        f"{SERVE_CONTEXT - n_vis} tokens)", cfg, params, ctx, cfg.n_layers, True,
+        vis_embeds=vis)
+    profile_serve(INTERNVL2_ARCH, cfg, params, ctx, vis_embeds=vis)
+    return launches, numbers
 
 
 # The two-layer prefill's logits through the kernel and through the plain
@@ -1705,20 +1858,23 @@ def two_layer_prefill(cfg, params, ctx):
           f"planted fault (GQA head map shifted) vs plain max abs {fault:.3e}")
 
 
-@phase("profile of one serve prefill and 4 decode steps")
-def profile_serve(cfg, params, ctx):
+def profile_serve(label: str, cfg, params, ctx, **inputs):
+    """One prefill and 4 decode steps of ``serve.generate``'s path, each
+    under the profiler."""
     import torch
+    from repro_torch.launch import serve
     from repro_torch.models import decode
 
-    batch = {"tokens": torch.as_tensor(ctx, device="cuda")}
+    batch, seq_len = serve._prefill_batch(cfg, ctx, inputs.get("vis_embeds"),
+                                          inputs.get("src_embeds"), 4, torch.device("cuda"))
     (logits, cache), _ = _profiled(
-        "prefill", lambda: decode.prefill(cfg, params, batch, SERVE_CONTEXT + 4))
+        f"{label} prefill", lambda: decode.prefill(cfg, params, batch, seq_len))
 
     def steps(tok):
         for _ in range(4):
             tok = decode.decode_step(cfg, params, cache, tok)[0].argmax(-1)
 
-    _profiled("decode x4", lambda: steps(logits.argmax(-1)))
+    _profiled(f"{label} decode x4", lambda: steps(logits.argmax(-1)))
 
 
 def _profiled(label: str, fn, top: int = 8):
@@ -1751,8 +1907,22 @@ def _profiled(label: str, fn, top: int = 8):
 SMALL_LOGIT_ATOL = 1e-4
 
 
-@phase("small-input reference: reduced llama3_8b, flash, fp32, context 2560, card vs CPU")
-def serve_small_reference():
+# each family's reduced config at 2,560 positions: above DENSE_ATTN_MAX_SEQ
+# and a multiple of the reduced chunk (64), so its attention takes the flash
+# path (the SIMT kernel in fp32)
+SMALL_REFERENCES = (
+    (SERVE_ARCH, "context 2560"),
+    (GRANITE_ARCH, "context 2560, routed in 5 chunks of 512"),
+    (INTERNVL2_ARCH, "8 patch embeddings + 2552 tokens"),
+    (SEAMLESS_ARCH, "encode of 2560 source frames"),
+)
+
+
+def serve_small_reference(arch: str) -> int:
+    """The reduced ``arch`` in fp32 from the same weights and inputs on the
+    card and on the CPU: identical greedy tokens, logits within
+    SMALL_LOGIT_ATOL; the SIMT kernel once per attention layer of the
+    prefill (the encoder's, for encdec). Returns those launches."""
     import numpy as np
     import torch
     from repro_torch import tree as tree_util
@@ -1761,28 +1931,41 @@ def serve_small_reference():
     from repro_torch.launch import serve
     from repro_torch.models import model
 
-    cfg = dataclasses.replace(reduce_config(get_config(SERVE_ARCH)), attn_impl="flash")
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), attn_impl="flash")
     params_cpu = model.init_params(cfg, 0, device="cpu")
     params_gpu = tree_util.map(lambda t: t.to("cuda"), params_cpu)
-    ctx = np.random.default_rng(1).integers(0, cfg.vocab, (2, 2560))
+    rng = np.random.default_rng(1)
+    n, inputs, ctx = 2560, {}, None
+    if cfg.family == "encdec":
+        inputs["src_embeds"] = rng.standard_normal((2, n, cfg.d_model), dtype=np.float32)
+    elif cfg.family == "vlm":
+        inputs["vis_embeds"] = rng.standard_normal((2, cfg.n_vis_tokens, cfg.d_model),
+                                                   dtype=np.float32)
+        ctx = rng.integers(0, cfg.vocab, (2, n - cfg.n_vis_tokens))
+    else:
+        ctx = rng.integers(0, cfg.vocab, (2, n))
+    n_attn = cfg.n_enc_layers if cfg.family == "encdec" else cfg.n_layers
     fa.reset_launches()
-    g = serve.generate(cfg, params_gpu, ctx, 8)
+    g = serve.generate(cfg, params_gpu, ctx, 8, **inputs)
     simt_launches = fa.launches["flash_attention_simt"]
-    require(simt_launches == cfg.n_layers and fa.launches["flash_attention"] == cfg.n_layers,
-            f"flash_attention launches in the fp32 prefill: {fa.launches}")
-    c = serve.generate(cfg, params_cpu, ctx, 8, device="cpu")
+    require(simt_launches == n_attn and fa.launches["flash_attention"] == n_attn,
+            f"flash_attention launches in the fp32 prefill: {fa.launches}, want {n_attn} simt")
+    c = serve.generate(cfg, params_cpu, ctx, 8, device="cpu", **inputs)
     require(torch.equal(g.tokens.cpu(), c.tokens),
             f"greedy tokens differ: card {g.tokens.tolist()} vs CPU {c.tokens.tolist()}")
-    fwd_g = model.forward_logits(cfg, params_gpu, {"tokens": torch.as_tensor(ctx, device="cuda")})
-    fwd_c = model.forward_logits(cfg, params_cpu, {"tokens": torch.as_tensor(ctx)})
-    err_fwd = (fwd_g.cpu() - fwd_c).abs().max().item()
+    # the prefill's logits: the whole context (encdec: the greedy target)
+    tokens = c.tokens if cfg.family == "encdec" else torch.as_tensor(ctx)
+    fwd = [model.forward_logits(cfg, p, {"tokens": tokens.to(dev), **{
+               k: torch.as_tensor(v, device=dev) for k, v in inputs.items()}})
+           for dev, p in (("cuda", params_gpu), ("cpu", params_cpu))]
+    err_fwd = (fwd[0].cpu() - fwd[1]).abs().max().item()
     err_last = (g.logits.cpu() - c.logits).abs().max().item()
     require(max(err_fwd, err_last) <= SMALL_LOGIT_ATOL,
             f"card vs CPU logits differ by {max(err_fwd, err_last):.3e} > {SMALL_LOGIT_ATOL}")
-    print(f"card vs CPU (B=2, context 2560, chunk {cfg.chunk_size}, 8 greedy steps): tokens "
-          f"identical, prefill logits max abs {err_fwd:.3e}, last-step logits max abs "
+    print(f"card vs CPU (B=2, {n} positions, chunk {cfg.chunk_size}, 8 greedy steps): tokens "
+          f"identical, forward logits max abs {err_fwd:.3e}, last-step logits max abs "
           f"{err_last:.3e} (tolerance {SMALL_LOGIT_ATOL:g}, max |logit| "
-          f"{c.logits.abs().max().item():.3f})")
+          f"{c.logits.abs().max().item():.3f}); {simt_launches} SIMT flash launches")
     return simt_launches
 
 
@@ -1810,13 +1993,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     object_runtime()
-    cfg, params, ctx, serve_launches, _serve = serve_path()
+    cfg, params, ctx, llama_launches, _serve = serve_path()
     two_layer_prefill(cfg, params, ctx)
-    profile_serve(cfg, params, ctx)
+    phase("profile of one serve prefill and 4 decode steps")(profile_serve)(
+        SERVE_ARCH, cfg, params, ctx)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    fp32_serve_launches = serve_small_reference()
+    _release()
+    # each serve path's launches, its counts set to 0 just before it
+    serve_launches = {SERVE_ARCH: llama_launches}
+    for arch, run in ((GRANITE_ARCH, serve_granite), (SEAMLESS_ARCH, serve_seamless),
+                      (INTERNVL2_ARCH, serve_internvl2)):
+        serve_launches[arch], _numbers = run()
+        _release()
+    fp32_launches = {
+        arch: phase(f"small-input reference: reduced {arch}, flash, fp32, {what}, card vs "
+                    "CPU")(serve_small_reference)(arch)
+        for arch, what in SMALL_REFERENCES}
 
     sources = {"flash_attention_wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
@@ -1827,21 +2019,27 @@ def main() -> int:
         "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:183",
         "flash_attention_simt": "src/repro/kernels/flash_attention.py:183",
     }
-    # each kernel's launches in the run of the path that takes it: the
-    # FEMNIST rounds, the wire entry point, the bf16 serve prefill (wgmma),
-    # the fp32 serve prefill of the small-input reference (simt)
+    # each kernel's launches in the runs of the paths that take it: the
+    # FEMNIST rounds, the wire entry point, the four bf16 serve prefills
+    # (wgmma), the fp32 prefills of the four small-input references (simt);
+    # the flash rows sum their paths and list each
+    by_path = {"flash_attention_wgmma": {a: n["flash_attention_wgmma"]
+                                         for a, n in serve_launches.items()},
+               "flash_attention_simt": fp32_launches}
     launches = {"aggregate": main_launches["aggregate"],
                 "quantize": wire_launches["quantize"],
                 "dequantize": wire_launches["dequantize"],
-                "flash_attention_wgmma": serve_launches["flash_attention_wgmma"],
-                "flash_attention_simt": fp32_serve_launches}
+                **{k: sum(v.values()) for k, v in by_path.items()}}
+    for name, paths in by_path.items():
+        report[name]["launches_by_path"] = paths
     kernels = [
         {"name": name, "route": "cuda",
          "source": sources.get(name, "src/repro_torch/kernels/csrc/stochastic_quant.cu"),
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r.get("library_ms")}
+         "library_ms": r.get("library_ms"),
+         **{k: r[k] for k in ("launches_by_path", "shapes") if k in r}}
         for name, r in report.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,18 +1,21 @@
-"""Transformer model in torch: init and the serving forward, dense family.
+"""Transformer model in torch: init and the serving forward.
 
-The port of ``repro.models.model`` for the dense decoder (Llama, Yi,
-StarCoder2, Phi-3). Layers are stacked on a leading L axis, as in the JAX
-package, so its parameter pytree carries over leaf for leaf
-(:func:`params_from_numpy`); the layer loop is a Python loop over views
-of the stacked tensors (no remat: this is the serving forward).
-:func:`init_params` holds the matrices in ``cfg.activation_dtype``, cast
-once, where the JAX package keeps fp32 masters and casts them at every
-use: the same numbers. The forward still casts at use, so the fp32
-parameters of :func:`params_from_numpy` run too.
+The port of ``repro.models.model`` for the attention families: dense
+(Llama, Yi, StarCoder2, Phi-3), moe (Granite, Grok-1: ``models/moe.py``
+in place of the SwiGLU), vlm (InternVL2: projected patch embeddings
+prepended to the text) and encdec (SeamlessM4T: a non-causal encoder over
+frame embeddings, a decoder with cross-attention). Layers are stacked on
+a leading L axis, as in the JAX package, so its parameter pytree carries
+over leaf for leaf (:func:`params_from_numpy`); the layer loop is a
+Python loop over views of the stacked tensors (no remat: this is the
+serving forward). :func:`init_params` holds the matrices in
+``cfg.activation_dtype``, cast once, where the JAX package keeps fp32
+masters and casts them at every use: the same numbers. The forward still
+casts at use, so the fp32 parameters of :func:`params_from_numpy` run too.
 
-Other families (moe, vlm, ssm, hybrid, encdec), ``forward_train`` and the
-ring variant of the flash dispatch are not ported yet (ROADMAP Queue 1,
-items 8 and 9).
+The recurrent families (ssm, hybrid), ``forward_train`` and the ring
+variant of the flash dispatch are not ported yet (ROADMAP Queue 1, items
+8 and 9).
 """
 from __future__ import annotations
 
@@ -23,18 +26,20 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.config import ModelConfig
 
 Params = dict
 DENSE_ATTN_MAX_SEQ = 2048  # above this, use the chunked online-softmax path
+SERVED_FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
-def require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+def require_served(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"{what}: the {cfg.family!r} family ({cfg.name}) is not ported yet "
-            "(ROADMAP Queue 1, item 8); the port runs the dense family")
+            "(ROADMAP Queue 1, item 8); the port serves the "
+            f"{', '.join(SERVED_FAMILIES)} families")
 
 
 # =====================================================================
@@ -42,26 +47,59 @@ def require_dense(cfg: ModelConfig, what: str) -> None:
 # =====================================================================
 
 def _dense_layer_params(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype) -> dict:
-    return {
+    p = {
         "ln1": layers.rmsnorm_params(cfg.d_model, gen.device),
         "ln2": layers.rmsnorm_params(cfg.d_model, gen.device),
         "attn": layers.attention_params(
             gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype),
+    }
+    if cfg.family == "moe":
+        p["moe"] = moe.moe_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers, dtype)
+    else:
+        p["mlp"] = layers.swiglu_params(gen, cfg.d_model, cfg.d_ff, cfg.n_layers, dtype)
+    return p
+
+
+def _encdec_dec_layer_params(cfg: ModelConfig, gen: torch.Generator,
+                             dtype: torch.dtype) -> dict:
+    def attn() -> dict:
+        return layers.attention_params(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                       dtype)
+
+    return {
+        "ln1": layers.rmsnorm_params(cfg.d_model, gen.device),
+        "ln_x": layers.rmsnorm_params(cfg.d_model, gen.device),
+        "ln2": layers.rmsnorm_params(cfg.d_model, gen.device),
+        "attn": attn(),
+        "xattn": attn(),
         "mlp": layers.swiglu_params(gen, cfg.d_model, cfg.d_ff, cfg.n_layers, dtype),
     }
+
+
+def _stack_layers(layer_fn, cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
+                  n: int) -> dict:
+    """``n`` layers of ``layer_fn`` stacked on a leading axis, drawn one at a
+    time into the stacked tensors, so a full-size model never has its fp32
+    draws all at once."""
+    layer = layer_fn(cfg, gen, dtype)
+    stacked = tree_util.map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
+    for i in range(n):
+        if i:
+            layer = layer_fn(cfg, gen, dtype)
+        for dst, src in zip(tree_util.leaves(stacked), tree_util.leaves(layer)):
+            dst[i] = src
+    return stacked
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None) -> Params:
     """Random parameters from ``seed``, made on ``device`` (``cuda`` unless
-    asked otherwise) by a generator there, in the JAX package's shapes and
-    scales. Matrices are drawn in fp32 and stored in
-    ``cfg.activation_dtype``; norm scales stay fp32. Layers are drawn one
-    at a time into the stacked tensors, so a full-size model never has its
-    fp32 draws all at once.
+    asked otherwise) by a generator there, in the JAX package's tree,
+    shapes and scales. Matrices are drawn in fp32 and stored in
+    ``cfg.activation_dtype``; norm scales stay fp32.
     torch's generator cannot replay ``jax.random``: carry the JAX package's
     weights over with :func:`params_from_numpy`."""
-    require_dense(cfg, "init_params")
+    require_served(cfg, "init_params")
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
     gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -71,14 +109,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.embedding_params(gen, cfg.vocab, cfg.d_model, dtype)
-    layer = _dense_layer_params(cfg, gen, dtype)
-    stacked = tree_util.map(lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), layer)
-    for i in range(cfg.n_layers):
-        if i:
-            layer = _dense_layer_params(cfg, gen, dtype)
-        for dst, src in zip(tree_util.leaves(stacked), tree_util.leaves(layer)):
-            dst[i] = src
-    params["layers"] = stacked
+    if cfg.family == "encdec":
+        params["enc_layers"] = _stack_layers(_dense_layer_params, cfg, gen, dtype,
+                                             cfg.n_enc_layers)
+        params["layers"] = _stack_layers(_encdec_dec_layer_params, cfg, gen, dtype,
+                                         cfg.n_layers)
+        params["enc_norm"] = layers.rmsnorm_params(cfg.d_model, dev)
+    else:
+        params["layers"] = _stack_layers(_dense_layer_params, cfg, gen, dtype, cfg.n_layers)
+    if cfg.family == "vlm":
+        params["vis_proj"] = {"w": layers.dense_init((cfg.d_model, cfg.d_model), 0.02, gen,
+                                                     dtype)}
     return params
 
 
@@ -93,9 +134,10 @@ def params_from_numpy(tree: dict,
         lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev), tree)
 
 
-def layer_params(params: Params, i: int) -> dict:
-    """Layer ``i`` of the stacked ``params["layers"]`` (views, no copy)."""
-    return tree_util.map(lambda t: t[i], params["layers"])
+def layer_params(params: Params, i: int, stack: str = "layers") -> dict:
+    """Layer ``i`` of the stacked ``params[stack]`` (views, no copy):
+    ``"layers"``, or the encdec family's ``"enc_layers"``."""
+    return tree_util.map(lambda t: t[i], params[stack])
 
 
 # =====================================================================
@@ -145,19 +187,93 @@ def _self_attention(
     return _merge_heads(o, p["wo"]), k, v
 
 
-def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
+        capacity_factor: Optional[float] = None) -> tuple[torch.Tensor, dict]:
+    """The layer's feed-forward of y (B, S, D): the MoE (with its aux
+    values) for the moe family, else the SwiGLU (no aux).
+    ``capacity_factor`` overrides the config's (decode passes n_experts:
+    no drops at S = 1)."""
+    if cfg.family == "moe":
+        cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
+        return moe.moe_apply(p["moe"], y, top_k=cfg.top_k, capacity_factor=cf)
+    return layers.swiglu(p["mlp"], y), {}
+
+
+def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     positions = torch.arange(x.shape[1], device=x.device)
     h, _, _ = _self_attention(
         cfg, p["attn"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps),
         causal=True, positions=positions,
     )
     x = x + h
-    return x + layers.swiglu(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    m, aux = ffn(cfg, p, layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return x + m, aux
 
 
-def _forward_dense(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _forward_dense(cfg: ModelConfig, params: Params,
+                   x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """The decoder stack of the dense, moe and vlm families; the aux
+    values averaged over the layers (none for dense and vlm)."""
+    auxs = []
     for i in range(cfg.n_layers):
-        x = _dense_block(cfg, layer_params(params, i), x)
+        x, aux = _dense_block(cfg, layer_params(params, i), x)
+        auxs.append(aux)
+    return x, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
+def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor) -> torch.Tensor:
+    """The encdec family's encoder: non-causal self-attention over the
+    source frames, then ``enc_norm``."""
+    positions = torch.arange(src.shape[1], device=src.device)
+    h = src
+    for i in range(cfg.n_enc_layers):
+        lp = layer_params(params, i, "enc_layers")
+        a, _, _ = _self_attention(
+            cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+            causal=False, positions=positions,
+        )
+        h = h + a
+        h = h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    return layers.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+
+
+def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, mem_k: torch.Tensor,
+                     mem_v: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) attends, without a mask or RoPE, to the encoder's k/v
+    (B, S_src, KV, hd); dense attention, as in the JAX package."""
+    q = _proj_heads(x, p["wq"])
+    o = layers.dense_attention(q, mem_k, mem_v, causal=False)
+    return _merge_heads(o, p["wo"])
+
+
+def _forward_encdec(cfg: ModelConfig, params: Params, src: torch.Tensor,
+                    tgt: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    mem = _forward_encoder(cfg, params, src)
+    positions = torch.arange(tgt.shape[1], device=tgt.device)
+    h = tgt
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        a, _, _ = _self_attention(
+            cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
+            causal=True, positions=positions,
+        )
+        h = h + a
+        xp = lp["xattn"]
+        h = h + _cross_attention(cfg, xp, layers.rmsnorm(lp["ln_x"], h, cfg.norm_eps),
+                                 _proj_heads(mem, xp["wk"]), _proj_heads(mem, xp["wv"]))
+        h = h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+    return h, {}
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
+    """The decoder input (B, S, D) of the dense, moe and vlm families: the
+    embedded ``batch["tokens"]``, and for vlm the projected
+    ``batch["vis_embeds"]`` (B, n_vis, D) in front of them."""
+    dtype = cfg.activation_dtype
+    x = layers.embed(params["embed"], batch["tokens"], dtype)
+    if cfg.family == "vlm":
+        vis = torch.matmul(batch["vis_embeds"].to(dtype), params["vis_proj"]["w"].to(dtype))
+        x = torch.cat([vis, x], dim=1)
     return x
 
 
@@ -166,9 +282,15 @@ def lm_head(cfg: ModelConfig, params: Params) -> dict:
 
 
 def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
-    """Last-position logits (B, V) fp32 of ``batch["tokens"]`` (B, S)."""
-    require_dense(cfg, "forward_logits")
-    x = layers.embed(params["embed"], batch["tokens"], cfg.activation_dtype)
-    h = _forward_dense(cfg, params, x)
+    """Last-position logits (B, V) fp32 of ``batch``: ``tokens`` (B, S),
+    with ``vis_embeds`` (B, n_vis, D) for vlm, or ``src_embeds``
+    (B, S_src, D) and the target ``tokens`` for encdec."""
+    require_served(cfg, "forward_logits")
+    if cfg.family == "encdec":
+        src = batch["src_embeds"].to(cfg.activation_dtype)
+        tgt = layers.embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+        h, _ = _forward_encdec(cfg, params, src, tgt)
+    else:
+        h, _ = _forward_dense(cfg, params, embed_inputs(cfg, params, batch))
     h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
     return layers.unembed(lm_head(cfg, params), h)[:, 0, :]

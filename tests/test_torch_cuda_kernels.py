@@ -171,10 +171,11 @@ def _bf16_inputs(b, s, t, h, kv, hd, seed, dev):
     (1, 333, 333, 8, 8, 128, True, 0),       # GQA 1, S = T not a multiple of 128
     (2, 200, 461, 8, 2, 64, False, 0),       # GQA 4, hd 64, ragged S != T
     (1, 389, 389, 16, 2, 128, True, 0),      # GQA 8
+    (2, 300, 300, 12, 2, 128, True, 0),      # GQA 6 (InternVL2's 48 heads over 8)
     (1, 700, 700, 8, 1, 128, True, 64),      # causal window narrower than a tile
     (1, 600, 200, 4, 2, 64, False, 50),      # query tiles past T + window: empty KV range
     (1, 130, 1000, 4, 4, 96, True, 0),       # causal with T > S, hd 96 (second box half padded)
-], ids=["gqa1", "gqa4-hd64", "gqa8", "window64", "empty-range", "hd96"])
+], ids=["gqa1", "gqa4-hd64", "gqa8", "gqa6", "window64", "empty-range", "hd96"])
 def test_flash_wgmma_matches_plain(cuda, b, s, t, h, kv, hd, causal, window):
     q, k, v = _bf16_inputs(b, s, t, h, kv, hd, s + t + hd, cuda)
     assert fa._kernel_route(q, k, v) == "wgmma"

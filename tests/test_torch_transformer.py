@@ -190,8 +190,10 @@ def test_init_params_shapes_and_serving_dtype():
 
 
 def test_other_families_name_their_roadmap_item():
+    # the recurrent families are not served yet (moe, vlm and encdec are:
+    # tests/test_torch_families.py)
     with pytest.raises(NotImplementedError, match="item 8"):
-        tmodel.init_params(tconfigs.get_reduced("grok_1_314b"), device="cpu")
+        tmodel.init_params(tconfigs.get_reduced("zamba2_7b"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         serve.generate(tconfigs.get_reduced("rwkv6_7b"), {}, np.zeros((1, 4), np.int64), 1,
                        device="cpu")
