@@ -26,7 +26,9 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      heads (g = 9) with its 4096 window at S = 8192, a non-causal ragged
      shape, Granite-3.0 1B-A400M's prefill (hd 64, g = 2, causal),
      SeamlessM4T's encoder (hd 64, g = 1, non-causal) and InternVL2-26B's
-     prefill (hd 128, g = 6, causal), SDPA timed at each in both dtypes;
+     prefill (hd 128, g = 6, causal) and Zamba2-7B's shared attention
+     (hd 112, H = KV = 32, causal, window 4096), SDPA timed at each in both
+     dtypes;
      at each, bf16 inputs
      that TMA cannot describe (one element off alignment) time the SIMT
      kernel's register-staged loads beside it;
@@ -95,8 +97,15 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      non-causal wgmma launches, 32 greedy tokens from BOS) and InternVL2-26B
      at full size (48 layers; 256 patch embeddings + 3840 tokens; 48 wgmma
      launches), each parameter count held to the JAX package's;
-     then the small-input reference of each family's reduced config (fp32,
-     2560 positions, the card against the CPU on the same weights);
+     then the recurrent families at full size, each freed before the next:
+     RWKV6-7B (ssm; 32 layers, d_model 4096; the chunked WKV scan, no flash
+     launch) and Zamba2-7B (hybrid; 81 Mamba2 layers, d_model 3584, the
+     shared attention every 9 layers: 9 causal wgmma launches at hd 112,
+     window 4096), B = 4, context 4096, 32 new tokens, each profiled and
+     its parameter count held to the JAX package's; then the small-input
+     reference of each family's reduced config (fp32, 2560 positions, the
+     card against the CPU on the same weights; the reduced Zamba2's shared
+     attention at window 64 through the SIMT kernel);
  10. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
      checked shape's times).
@@ -131,6 +140,7 @@ def _tiny_ga():
 SERVE_ARCH, SERVE_BATCH, SERVE_CONTEXT, SERVE_NEW = "llama3_8b", 4, 4096, 32
 GRANITE_ARCH, SEAMLESS_ARCH, INTERNVL2_ARCH = (
     "granite_moe_1b_a400m", "seamless_m4t_large_v2", "internvl2_26b")
+RWKV6_ARCH, ZAMBA2_ARCH = "rwkv6_7b", "zamba2_7b"
 
 
 class SmokeFailure(Exception):
@@ -1473,6 +1483,7 @@ FLASH_SHAPES = [
     ("granite prefill", 4, 4096, 4096, 16, 8, 64, True, 0),
     ("seamless encoder", 4, 4096, 4096, 16, 16, 64, False, 0),
     ("internvl2 prefill", 4, 4096, 4096, 48, 8, 128, True, 0),
+    ("zamba2 shared attention", 4, 4096, 4096, 32, 32, 112, True, 4096),
 ]
 
 
@@ -1620,14 +1631,35 @@ def _all_launches() -> dict:
     return {**sq.launches, **fa.launches}
 
 
-def uncounted_params(cfg) -> int:
-    """Parameters of ``init_params`` that ``ModelConfig.param_count()``
-    leaves out: the final norm's d_model scales in every family, the
-    encoder's norm for encdec, and ``vis_proj`` (d_model^2) for vlm
-    (held against the JAX package's ``init_params`` on the reduced
-    configs by ``tests/test_torch_families.py``)."""
+def param_count_correction(cfg) -> int:
+    """``init_params``'s parameters minus ``ModelConfig.param_count()``
+    (signed): the final norm's d_model scales in every family; the
+    encoder's norm for encdec; ``vis_proj`` (d_model^2) for vlm; for ssm,
+    per layer, five d^2 projections and a rank-``lora`` decay LoRA (2 d
+    lora) where the count has 6 d^2, and 13 vectors of d where it has 10
+    (so negative at full size); for hybrid, per layer, the depthwise conv
+    (CONV_K x (d_inner + 2 d_state)) and ``a_log``, ``d_skip``,
+    ``dt_bias`` (3 heads' worth), less the one d of the two norms the count
+    has where the tree has one. Held against the JAX package's
+    ``init_params`` on the reduced configs by
+    ``tests/test_torch_families.py``."""
     d = cfg.d_model
+    if cfg.family == "ssm":
+        lora = max(32, d // 64)
+        return d + cfg.n_layers * (2 * d * lora + 3 * d - d * d)
+    if cfg.family == "hybrid":
+        conv = 4 * (cfg.d_inner + 2 * cfg.ssm_state)          # mamba2.CONV_K = 4
+        return d + cfg.n_layers * (conv + 3 * cfg.n_ssm_heads - d)
     return d + {"encdec": d, "vlm": d * d}.get(cfg.family, 0)
+
+
+def attention_layers(cfg) -> int:
+    """Flash calls of a prefill: one per attention layer (the encoder's
+    for encdec, one per shared-attention application for hybrid, none for
+    ssm)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return {"encdec": cfg.n_enc_layers, "ssm": 0}.get(cfg.family, cfg.n_layers)
 
 
 def _serve_init(cfg):
@@ -1645,18 +1677,20 @@ def _serve_init(cfg):
     print(f"init_params: {n_params} parameters, matrices in {cfg.dtype}, "
           f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "allocated on the card")
-    want = cfg.param_count() + uncounted_params(cfg)
+    want = cfg.param_count() + param_count_correction(cfg)
     require(n_params == want, f"{n_params} parameters, want {cfg.param_count()} + "
-                              f"{uncounted_params(cfg)} = {want}")
+                              f"({param_count_correction(cfg)}) = {want}")
     return params
 
 
-def _serve_generate(label: str, cfg, params, ctx, n_attn: int, causal: bool, **inputs):
+def _serve_generate(label: str, cfg, params, ctx, n_attn: int, causal: bool, window: int = 0,
+                    **inputs):
     """``serve.generate`` once with one new token (allocator, cuBLAS
     handles), then with SERVE_NEW, every launch count set to 0 just before
     it: its prefill must run the wgmma flash kernel once per attention layer
-    (``n_attn``), every call ``causal`` as asked, and none through SIMT.
-    Returns the generation, its launches and the phase's numbers."""
+    (``n_attn``, 0 for a family without attention), every call ``causal``
+    and at ``window`` as asked, and none through SIMT. Returns the
+    generation, its launches and the phase's numbers."""
     from unittest import mock
 
     import torch
@@ -1668,7 +1702,7 @@ def _serve_generate(label: str, cfg, params, ctx, n_attn: int, causal: bool, **i
     masks, wrapper = set(), fa.flash_attention
 
     def recording(q, k, v, **kw):     # keeps the mask, not the tensors (peak memory)
-        masks.add(kw["causal"])
+        masks.add((kw["causal"], kw["window"]))
         return wrapper(q, k, v, **kw)
 
     _reset_all_launches()
@@ -1680,7 +1714,9 @@ def _serve_generate(label: str, cfg, params, ctx, n_attn: int, causal: bool, **i
     require(flash["flash_attention_wgmma"] == n_attn and flash["flash_attention_simt"] == 0,
             f"{label}: flash_attention launches {flash}, want {n_attn} through wgmma "
             "and none through simt")
-    require(masks == {causal}, f"{label}: flash calls with causal in {masks}, want {causal}")
+    want_masks = {(causal, window)} if n_attn else set()
+    require(masks == want_masks,
+            f"{label}: flash calls with (causal, window) in {masks}, want {want_masks}")
     b = gen.tokens.shape[0]
     require(tuple(gen.tokens.shape) == (b, SERVE_NEW + 1), f"tokens {tuple(gen.tokens.shape)}")
     require(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()), "token out of range")
@@ -1692,7 +1728,7 @@ def _serve_generate(label: str, cfg, params, ctx, n_attn: int, causal: bool, **i
           f"requests: {gen.decode_seconds:.4f} s ({tok_s:.2f} tok/s, "
           f"{gen.decode_seconds / SERVE_NEW * 1e3:.2f} ms/step); peak memory {peak:.2f} GB "
           f"(max_memory_allocated); {n_attn} {'causal' if causal else 'non-causal'} wgmma "
-          "flash launches")
+          f"flash launches{f' at window {window}' if window else ''}")
     print(f"launches in the serve path: {launches}")
     print(f"req0 tokens: {gen.tokens[0, :16].tolist()}")
     return gen, launches, dict(prefill_s=gen.prefill_seconds, decode_tok_s=tok_s, peak_gb=peak)
@@ -1806,6 +1842,32 @@ def serve_internvl2():
     return launches, numbers
 
 
+RECURRENT_PHASES = {
+    RWKV6_ARCH: "rwkv6_7b full size (32 layers, d_model 4096), chunked WKV prefill",
+    ZAMBA2_ARCH: "zamba2_7b full size (81 Mamba2 layers, d_model 3584, shared attention every "
+                 "9 at hd 112), flash prefill",
+}
+
+
+def serve_recurrent(arch: str):
+    """Serve a recurrent family's model at full size, B=4, context 4096,
+    32 new tokens: RWKV6 without a flash launch, Zamba2 with one causal
+    wgmma launch per shared-attention application at its window."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    params = _serve_init(cfg)
+    ctx = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_CONTEXT))
+    window = model.shared_window(cfg) if cfg.family == "hybrid" else 0
+    _gen, launches, numbers = _serve_generate(
+        f"{arch} {SERVE_BATCH} x {SERVE_CONTEXT} tokens", cfg, params, ctx,
+        attention_layers(cfg), True, window=window)
+    profile_serve(arch, cfg, params, ctx)
+    return launches, numbers
+
+
 # The two-layer prefill's logits through the kernel and through the plain
 # version: the graphs differ only in attention, whose fp32 results agree to
 # ~1e-7 and so round to the same or a neighbouring bf16 value (one ulp,
@@ -1909,12 +1971,14 @@ SMALL_LOGIT_ATOL = 1e-4
 
 # each family's reduced config at 2,560 positions: above DENSE_ATTN_MAX_SEQ
 # and a multiple of the reduced chunk (64), so its attention takes the flash
-# path (the SIMT kernel in fp32)
+# path (the SIMT kernel in fp32) and its recurrent scans their chunked forms
 SMALL_REFERENCES = (
     (SERVE_ARCH, "context 2560"),
     (GRANITE_ARCH, "context 2560, routed in 5 chunks of 512"),
     (INTERNVL2_ARCH, "8 patch embeddings + 2552 tokens"),
     (SEAMLESS_ARCH, "encode of 2560 source frames"),
+    (RWKV6_ARCH, "context 2560, chunked WKV, no attention"),
+    (ZAMBA2_ARCH, "context 2560, chunked SSD, shared attention at window 64"),
 )
 
 
@@ -1922,7 +1986,7 @@ def serve_small_reference(arch: str) -> int:
     """The reduced ``arch`` in fp32 from the same weights and inputs on the
     card and on the CPU: identical greedy tokens, logits within
     SMALL_LOGIT_ATOL; the SIMT kernel once per attention layer of the
-    prefill (the encoder's, for encdec). Returns those launches."""
+    prefill (``attention_layers``: none for ssm). Returns those launches."""
     import numpy as np
     import torch
     from repro_torch import tree as tree_util
@@ -1944,7 +2008,7 @@ def serve_small_reference(arch: str) -> int:
         ctx = rng.integers(0, cfg.vocab, (2, n - cfg.n_vis_tokens))
     else:
         ctx = rng.integers(0, cfg.vocab, (2, n))
-    n_attn = cfg.n_enc_layers if cfg.family == "encdec" else cfg.n_layers
+    n_attn = attention_layers(cfg)
     fa.reset_launches()
     g = serve.generate(cfg, params_gpu, ctx, 8, **inputs)
     simt_launches = fa.launches["flash_attention_simt"]
@@ -2005,6 +2069,10 @@ def main() -> int:
                       (INTERNVL2_ARCH, serve_internvl2)):
         serve_launches[arch], _numbers = run()
         _release()
+    for arch, what in RECURRENT_PHASES.items():
+        serve_launches[arch], _numbers = phase(
+            f"serve path: {what}, B=4, context 4096, 32 new tokens")(serve_recurrent)(arch)
+        _release()
     fp32_launches = {
         arch: phase(f"small-input reference: reduced {arch}, flash, fp32, {what}, card vs "
                     "CPU")(serve_small_reference)(arch)
@@ -2020,9 +2088,9 @@ def main() -> int:
         "flash_attention_simt": "src/repro/kernels/flash_attention.py:183",
     }
     # each kernel's launches in the runs of the paths that take it: the
-    # FEMNIST rounds, the wire entry point, the four bf16 serve prefills
-    # (wgmma), the fp32 prefills of the four small-input references (simt);
-    # the flash rows sum their paths and list each
+    # FEMNIST rounds, the wire entry point, the bf16 serve prefills (wgmma;
+    # RWKV6's has none), the fp32 prefills of the small-input references
+    # (simt); the flash rows sum their paths and list each
     by_path = {"flash_attention_wgmma": {a: n["flash_attention_wgmma"]
                                          for a, n in serve_launches.items()},
                "flash_attention_simt": fp32_launches}

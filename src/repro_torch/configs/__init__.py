@@ -5,8 +5,8 @@
 variant of the same family for CPU smoke tests.
 
 A copy of ``repro.configs``: the same ten configs (``configs/*.py``, data)
-and the same reduction rules. Only the dense family runs in the port so
-far; the others are here so the registry is whole.
+and the same reduction rules. The port serves every family; Grok-1 does
+not fit one card at full size.
 """
 from __future__ import annotations
 

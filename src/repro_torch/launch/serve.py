@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_7b \\
         --batch 4 --context 96 --new-tokens 32 [--ckpt-dir DIR]
 
-The port of ``repro.launch.serve``, with its flags, for the attention
-families: :func:`generate` runs the prefill, then greedy argmax decode,
+The port of ``repro.launch.serve``, with its flags, for every family:
+:func:`generate` runs the prefill, then greedy argmax decode,
 one ``decode_step`` per token; it takes the vlm family's patch embeddings
 (``vis_embeds``) and the encdec family's source frames (``src_embeds``).
 ``main`` serves the reduced (smoke) variant of ``--arch`` on ``cuda``,
@@ -27,7 +27,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode import Cache, decode_step, encode, init_cache, prefill
-from repro_torch.models.model import Params, require_served
+from repro_torch.models.model import Params
 
 
 class Generation(NamedTuple):
@@ -99,7 +99,6 @@ def generate(cfg: ModelConfig, params: Params, ctx_tokens, new_tokens: int, *,
     prefill encodes the source and decodes BOS = 0. The first maximal logit
     wins a tie. Runs on ``device`` (``cuda`` unless asked otherwise), where
     ``params`` must already live."""
-    require_served(cfg, "generate")
     dev = resolve_device(device)
     batch, seq_len = _prefill_batch(cfg, ctx_tokens, vis_embeds, src_embeds, new_tokens, dev)
     t0 = time.perf_counter()

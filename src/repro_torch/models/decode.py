@@ -1,16 +1,24 @@
 """Serving path in torch: cache construction, prefill and one-token decode.
 
-The port of ``repro.models.decode`` for the attention families (dense,
-moe, vlm, encdec). The cache keeps the JAX package's layout: k/v ring
-buffers (L, B, Lc, KV, hd) in the activation dtype, ``slot_pos`` (Lc,)
-int32 holding each slot's absolute position (-1 = empty), and ``pos``,
-the next position (a Python int here). ``Lc = cfg.effective_cache_len(seq_len)``
-is bounded by the sliding window when the config sets one. RoPE is
-applied to keys at write time with absolute positions, so ring overwrites
-need no re-rotation. The encdec cache adds the encoder's cross-attention
-k/v, ``mem_k``/``mem_v`` (L, B, S_src, KV, hd), ``None`` until
-:func:`encode`; its ring holds the decoder's (target) positions. The vlm
-family's positions count its patch tokens first.
+The port of ``repro.models.decode``, with its cache layouts:
+  dense/moe/vlm : k/v ring buffers (L, B, Lc, KV, hd) in the activation
+                  dtype, ``slot_pos`` (Lc,) int32 holding each slot's
+                  absolute position (-1 = empty), ``pos`` the next
+                  position (a Python int here);
+  encdec        : the same decoder ring, plus the encoder's cross-attention
+                  k/v ``mem_k``/``mem_v`` (L, B, S_src, KV, hd), ``None``
+                  until :func:`encode`;
+  ssm (rwkv6)   : the WKV state ``s`` (L, B, H, N, N) fp32 and the two
+                  token-shift carries ``x_tm``/``x_cm`` (L, B, D);
+  hybrid        : each Mamba2 layer's ``ssm`` (L, B, H, N, P) fp32 and
+                  ``conv`` (L, B, CONV_K - 1, C) states, and one k/v ring
+                  per shared-attention *application* (n_super, B, Lc, KV,
+                  hd) with one shared ``slot_pos``; its ``Lc`` is
+                  ``min(sliding_window or 4096, seq_len)``.
+``Lc = cfg.effective_cache_len(seq_len)`` elsewhere: bounded by the
+sliding window when the config sets one. RoPE is applied to keys at write
+time with absolute positions, so ring overwrites need no re-rotation. The
+vlm family's positions count its patch tokens first.
 
 Unlike the JAX functions, which return a new cache, :func:`decode_step`
 and :func:`encode` update the cache in place (and return the same dict):
@@ -24,11 +32,12 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
-    Params, _cross_attention, _forward_encoder, _merge_heads, _proj_heads, _self_attention,
-    embed_inputs, ffn, layer_params, lm_head, require_served,
+    Params, _cross_attention, _forward_encoder, _mamba_block, _merge_heads, _proj_heads,
+    _rwkv_block, _self_attention, _shared_attn_block, embed_inputs, ffn, layer_params,
+    lm_head, rwkv_state, shared_window,
 )
 
 Cache = dict
@@ -36,13 +45,36 @@ Cache = dict
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, *,
                device: Optional[Union[str, torch.device]] = None) -> Cache:
-    """Empty cache sized for ``seq_len`` positions, in the activation
-    dtype, on ``device`` (``cuda`` unless asked otherwise)."""
-    require_served(cfg, "init_cache")
+    """Empty cache sized for ``seq_len`` positions (the module's layouts),
+    on ``device`` (``cuda`` unless asked otherwise)."""
     dev = resolve_device(device)
     dt = cfg.activation_dtype
+    b = batch_size
+    if cfg.family == "ssm":
+        n = cfg.d_model // cfg.rwkv_heads
+        return {
+            "s": torch.zeros((cfg.n_layers, b, cfg.rwkv_heads, n, n), dtype=torch.float32,
+                             device=dev),
+            "x_tm": torch.zeros((cfg.n_layers, b, cfg.d_model), dtype=dt, device=dev),
+            "x_cm": torch.zeros((cfg.n_layers, b, cfg.d_model), dtype=dt, device=dev),
+            "pos": 0,
+        }
+    if cfg.family == "hybrid":
+        lc = min(shared_window(cfg), seq_len)
+        n_super = cfg.n_layers // cfg.attn_every
+        ring = (n_super, b, lc, cfg.n_kv_heads, cfg.hd)
+        return {
+            "ssm": torch.zeros((cfg.n_layers, b, cfg.n_ssm_heads, cfg.ssm_state,
+                                cfg.ssm_head_dim), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((cfg.n_layers, b, mamba2.CONV_K - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state), dtype=dt, device=dev),
+            "k": torch.zeros(ring, dtype=dt, device=dev),
+            "v": torch.zeros(ring, dtype=dt, device=dev),
+            "slot_pos": torch.full((lc,), -1, dtype=torch.int32, device=dev),
+            "pos": 0,
+        }
     lc = cfg.effective_cache_len(seq_len)
-    shape = (cfg.n_layers, batch_size, lc, cfg.n_kv_heads, cfg.hd)
+    shape = (cfg.n_layers, b, lc, cfg.n_kv_heads, cfg.hd)
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=dev),
         "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -52,6 +84,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, *,
     if cfg.family == "encdec":
         cache["mem_k"] = None      # filled by encode(), sized for the source length
         cache["mem_v"] = None
+    elif cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(cfg.family)
     return cache
 
 
@@ -106,17 +140,63 @@ def _attn_cache_step(cfg: ModelConfig, p: dict, x: torch.Tensor, k_cache: torch.
     return _merge_heads(o[:, 0], p["wo"])
 
 
+def _rwkv_step(cfg: ModelConfig, params: Params, cache: Cache, h: torch.Tensor) -> torch.Tensor:
+    """The ssm family's layers at one token: ``time_mix_step`` (the
+    sequential WKV at T = 1) and the channel mix, carries and states
+    written back into the cache."""
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        a, tm_carry, s_new = rwkv6.time_mix_step(
+            lp["tm"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps), cache["x_tm"][i],
+            cache["s"][i], cfg.rwkv_heads)
+        h = h + a
+        c, cm_carry = rwkv6.channel_mix_apply(
+            lp["cm"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)[:, None, :], cache["x_cm"][i])
+        h = h + c[:, 0, :]
+        cache["s"][i] = s_new
+        cache["x_tm"][i] = tm_carry
+        cache["x_cm"][i] = cm_carry
+    return h
+
+
+def _hybrid_step(cfg: ModelConfig, params: Params, cache: Cache, h: torch.Tensor,
+                 pos: int) -> torch.Tensor:
+    """The hybrid family's layers at one token: each Mamba2 layer's step
+    on its states, then each shared-attention application on its own ring;
+    every application writes slot ``pos % Lc`` of the one ``slot_pos``."""
+    shared = params["shared_attn"]
+    for j in range(cfg.n_layers // cfg.attn_every):
+        for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
+            lp = layer_params(params, i)
+            a, st = mamba2.mamba2_step(
+                lp["mamba"], layers.rmsnorm(lp["ln"], h, cfg.norm_eps),
+                {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
+                d_inner=cfg.d_inner, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+            h = h + a
+            cache["ssm"][i] = st["ssm"]
+            cache["conv"][i] = st["conv"]
+        h = h + _attn_cache_step(
+            cfg, shared["attn"], layers.rmsnorm(shared["ln"], h, cfg.norm_eps),
+            cache["k"][j], cache["v"][j], cache["slot_pos"], pos)
+        y = layers.rmsnorm(shared["ln2"], h, cfg.norm_eps)
+        h = h + layers.swiglu(shared["mlp"], y[:, None, :])[:, 0, :]
+    return h
+
+
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
                 tokens: torch.Tensor) -> tuple[torch.Tensor, Cache]:
     """One token for every sequence in the batch. tokens: (B,) int.
     Returns (logits (B, V) fp32, the cache, updated in place). The moe
     family routes with ``capacity_factor = n_experts``: no drops at S = 1."""
-    require_served(cfg, "decode_step")
     encdec = cfg.family == "encdec"
     if encdec and cache["mem_k"] is None:
         raise ValueError("decode_step: the encdec cache has no cross k/v; run encode() first")
     pos = cache["pos"]
     h = layers.embed(params["embed"], tokens, cfg.activation_dtype)   # (B, D)
+    if cfg.family == "ssm":
+        return _finish_step(cfg, params, cache, _rwkv_step(cfg, params, cache, h))
+    if cfg.family == "hybrid":
+        return _finish_step(cfg, params, cache, _hybrid_step(cfg, params, cache, h, pos))
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = h + _attn_cache_step(
@@ -131,9 +211,20 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
         y = layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)
         m, _ = ffn(cfg, lp, y[:, None, :], capacity_factor=float(cfg.n_experts))
         h = h + m[:, 0, :]
-    cache["pos"] = pos + 1
-    h = layers.rmsnorm(params["final_norm"], h[:, None, :], cfg.norm_eps)
-    return layers.unembed(lm_head(cfg, params), h)[:, 0, :], cache
+    return _finish_step(cfg, params, cache, h)
+
+
+def _finish_step(cfg: ModelConfig, params: Params, cache: Cache,
+                 h: torch.Tensor) -> tuple[torch.Tensor, Cache]:
+    """Advance ``pos``; the logits (B, V) fp32 of the last hidden h (B, D)."""
+    cache["pos"] += 1
+    return _logits(cfg, params, h[:, None, :]), cache
+
+
+def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits (B, V) of the final norm of h (B, 1, D)."""
+    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return layers.unembed(lm_head(cfg, params), h)[:, 0, :]
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: dict,
@@ -146,12 +237,15 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     ``src_embeds`` (B, S_src, D) and the prefill is :func:`encode`
     followed by one :func:`decode_step` of BOS = 0, as in the JAX package.
 
-    Each layer ring-writes the RoPE'd k/v of its last ``min(Lc, S)``
-    positions into slots ``(S - m_keep + arange(m_keep)) % Lc``. Attention
-    over the context goes through ``model._self_attention``, so a long
-    context with ``attn_impl="flash"`` runs the flash kernel once per layer.
+    Each attention layer ring-writes the RoPE'd k/v of its last
+    ``m_keep = min(Lc, S)`` positions into slots ``(S - m_keep +
+    arange(m_keep)) % Lc`` (the hybrid family: each shared-attention
+    application into its own ring). Attention over the context goes
+    through ``model._self_attention``, so a long context with
+    ``attn_impl="flash"`` runs the flash kernel once per attention layer.
+    The recurrent families keep each layer's final states, from the
+    chunked scans when S is a multiple of their chunk.
     """
-    require_served(cfg, "prefill")
     if cfg.family == "encdec":
         src = batch["src_embeds"]
         b = src.shape[0]
@@ -162,11 +256,28 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     b, s = h.shape[:2]
     dev = h.device
     cache = init_cache(cfg, b, seq_len, device=dev)
+    cache["pos"] = s
+    if cfg.family == "ssm":
+        x_prev, s0 = rwkv_state(cfg, b, dev)
+        for i in range(cfg.n_layers):
+            h, cache["x_tm"][i], cache["x_cm"][i], cache["s"][i] = _rwkv_block(
+                cfg, layer_params(params, i), h, x_prev, x_prev, s0)
+        return _logits(cfg, params, h[:, -1:, :]), cache
     lc = cache["slot_pos"].shape[0]
     m_keep = min(lc, s)
     kept = torch.arange(s - m_keep, s, device=dev)
     slots = kept % lc
     positions = torch.arange(s, device=dev)
+    cache["slot_pos"][slots] = kept.to(torch.int32)
+    if cfg.family == "hybrid":
+        for j in range(cfg.n_layers // cfg.attn_every):
+            for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
+                h, st = _mamba_block(cfg, layer_params(params, i), h)
+                cache["ssm"][i], cache["conv"][i] = st["ssm"], st["conv"]
+            h, k, v = _shared_attn_block(cfg, params["shared_attn"], h, positions)
+            cache["k"][j][:, slots] = k[:, s - m_keep:]
+            cache["v"][j][:, slots] = v[:, s - m_keep:]
+        return _logits(cfg, params, h[:, -1:, :]), cache
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         a, k, v = _self_attention(
@@ -178,7 +289,4 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
         h = h + m
         cache["k"][i][:, slots] = k[:, s - m_keep:]
         cache["v"][i][:, slots] = v[:, s - m_keep:]
-    cache["slot_pos"][slots] = kept.to(torch.int32)
-    cache["pos"] = s
-    h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
-    return layers.unembed(lm_head(cfg, params), h)[:, 0, :], cache
+    return _logits(cfg, params, h[:, -1:, :]), cache

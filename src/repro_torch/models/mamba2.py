@@ -1,0 +1,171 @@
+"""Mamba2 (SSD) blocks for the zamba2 hybrid (arXiv:2411.15242) in torch.
+
+The port of ``repro.models.mamba2``. State-space duality form: per head h
+(head dim P, state dim N)
+  a_t = exp(-softplus(dt_t) * exp(A_log_h))            (scalar decay)
+  S_t = a_t S_{t-1} + softplus(dt_t) * B_t (x) x_t     (S in R^{N x P})
+  y_t = C_t . S_t + D_h * x_t
+
+Executed chunk-parallel (the SSD algorithm, the served prefill's path):
+intra-chunk a masked (C x C) decay-weighted matmul, inter-chunk a scan
+over chunk states; ``ssd_sequential`` is the oracle and decode's T = 1
+path. ``a_log``, ``d_skip`` and ``dt_bias`` are fp32 in every
+configuration, as the JAX code reads them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+
+CONV_K = 4  # depthwise causal conv width
+
+
+def mamba2_params(gen: torch.Generator, d: int, d_inner: int, d_state: int, head_dim: int,
+                  n_layers: int = 1, dtype: torch.dtype = torch.float32) -> dict:
+    n_heads = d_inner // head_dim
+    f32 = dict(dtype=torch.float32, device=gen.device)
+    return {
+        # in_proj -> [z (gate), x, B, C, dt]
+        "w_in": layers.dense_init((d, 2 * d_inner + 2 * d_state + n_heads), 0.02, gen, dtype),
+        "conv": layers.dense_init((CONV_K, d_inner + 2 * d_state), 0.5, gen, dtype),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, n_heads, **f32)),
+        "d_skip": torch.ones((n_heads,), **f32),
+        "dt_bias": torch.full((n_heads,), -2.0, **f32),      # softplus ~ 0.12
+        "w_out": layers.dense_init((d_inner, d), 0.02 / max(1.0, (2 * n_layers) ** 0.5), gen,
+                                   dtype),
+        "norm": layers.rmsnorm_params(d_inner, gen.device),
+    }
+
+
+def _split_proj(proj: torch.Tensor, d_inner: int, d_state: int):
+    z = proj[..., :d_inner]
+    x = proj[..., d_inner:2 * d_inner]
+    b = proj[..., 2 * d_inner:2 * d_inner + d_state]
+    c = proj[..., 2 * d_inner + d_state:2 * d_inner + 2 * d_state]
+    dt = proj[..., 2 * d_inner + 2 * d_state:]
+    return z, x, b, c, dt
+
+
+def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
+                carry: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: (B,T,C); kernel: (K,C); carry: (B,K-1,C).
+    Returns (y, new carry). The K shifted products are summed in x's dtype
+    in the JAX code's order (each product and partial sum rounded there),
+    then SiLU: not ``conv1d``, which would accumulate in fp32."""
+    k = kernel.shape[0]
+    if carry is None:
+        carry = x.new_zeros((x.shape[0], k - 1, x.shape[-1]))
+    xp = torch.cat([carry, x], dim=1)
+    ker = kernel.to(x.dtype)
+    t = x.shape[1]
+    y = sum(xp[:, i:i + t, :] * ker[i] for i in range(k))
+    return F.silu(y), xp[:, -(k - 1):, :]
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), term for term (``F.softplus`` computes log1p(exp(x))
+    below its threshold, other roundings)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b_in: torch.Tensor,
+                c_in: torch.Tensor, s0: torch.Tensor,
+                chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,T,H,P); dt: (B,T,H) softplus'd fp32; a_log: (H,); b_in, c_in:
+    (B,T,N); s0: (B,H,N,P) fp32. Returns y (B,T,H,P) in x's dtype, S_T."""
+    bsz, t, h, p = x.shape
+    n = b_in.shape[-1]
+    if t % chunk:
+        raise ValueError(f"ssd_chunked: T={t} is not a multiple of chunk={chunk}")
+    nc = t // chunk
+    loga = -dt * torch.exp(a_log)                                    # (B,T,H) <= 0
+    resh = lambda z, last: z.float().reshape((bsz, nc, chunk) + last)  # noqa: E731
+    xc = resh(x, (h, p))
+    dtc = resh(dt, (h,))
+    bc = resh(b_in, (n,))
+    cc = resh(c_in, (n,))
+    cum = torch.cumsum(resh(loga, (h,)), dim=2).transpose(2, 3)     # (B,NC,H,C)
+
+    # intra-chunk: y[t] = sum_{j<=t} (C_t.B_j) e^{cum_t-cum_j} dt_j x_j, heads
+    # ahead of (t, j) so the product with x is one batched matmul
+    l_mat = cum[..., :, None] - cum[..., None, :]                    # (B,NC,H,t,j)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    # mask inside the exponential: exp of the positive exponents above the
+    # diagonal would overflow to inf, and inf * 0 is NaN
+    l_mat = torch.where(tri, l_mat, -1e30).exp_()
+    cb = torch.einsum("bctn,bcjn->bctj", cc, bc)
+    scores = (cb[:, :, None] * l_mat).mul_(dtc.transpose(2, 3)[:, :, :, None, :])
+    del l_mat
+    y_intra = torch.matmul(scores, xc.transpose(2, 3)).transpose(2, 3)   # (B,NC,t,H,P)
+
+    # chunk state writes: S_out = e^{cum_last} S_in + sum_j e^{cum_last-cum_j} dt_j B_j x_j
+    dec_k = torch.exp(cum[..., -1:] - cum).transpose(2, 3)          # (B,NC,C,H)
+    kv = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, dec_k * dtc, xc)
+    full = torch.exp(cum[..., -1])                                   # (B,NC,H)
+    s, s_in = s0, []
+    for c in range(nc):
+        s_in.append(s)
+        s = full[:, c, :, None, None] * s + kv[:, c]
+    y_state = torch.einsum("bctn,bcth,bchnp->bcthp", cc, torch.exp(cum).transpose(2, 3),
+                           torch.stack(s_in, dim=1))
+    return (y_intra + y_state).reshape(bsz, t, h, p).to(x.dtype), s
+
+
+def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b_in: torch.Tensor,
+                   c_in: torch.Tensor, s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The oracle: one step per position (decode's path at T = 1)."""
+    loga = -dt * torch.exp(a_log)
+    xf, bf, cf = x.float(), b_in.float(), c_in.float()
+    s, ys = s0, []
+    for t in range(x.shape[1]):
+        a = torch.exp(loga[:, t])                                    # (B,H)
+        kv = bf[:, t, None, :, None] * dt[:, t, :, None, None] * xf[:, t, :, None, :]
+        s = a[..., None, None] * s + kv
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], s))
+    return torch.stack(ys, dim=1).to(x.dtype), s
+
+
+def mamba2_apply(params: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_dim: int,
+                 state: Optional[dict] = None, chunk: int = 128,
+                 chunked: bool = True) -> tuple[torch.Tensor, dict]:
+    """Full-sequence Mamba2 block; ``state`` carries (ssm, conv) for
+    streaming. Returns (out, {"ssm": (B,H,N,P) fp32, "conv": (B,K-1,C)})."""
+    bsz, t, _ = x.shape
+    h = d_inner // head_dim
+    dtype = x.dtype
+    proj = torch.matmul(x, params["w_in"].to(dtype))
+    z, xi, b_in, c_in, dt = _split_proj(proj, d_inner, d_state)
+
+    conv_in = torch.cat([xi, b_in, c_in], dim=-1)
+    conv_out, conv_carry = causal_conv(conv_in, params["conv"],
+                                       None if state is None else state["conv"])
+    xi = conv_out[..., :d_inner]
+    b_in = conv_out[..., d_inner:d_inner + d_state]
+    c_in = conv_out[..., d_inner + d_state:]
+
+    dt = softplus(dt.float() + params["dt_bias"].float())
+    xh = xi.reshape(bsz, t, h, head_dim)
+    s0 = (x.new_zeros((bsz, h, d_state, head_dim), dtype=torch.float32) if state is None
+          else state["ssm"])
+    a_log = params["a_log"].float()
+    if chunked and t % chunk == 0 and t > 1:
+        y, s_final = ssd_chunked(xh, dt, a_log, b_in, c_in, s0, chunk)
+    else:
+        y, s_final = ssd_sequential(xh, dt, a_log, b_in, c_in, s0)
+    y = y + params["d_skip"].to(dtype)[:, None] * xh
+    # the gated norm at rmsnorm's default eps, as in the JAX code (not cfg.norm_eps)
+    y = layers.rmsnorm(params["norm"], y.reshape(bsz, t, d_inner) * F.silu(z))
+    return torch.matmul(y, params["w_out"].to(dtype)), {"ssm": s_final, "conv": conv_carry}
+
+
+def mamba2_step(params: dict, x: torch.Tensor, state: dict, *, d_inner: int, d_state: int,
+                head_dim: int) -> tuple[torch.Tensor, dict]:
+    """Single-token decode step. x: (B, D)."""
+    out, new_state = mamba2_apply(params, x[:, None, :], d_inner=d_inner, d_state=d_state,
+                                  head_dim=head_dim, state=state, chunked=False)
+    return out[:, 0, :], new_state

@@ -1,11 +1,14 @@
-"""The moe, vlm and encdec serving paths' kernels and routing on the card.
+"""The moe, vlm, encdec, ssm and hybrid serving paths' kernels and routing
+on the card.
 
 The wgmma flash kernel's hd 64 build, causal (Granite-3.0 1B-A400M's
 heads) and non-causal (SeamlessM4T's encoder), against the plain version
 on the card; ``moe._local_top_k`` with planted ties on the card against
 the CPU; and a reduced Granite prefill (fp32, flash, its routing in
 512-token chunks) and greedy decode on the card against the CPU from the
-same weights.
+same weights. The reduced RWKV6-7B (chunked WKV, no attention) and
+Zamba2-7B (chunked SSD, the shared attention at window 64 through the SIMT
+kernel) in fp32 at 2,560 positions, card against CPU.
 
 Needs a CUDA device and nvcc (the flash libraries are built at first
 use); every test here skips without a card. Run on the GPU machine with
@@ -83,3 +86,21 @@ def test_reduced_moe_prefill_card_vs_cpu(cuda):
                            top_k=cfg.top_k)[1]["dropped_frac"].item()
              for dev, p in ((cuda, params_gpu), ("cpu", params_cpu))]
     assert drops[0] == drops[1]
+
+
+@pytest.mark.parametrize("arch,n_simt", [("rwkv6_7b", 0), ("zamba2_7b", 2)])
+def test_reduced_recurrent_serve_card_vs_cpu(cuda, arch, n_simt):
+    # fp32 at 2,560 positions: the chunked scans (a multiple of 64) on both
+    # devices; the reduced Zamba2's two shared-attention applications
+    # through the SIMT kernel, RWKV6 without a flash launch
+    cfg = dataclasses.replace(get_reduced(arch), attn_impl="flash")
+    params_cpu = model.init_params(cfg, 0, device="cpu")
+    params_gpu = tree_util.map(lambda t: t.to(cuda), params_cpu)
+    ctx = np.random.default_rng(1).integers(0, cfg.vocab, (2, 2560))
+    fa.reset_launches()
+    g = serve.generate(cfg, params_gpu, ctx, 4)
+    assert fa.launches == {"flash_attention": n_simt, "flash_attention_wgmma": 0,
+                           "flash_attention_simt": n_simt}
+    c = serve.generate(cfg, params_cpu, ctx, 4, device="cpu")
+    assert torch.equal(g.tokens.cpu(), c.tokens)
+    torch.testing.assert_close(g.logits.cpu(), c.logits, rtol=0, atol=LOGIT_ATOL)

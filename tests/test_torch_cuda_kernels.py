@@ -175,7 +175,10 @@ def _bf16_inputs(b, s, t, h, kv, hd, seed, dev):
     (1, 700, 700, 8, 1, 128, True, 64),      # causal window narrower than a tile
     (1, 600, 200, 4, 2, 64, False, 50),      # query tiles past T + window: empty KV range
     (1, 130, 1000, 4, 4, 96, True, 0),       # causal with T > S, hd 96 (second box half padded)
-], ids=["gqa1", "gqa4-hd64", "gqa8", "gqa6", "window64", "empty-range", "hd96"])
+    (2, 512, 512, 8, 8, 112, True, 512),     # Zamba2's shared attention: hd 112, window = S
+    (1, 700, 700, 4, 4, 112, True, 200),     # hd 112, S > window: tiles past the window
+], ids=["gqa1", "gqa4-hd64", "gqa8", "gqa6", "window64", "empty-range", "hd96", "hd112",
+        "hd112-window"])
 def test_flash_wgmma_matches_plain(cuda, b, s, t, h, kv, hd, causal, window):
     q, k, v = _bf16_inputs(b, s, t, h, kv, hd, s + t + hd, cuda)
     assert fa._kernel_route(q, k, v) == "wgmma"

@@ -1,11 +1,16 @@
-"""The port's moe, vlm and encdec serving paths against ``src/repro/``.
+"""The port's moe, vlm, encdec, ssm and hybrid serving paths against
+``src/repro/``.
 
-The reduced Granite-3.0 1B-A400M and Grok-1 (moe), InternVL2-26B (vlm)
-and SeamlessM4T-large-v2 (encdec) configs: the JAX package's own weights
-(``params_from_numpy`` of its ``init_params``), the same numpy context,
-patch embeddings and source frames through both. Tolerances are those of
+The reduced Granite-3.0 1B-A400M and Grok-1 (moe), InternVL2-26B (vlm),
+SeamlessM4T-large-v2 (encdec), RWKV6-7B (ssm) and Zamba2-7B (hybrid)
+configs: the JAX package's own weights (``params_from_numpy`` of its
+``init_params``), the same numpy context, patch embeddings and source
+frames through both. The recurrent families run two contexts: 80 (their
+sequential scans; it wraps the reduced Zamba2's 64-slot ring) and 128 (a
+multiple of 64: the chunked WKV and SSD). Tolerances are those of
 ``tests/test_torch_transformer.py``: logits within rtol 1e-5, atol 2e-5;
-caches within rtol = atol = 1e-5; greedy tokens identical.
+caches (recurrent states, conv carries and K/V rings too) within rtol =
+atol = 1e-5; greedy tokens identical.
 """
 import dataclasses
 import functools
@@ -40,16 +45,26 @@ from torch_replay import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 LOGITS = dict(rtol=1e-5, atol=2e-5)
-ARCHS = ["granite_moe_1b_a400m", "grok_1_314b", "internvl2_26b", "seamless_m4t_large_v2"]
-CONTEXT, SRC_LEN, STEPS = 80, 48, 4
+ARCHS = ["granite_moe_1b_a400m", "grok_1_314b", "internvl2_26b", "seamless_m4t_large_v2",
+         "rwkv6_7b", "zamba2_7b"]
+CONTEXT, CHUNKED_CONTEXT, SRC_LEN, STEPS = 80, 128, 48, 4
+# (arch, context): every arch at CONTEXT, the recurrent ones also at a
+# context their chunked scans take
+CASES = [(a, CONTEXT) for a in ARCHS] + [("rwkv6_7b", CHUNKED_CONTEXT),
+                                         ("zamba2_7b", CHUNKED_CONTEXT)]
+CASE_IDS = [a if c == CONTEXT else f"{a}-context{c}" for a, c in CASES]
+# the leaves a bf16 init_params keeps in fp32, per family (else "scale" only)
+FP32_LEAVES = {"ssm": {"mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "w0", "wa", "wb", "u", "scale",
+                       "bias"},
+               "hybrid": {"a_log", "d_skip", "dt_bias", "scale"}}
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _inputs(cfg, seed: int = 1) -> dict:
+def _inputs(cfg, context: int, seed: int = 1) -> dict:
     """numpy context tokens (B=2), and the family's patch embeddings or
     source frames, drawn from ``seed``."""
     rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (2, CONTEXT)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, context)).astype(np.int32)}
     if cfg.family == "vlm":
         batch["vis_embeds"] = rng.standard_normal((2, cfg.n_vis_tokens, cfg.d_model),
                                                   dtype=np.float32)
@@ -59,11 +74,11 @@ def _inputs(cfg, seed: int = 1) -> dict:
     return batch
 
 
-def _seq_len(cfg) -> int:
+def _seq_len(cfg, context: int) -> int:
     """Every position the prefill and STEPS decode steps write (generate's)."""
     if cfg.family == "encdec":
         return 1 + STEPS
-    return cfg.n_vis_tokens + CONTEXT + STEPS
+    return cfg.n_vis_tokens + context + STEPS
 
 
 def _jax(batch: dict) -> dict:
@@ -80,14 +95,15 @@ def _prefill_batch(cfg, batch: dict) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(arch: str):
+def _reference(arch: str, context: int = CONTEXT):
     """The JAX package's weights, inputs, forward logits, and its prefill
     + greedy decode: the logits and cache after each step, and the tokens."""
     cfg = jconfigs.get_reduced(arch)
     params = jmodel.init_params(cfg, jax.random.PRNGKey(0))
-    batch = _inputs(cfg)
+    batch = _inputs(cfg, context)
     fwd = np.asarray(jmodel.forward_logits(cfg, params, _jax(batch)))
-    logits, cache = jdecode.prefill(cfg, params, _jax(_prefill_batch(cfg, batch)), _seq_len(cfg))
+    logits, cache = jdecode.prefill(cfg, params, _jax(_prefill_batch(cfg, batch)),
+                                    _seq_len(cfg, context))
     trace = [(np.asarray(logits), jax.tree_util.tree_map(np.asarray, cache))]
     tok = jnp.argmax(logits, -1).astype(jnp.int32)
     tokens = [np.asarray(tok)]
@@ -101,12 +117,13 @@ def _reference(arch: str):
 
 
 def _check_cache(got: dict, want: dict):
+    # k/v rings, cross k/v, recurrent states and carries: fp32 in the reduced configs
     assert set(got) == set(want)
-    for name in ("k", "v", "mem_k", "mem_v"):
-        if name in want:
-            assert got[name].dtype == torch.float32
-            np.testing.assert_allclose(got[name].numpy(), want[name], **F32)
-    assert np.array_equal(got["slot_pos"].numpy(), want["slot_pos"])
+    for name in set(want) - {"slot_pos", "pos"}:
+        assert got[name].dtype == torch.float32
+        np.testing.assert_allclose(got[name].numpy(), want[name], **F32)
+    if "slot_pos" in want:
+        assert np.array_equal(got["slot_pos"].numpy(), want["slot_pos"])
     assert got["pos"] == int(want["pos"])
 
 
@@ -122,12 +139,12 @@ def _chip_smoke():
 @pytest.mark.parametrize("arch", ARCHS + ["llama3_8b"])
 def test_uncounted_params_match_the_jax_init(arch):
     # chip_smoke holds the full-size models' parameter counts to
-    # param_count() + uncounted_params(cfg): the JAX package's init on the
-    # reduced configs has exactly that many
+    # param_count() + param_count_correction(cfg) (negative for ssm): the
+    # JAX package's init on the reduced configs has exactly that many
     cfg = jconfigs.get_reduced(arch)
     shapes = jax.eval_shape(lambda: jmodel.init_params(cfg, jax.random.PRNGKey(0)))
     n = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
-    assert n == cfg.param_count() + _chip_smoke().uncounted_params(cfg)
+    assert n == cfg.param_count() + _chip_smoke().param_count_correction(cfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -138,10 +155,12 @@ def test_init_params_tree_shapes_and_dtypes(arch):
     p32 = tmodel.init_params(cfg, 3, device="cpu")
     assert (jax.tree_util.tree_map(lambda t: tuple(t.shape), p32)
             == jax.tree_util.tree_map(lambda s: tuple(s.shape), want))
-    # a bf16 config holds the same draws cast once; norm scales stay fp32
+    # a bf16 config holds the same draws cast once; norm scales (and the
+    # recurrent families' fp32 vectors) stay fp32
     p16 = tmodel.init_params(dataclasses.replace(cfg, dtype="bfloat16"), 3, device="cpu")
+    fp32 = FP32_LEAVES.get(cfg.family, {"scale"})
     for path, a, b in zip(tree_util.paths(p32), tree_util.leaves(p32), tree_util.leaves(p16)):
-        if path[-1] == "scale":
+        if path[-1] in fp32:
             assert b.dtype == torch.float32 and torch.equal(a, b)
         else:
             assert b.dtype == torch.bfloat16 and torch.equal(a.to(torch.bfloat16), b)
@@ -160,20 +179,21 @@ def test_params_from_numpy_carries_the_tree(arch):
 
 # ------------------------------------------------------------ serving
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_forward_logits_match(arch):
-    params, batch, fwd, _trace, _tokens = _reference(arch)
+@pytest.mark.parametrize("arch,context", CASES, ids=CASE_IDS)
+def test_forward_logits_match(arch, context):
+    params, batch, fwd, _trace, _tokens = _reference(arch, context)
     cfg = tconfigs.get_reduced(arch)
     got = tmodel.forward_logits(cfg, tmodel.params_from_numpy(params, "cpu"), _torch(batch))
     np.testing.assert_allclose(got.numpy(), fwd, **LOGITS)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_and_decode_steps_match(arch):
-    params, batch, _fwd, trace, tokens = _reference(arch)
+@pytest.mark.parametrize("arch,context", CASES, ids=CASE_IDS)
+def test_prefill_and_decode_steps_match(arch, context):
+    params, batch, _fwd, trace, tokens = _reference(arch, context)
     cfg = tconfigs.get_reduced(arch)
     tp = tmodel.params_from_numpy(params, "cpu")
-    logits, cache = tdecode.prefill(cfg, tp, _torch(_prefill_batch(cfg, batch)), _seq_len(cfg))
+    logits, cache = tdecode.prefill(cfg, tp, _torch(_prefill_batch(cfg, batch)),
+                                    _seq_len(cfg, context))
     np.testing.assert_allclose(logits.numpy(), trace[0][0], **LOGITS)
     _check_cache(cache, trace[0][1])
     for step, (want_logits, want_cache) in enumerate(trace[1:]):
@@ -183,9 +203,9 @@ def test_prefill_and_decode_steps_match(arch):
         _check_cache(cache, want_cache)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_generate_matches_greedy_decode(arch):
-    params, batch, _fwd, trace, tokens = _reference(arch)
+@pytest.mark.parametrize("arch,context", CASES, ids=CASE_IDS)
+def test_generate_matches_greedy_decode(arch, context):
+    params, batch, _fwd, trace, tokens = _reference(arch, context)
     cfg = tconfigs.get_reduced(arch)
     extra = {"vlm": "vis_embeds", "encdec": "src_embeds"}.get(cfg.family)
     gen = serve.generate(cfg, tmodel.params_from_numpy(params, "cpu"),
@@ -252,20 +272,24 @@ def test_granite_width_routing_matches():
     assert got["dropped_frac"].item() == float(want["dropped_frac"]) > 0.25
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "encdec"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "encdec", "hybrid", "ssm"])
 def test_flash_dispatch_per_family(family):
     # S = 2560 > DENSE_ATTN_MAX_SEQ and a multiple of chunk_size: each
     # family's attention takes the flash path (JAX: its XLA twin; here the
     # wrapper, on the CPU its plain version); the encoder without a mask,
-    # the moe routing in five 512-token chunks
+    # the moe routing in five 512-token chunks, the hybrid's shared
+    # attention at its default window (4096, no sliding_window set) after a
+    # chunked SSD; the ssm family has no attention and never calls it
     base = dict(name="t", family=family, n_layers=1, d_model=64, n_heads=4, n_kv_heads=2,
                 d_ff=128, vocab=64, chunk_size=128, attn_impl="flash", dtype="float32")
     base.update({"moe": dict(n_experts=4, top_k=2), "vlm": dict(n_vis_tokens=8),
-                 "encdec": dict(n_enc_layers=1)}[family])
+                 "encdec": dict(n_enc_layers=1),
+                 "hybrid": dict(ssm_state=16, ssm_head_dim=32, attn_every=1),
+                 "ssm": dict(n_heads=0, n_kv_heads=0, rwkv_heads=4)}[family])
     jcfg, tcfg = jconfig.ModelConfig(**base), tconfig.ModelConfig(**base)
     params = jax.tree_util.tree_map(np.asarray, jmodel.init_params(jcfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(1)
-    n_tok = {"moe": 2560, "vlm": 2552, "encdec": 4}[family]
+    n_tok = {"vlm": 2552, "encdec": 4}.get(family, 2560)
     batch = {"tokens": rng.integers(0, 64, (1, n_tok)).astype(np.int32)}
     if family == "vlm":
         batch["vis_embeds"] = rng.standard_normal((1, 8, 64), dtype=np.float32)
@@ -276,10 +300,14 @@ def test_flash_dispatch_per_family(family):
     with mock.patch.object(tfa, "flash_attention", wraps=tfa.flash_attention) as spy:
         got = tmodel.forward_logits(tcfg, tmodel.params_from_numpy(params, "cpu"),
                                     _torch(batch))
-    assert spy.call_count == 1
-    assert spy.call_args.kwargs == dict(causal=family != "encdec", window=0)
-    assert tuple(spy.call_args.args[0].shape) == (1, 2560, 4, 16)
     np.testing.assert_allclose(got.numpy(), want, **LOGITS)
+    if family == "ssm":
+        assert spy.call_count == 0
+        return
+    assert spy.call_count == 1
+    assert spy.call_args.kwargs == dict(causal=family != "encdec",
+                                        window=4096 if family == "hybrid" else 0)
+    assert tuple(spy.call_args.args[0].shape) == (1, 2560, 4, 16)
 
 
 # ------------------------------------------------------------ the launcher
@@ -290,7 +318,8 @@ def _printed_tokens(out: str) -> np.ndarray:
     return np.array([eval(r.strip()) for r in rows])  # noqa: S307 (lists of ints)
 
 
-@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "granite_moe_1b_a400m"])
+@pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "granite_moe_1b_a400m",
+                                  "rwkv6_7b", "zamba2_7b"])
 def test_serve_main_prints_the_jax_launchers_tokens(arch, tmp_path, capsys, monkeypatch):
     # the JAX launcher's weights through a checkpoint; for encdec its own
     # branch: encode of --context normal frames, greedy decode from BOS = 0

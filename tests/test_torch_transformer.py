@@ -189,14 +189,17 @@ def test_init_params_shapes_and_serving_dtype():
             assert torch.equal(leaf, flat32[path].to(torch.bfloat16))
 
 
-def test_other_families_name_their_roadmap_item():
-    # the recurrent families are not served yet (moe, vlm and encdec are:
-    # tests/test_torch_families.py)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmodel.init_params(tconfigs.get_reduced("zamba2_7b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve.generate(tconfigs.get_reduced("rwkv6_7b"), {}, np.zeros((1, 4), np.int64), 1,
-                       device="cpu")
+def test_every_family_is_served_and_an_unknown_one_raises():
+    # the port's families are the JAX package's (every config's family,
+    # tests/test_torch_families.py serves each); an unknown one raises in
+    # init_params, as in the JAX package
+    assert set(tmodel.FAMILIES) == {c.family for c in jconfigs.all_configs().values()}
+    bogus = dataclasses.replace(tconfigs.get_reduced("llama3_8b"), family="bogus")
+    with pytest.raises(ValueError, match="unknown family bogus"):
+        tmodel.init_params(bogus, device="cpu")
+    with pytest.raises(ValueError, match="unknown family bogus"):
+        jmodel.init_params(dataclasses.replace(jconfigs.get_reduced("llama3_8b"),
+                                               family="bogus"), jax.random.PRNGKey(0))
 
 
 # ------------------------------------------------------------ serving
