@@ -106,7 +106,24 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      reference of each family's reduced config (fp32, 2560 positions, the
      card against the CPU on the same weights; the reduced Zamba2's shared
      attention at window 64 through the SIMT kernel);
- 10. one JSON line with each kernel's launches, error and times (the flash
+ 10. training (``launch.steps.make_train_step``, ``make_fl_round``; no
+     kernel of the port lies on it, and every phase requires 0 launches):
+     (a) the reduced six families, 3 adamw steps each, card against CPU in
+     ``exact_fp32``, every step started on both devices from the CPU's
+     state (losses and gradient norms within 1e-5 relative); (b)
+     Granite-3.0 1B-A400M and SeamlessM4T-large-v2 at full width and depth
+     with fp32 masters, bf16 activations, adamw, clip 1.0 and full remat, on
+     ``launch.inputs.train_batch_spec`` of train_4k with the global batch
+     cut from 256 to 4 (one card holds 16 B a parameter plus one layer's
+     recomputed activations): 1 warm-up + 5 timed steps, s/step, tokens/s,
+     model TFLOP/s from ``launch.analytic.train_flops`` and its share of
+     989 TFLOP/s, peak GB, busy share and launches of one profiled step,
+     finite losses with the 5th timed below the 1st; (c) the four kernel
+     wrappers refusing CUDA inputs that require grad before any launch, and
+     launching once each under ``no_grad``; (d) ``make_fl_round`` on the
+     reduced Granite with K = 4, packed wire and screen, card against CPU
+     on the same uniforms (the one-level rule);
+ 11. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
      checked shape's times).
 
@@ -119,6 +136,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -199,21 +217,27 @@ def _is_device(e) -> bool:
 def kernel_ms(fn, kernel: str, iters: int = 200) -> float:
     """Mean device milliseconds of the CUDA kernel whose name contains
     ``kernel``, from a torch.profiler trace of ``iters`` calls of ``fn``
-    (the kernel's own duration, free of the host's launch overhead). Fails
-    when the trace holds no such kernel."""
+    (the kernel's own duration, free of the host's launch overhead). A
+    trace that holds no such kernel is taken once more (a trace has come
+    back without the device activity of a call that ran); fails when the
+    second holds none either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(2):
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if _is_device(e) and kernel in e.key]
-    count = sum(e.count for e in hits)
-    require(count > 0, f"the profiler trace holds no device kernel named {kernel!r}")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if _is_device(e) and kernel in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(e.self_device_time_total for e in hits) / count / 1e3
+        print(f"  the profiler trace {attempt + 1} holds no device kernel named {kernel!r}",
+              flush=True)
+    raise SmokeFailure(f"two profiler traces hold no device kernel named {kernel!r}")
 
 
 def bound(bytes_moved: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
@@ -1939,23 +1963,28 @@ def profile_serve(label: str, cfg, params, ctx, **inputs):
     _profiled(f"{label} decode x4", lambda: steps(logits.argmax(-1)))
 
 
-def _profiled(label: str, fn, top: int = 8):
+def _profiled(label: str, fn, top: int = 8, host_ops: bool = True):
     """Run ``fn`` once under the profiler; print wall time, device kernel
-    time, busy share and the top kernels by device time."""
+    time, busy share and the top kernels by device time. ``host_ops=False``
+    records the device activity only (a train step's ~200k launches: the
+    host ops' events would take minutes to gather)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if _is_device(e)]
     total = sum(e.self_device_time_total for e in kernels)
+    prof.wall_ms, prof.device_ms = wall * 1e3, total / 1e3
+    prof.n_launches = sum(e.count for e in kernels)
     print(f"profile {label}: wall {wall * 1e3:.2f} ms, device kernel time {total / 1e3:.2f} ms "
           f"(busy share {total / 1e3 / (wall * 1e3):.3f} under the profiler), "
-          f"{sum(e.count for e in kernels)} kernel launches")
+          f"{prof.n_launches} kernel launches")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return out, prof
@@ -2033,6 +2062,278 @@ def serve_small_reference(arch: str) -> int:
     return simt_launches
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_REDUCED_ARCHS = (SERVE_ARCH, GRANITE_ARCH, INTERNVL2_ARCH, SEAMLESS_ARCH, RWKV6_ARCH,
+                       ZAMBA2_ARCH)
+TRAIN_LR = 3e-3
+TRAIN_RTOL = 1e-5         # losses and gradient norms, card vs CPU, each step from one state
+# train_4k (4,096 positions, global batch 256) with the batch cut to 4: fp32
+# masters, grads and two Adam moments (16 B a parameter) and the activations
+# of one recomputed layer must fit one 80 GB card
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_TIMED = 4096, 4, 5
+
+
+def _train_batch_like(cfg, shape, seed: int) -> dict:
+    """A batch of ``launch.inputs.train_batch_spec``'s shapes and dtypes on
+    the card, drawn from ``seed``: random tokens (the labels too, as the
+    launcher makes them), an all-ones mask, standard normal embeddings."""
+    import torch
+    from repro_torch.launch.inputs import train_batch_spec
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, spec in train_batch_spec(cfg, shape).items():
+        if name == "tokens":
+            out[name] = torch.randint(0, cfg.vocab, spec.shape, generator=gen, device="cuda")
+        elif name == "mask":
+            out[name] = torch.ones(spec.shape, dtype=spec.dtype, device="cuda")
+        elif name != "labels":
+            out[name] = torch.randn(spec.shape, generator=gen, device="cuda").to(spec.dtype)
+    out["labels"] = out["tokens"]
+    return out
+
+
+@phase("train (a): the reduced six families, 3 adamw steps, card vs CPU from one state a step")
+def train_reduced_card_vs_cpu():
+    """Each reduced family's ``make_train_step`` (adamw, clip 1.0, remat)
+    in fp32 on the card and on the CPU, inside ``exact_fp32``: three
+    steps, each started on both devices from the CPU's parameters and Adam
+    state (a chained run lets Adam's first step turn last-bit gradient
+    differences near g = 0 into updates up to 2 lr apart), so every step's
+    loss and gradient norm are held to TRAIN_RTOL. No kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_reduced
+    from repro_torch.device import exact_fp32
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    def to(tree, dev):
+        return tree_util.map(lambda t: t.to(dev), tree)
+
+    _reset_all_launches()
+    for arch in TRAIN_REDUCED_ARCHS:
+        cfg = get_reduced(arch)
+        opt = adamw(TRAIN_LR)
+        step = make_train_step(cfg, opt)
+        params = model.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
+        state = opt.init(params)
+        rng = np.random.default_rng(1)
+        worst, losses = {"loss": 0.0, "grad_norm": 0.0}, []
+        with exact_fp32():
+            for _ in range(3):
+                toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)))
+                batch = {"tokens": toks, "labels": toks, "mask": torch.ones((2, 64))}
+                if cfg.family == "encdec":
+                    batch["src_embeds"] = torch.as_tensor(
+                        rng.standard_normal((2, 48, cfg.d_model)), dtype=torch.float32)
+                if cfg.family == "vlm":
+                    batch["vis_embeds"] = torch.as_tensor(
+                        rng.standard_normal((2, cfg.n_vis_tokens, cfg.d_model)),
+                        dtype=torch.float32)
+                g_params, _, g = step(to(params, "cuda"), to(state, "cuda"), to(batch, "cuda"))
+                params, state, c = step(params, state, batch)
+                require(all(bool(torch.isfinite(t).all()) for t in tree_util.leaves(g_params)),
+                        f"{arch}: non-finite parameters on the card")
+                for name in worst:
+                    rel = abs(g[name].item() - c[name].item()) / abs(c[name].item())
+                    require(rel <= TRAIN_RTOL, f"{arch}: {name} card {g[name].item()} vs CPU "
+                                               f"{c[name].item()}, rel {rel:.2e}")
+                    worst[name] = max(worst[name], rel)
+                losses.append(c["loss"].item())
+        print(f"{arch} reduced ({cfg.family}): losses {[f'{x:.5f}' for x in losses]}; card vs "
+              f"CPU max rel loss {worst['loss']:.2e}, grad_norm {worst['grad_norm']:.2e} "
+              f"(tolerance {TRAIN_RTOL:g})", flush=True)
+    launches = _all_launches()
+    require(not any(launches.values()), f"the reduced train steps launched kernels: {launches}")
+
+
+def train_full(arch: str) -> dict:
+    """``make_train_step`` of ``arch`` at full width and depth: fp32 masters
+    from seed 0, bf16 activations, adamw(TRAIN_LR), clip 1.0, full remat, on
+    one fixed batch of ``train_batch_spec`` at train_4k cut to TRAIN_BATCH;
+    one warm-up step, TRAIN_TIMED timed steps (host clock, each ended by a
+    sync), then one profiled step. Every launch count is set to 0 just
+    before the steps and must still be 0 after: training runs no kernel of
+    the port."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.launch import analytic
+    from repro_torch.launch.inputs import encdec_tgt_len
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model
+    from repro_torch.models.config import InputShape
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch)
+    shape = InputShape("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(cfg, 0, param_dtype=torch.float32)
+    n_params = sum(t.numel() for t in tree_util.leaves(params))
+    want = cfg.param_count() + param_count_correction(cfg)
+    require(n_params == want, f"{n_params} parameters, want {want}")
+    require(all(t.dtype == torch.float32 for t in tree_util.leaves(params)), "masters not fp32")
+    opt = adamw(TRAIN_LR)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    batch = _train_batch_like(cfg, shape, 0)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    _reset_all_launches()
+    losses, times = [], []
+    for i in range(1 + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(metrics["loss"].item())      # a sync
+        times.append(time.perf_counter() - t0)
+    launches = _all_launches()
+    require(not any(launches.values()), f"{arch} training launched kernels: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = losses[1:]
+    require(all(map(math.isfinite, losses)), f"{arch}: non-finite losses {losses}")
+    require(timed[-1] < timed[0], f"{arch}: the 5th timed loss {timed[-1]} is not below the "
+                                  f"1st {timed[0]}")
+    (_, prof) = _profiled(f"{arch} train step", lambda: step(params, state, batch), top=10,
+                          host_ops=False)
+    sec = sum(times[1:]) / TRAIN_TIMED
+    flops = analytic.train_flops(cfg, shape)
+    tgt_only = cfg.family == "encdec"
+    if tgt_only:
+        tgt = encdec_tgt_len(TRAIN_SEQ)
+        tokens, what = TRAIN_BATCH * tgt, (f"{TRAIN_BATCH} x {TRAIN_SEQ} source frames and "
+                                           f"{TRAIN_BATCH} x {tgt} target tokens")
+    else:
+        tokens, what = TRAIN_BATCH * TRAIN_SEQ, f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens"
+    numbers = dict(s_per_step=sec, warmup_s=times[0], tokens_per_s=tokens / sec,
+                   model_tflops=flops / sec / 1e12, share_of_bf16_peak=flops / sec / BF16_FLOPS,
+                   flop_bound_ms=flops / BF16_FLOPS * 1e3, peak_gb=peak, state_gb=state_gb,
+                   busy_share=prof.device_ms / prof.wall_ms, launches_per_step=prof.n_launches,
+                   losses=losses)
+    print(f"{arch} train step ({n_params} fp32 parameters, {what}, adamw({TRAIN_LR}), clip "
+          f"1.0, full remat): {sec:.4f} s/step over {TRAIN_TIMED} steps (warm-up step "
+          f"{times[0]:.3f} s, steps {[f'{t:.4f}' for t in times[1:]]}), "
+          f"{numbers['tokens_per_s']:.1f} {'target ' if tgt_only else ''}tokens/s, model "
+          f"{numbers['model_tflops']:.2f} "
+          f"TFLOP/s ({flops:.4g} FLOP a step, launch.analytic.train_flops) = "
+          f"{numbers['share_of_bf16_peak']:.4f} of 989 TFLOP/s (bound "
+          f"{numbers['flop_bound_ms']:.1f} ms); parameters + Adam state {state_gb:.2f} GB, "
+          f"peak {peak:.2f} GB allocated; profiled step: busy share "
+          f"{numbers['busy_share']:.3f}, {prof.n_launches} launches; losses "
+          f"{[f'{x:.4f}' for x in losses]} (first is the warm-up); 0 kernel launches "
+          f"of the port", flush=True)
+    return numbers
+
+
+@phase("train (c): the four kernel wrappers refuse grad on the card before any launch")
+def train_refusals():
+    """Each wrapper, called with CUDA inputs that require grad, raises a
+    ValueError naming the differentiable route and launches nothing; the
+    same call under ``no_grad`` launches its kernel once."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stochastic_quant as sq
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((1, 256, 8, 64), generator=gen, device="cuda").requires_grad_(True)
+    k = torch.randn((1, 256, 2, 64), generator=gen, device="cuda")
+    x = torch.randn((64, 128), generator=gen, device="cuda").requires_grad_(True)
+    rbits = torch.randint(0, 2**31, (64, 128), generator=gen, device="cuda",
+                          dtype=torch.int64).to(torch.uint32)
+    scale = torch.ones(1, device="cuda").requires_grad_(True)
+    idx = torch.randint(0, 16, (3, 64, 128), generator=gen, device="cuda", dtype=torch.uint8)
+    signs = torch.randint(0, 2, (3, 64, 128), generator=gen, device="cuda", dtype=torch.uint8)
+    weights = torch.full((3,), 1 / 3, device="cuda").requires_grad_(True)
+    calls = {
+        "flash_attention": (lambda: fa.flash_attention(q, k, k), 'attn_impl="chunked"'),
+        "quantize": (lambda: sq.quantize(x, rbits, scale, 4), "core.quantization"),
+        "dequantize": (lambda: sq.dequantize(idx[0], signs[0], scale, 4), "core.quantization"),
+        "aggregate": (lambda: sq.aggregate(idx, signs, torch.ones(3, device="cuda"), weights, 4),
+                      "core.quantization"),
+    }
+    for name, (call, route) in calls.items():
+        _reset_all_launches()
+        try:
+            call()
+        except ValueError as e:
+            require("no backward" in str(e) and route in str(e), f"{name}: {e}")
+        else:
+            raise SmokeFailure(f"{name} accepted inputs that require grad")
+        torch.cuda.synchronize()
+        require(not any(_all_launches().values()), f"{name} launched before refusing")
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        require(_all_launches()[name] == 1, f"{name} under no_grad: {_all_launches()}")
+    print("flash_attention, quantize, dequantize, aggregate: each refused CUDA inputs that "
+          "require grad (ValueError naming the route), 0 launches; each launched once under "
+          "no_grad", flush=True)
+
+
+@phase("train (d): make_fl_round, reduced granite_moe_1b_a400m, K=4, packed wire + screen, "
+       "card vs CPU on the same uniforms")
+def train_fl_round():
+    """One federated round of four clients (their copies of the reduced
+    Granite apart, heterogeneous q and weights) on the card and on the CPU
+    from the same parameters, batches and uniforms: n_screened identical,
+    theta_max within 1e-6 relative, parameters by the one-level rule."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_reduced
+    from repro_torch.device import exact_fp32
+    from repro_torch.launch.steps import make_fl_round
+    from repro_torch.models import model
+
+    cfg = get_reduced(GRANITE_ARCH)
+    k = 4
+    params = model.init_params(cfg, 0, device="cpu", param_dtype=torch.float32)
+    stacked = tree_util.map(lambda t: torch.stack([(1.0 + 0.01 * i) * t for i in range(k)]),
+                            params)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (k, 2, 64)))
+    batch = {"tokens": toks, "labels": toks, "mask": torch.ones((k, 2, 64))}
+    gen = torch.Generator().manual_seed(4)
+    shapes = [tuple(t.shape[1:]) for t in tree_util.leaves(stacked)]
+    ups = [[torch.rand(s, generator=gen) for s in shapes] for _ in range(k)]
+    q, w = torch.tensor([3, 8, 5, 6]), torch.tensor([0.1, 0.4, 0.2, 0.3])
+    fl_round = make_fl_round(cfg, lr=1e-2, wire_packed=True, screen=True)
+
+    def to(tree):
+        return tree_util.map(lambda t: t.to("cuda"), tree)
+
+    _reset_all_launches()
+    with exact_fp32():
+        t0 = time.perf_counter()
+        got = fl_round(to(stacked), to(batch), q.cuda(), w.cuda(),
+                       uniforms=[[u.cuda() for u in c] for c in ups])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        want = fl_round(stacked, batch, q, w, uniforms=ups)
+    require(not any(_all_launches().values()),
+            f"the FL round launched kernels: {_all_launches()}")
+    require(got[3].item() == want[3].item() == 0.0, f"n_screened {got[3].item()} vs "
+                                                    f"{want[3].item()}")
+    tmax_rel = ((got[2].cpu() - want[2]).abs() / want[2]).max().item()
+    require(tmax_rel <= 1e-6, f"theta_max card {got[2].tolist()} vs CPU {want[2].tolist()}")
+    level = float((w * want[2] / (2.0 ** q - 1)).max())
+    diffs = torch.cat([(a.cpu() - b).abs().reshape(-1)
+                       for a, b in zip(tree_util.leaves(got[0]), tree_util.leaves(want[0]))])
+    share = (diffs <= 1e-5).double().mean().item()
+    require(diffs.max().item() <= level + 1e-5 and share >= 0.99,
+            f"FL round params differ by {diffs.max().item():.3e} (one level {level:.3e}), "
+            f"{share:.5f} within 1e-5")
+    print(f"make_fl_round K={k} (q {q.tolist()}, w {[round(x, 3) for x in w.tolist()]}), "
+          "packed wire, screen: "
+          f"{sec:.3f} s on the card; loss card {got[1].item():.6f} vs CPU {want[1].item():.6f}; "
+          f"theta_max max rel {tmax_rel:.2e}; params max abs {diffs.max().item():.3e} (one "
+          f"level {level:.3e}), {share:.5f} within 1e-5; n_screened 0 on both", flush=True)
+
+
+
 def main() -> int:
     import torch
 
@@ -2077,6 +2378,13 @@ def main() -> int:
         arch: phase(f"small-input reference: reduced {arch}, flash, fp32, {what}, card vs "
                     "CPU")(serve_small_reference)(arch)
         for arch, what in SMALL_REFERENCES}
+    train_reduced_card_vs_cpu()
+    for arch in (GRANITE_ARCH, SEAMLESS_ARCH):
+        phase(f"train (b): {arch} full width and depth, train_4k cut to batch {TRAIN_BATCH}, "
+              f"1 warm-up + {TRAIN_TIMED} timed steps")(train_full)(arch)
+        _release()
+    train_refusals()
+    train_fl_round()
 
     sources = {"flash_attention_wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}

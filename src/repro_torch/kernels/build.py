@@ -157,6 +157,20 @@ def check(name: str, what: str, err: int) -> None:
         raise RuntimeError(f"repro_torch: {what} launch failed: CUDA error {err} ({msg})")
 
 
+def refuse_grad(name: str, instead: str, *tensors: torch.Tensor) -> None:
+    """Raise a ``ValueError`` when autograd would record a call of the
+    wrapper ``name``: grad mode is on and an input requires grad. The
+    port's kernels have no backward (nor have the Pallas kernels they
+    replace), and a result written through ``ctypes`` carries no
+    ``grad_fn``, so the gradient would be dropped without a word. The rule
+    holds on every device, so the plain version on the CPU stays the
+    kernel's exact stand-in. ``instead`` names the differentiable route."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: its kernel has no backward, and an input requires grad; "
+            f"use {instead}, or call it under torch.no_grad()")
+
+
 def route(name: str, *tensors: torch.Tensor) -> bool:
     """True -> launch the CUDA kernel, False -> the plain version (CPU).
     Mixed devices, or a device that is neither, raise."""

@@ -39,7 +39,9 @@ the tensor cores as two bf16 halves (``p_hi + p_lo``, 2^-16 relative), so
 the two routes meet the same tolerances against the plain version.
 
 ``launches`` counts kernel launches only: ``"flash_attention"`` in total and
-one counter per route. The ring variant and ``merge_partials`` belong to
+one counter per route. Neither kernel has a backward (nor has the Pallas
+kernel): under grad the wrapper raises on every device
+(``build.refuse_grad``), and training takes chunked attention. The ring variant and ``merge_partials`` belong to
 the distribution work.
 """
 from __future__ import annotations
@@ -57,6 +59,9 @@ NEG_INF = -1e30  # finite, matching dense_attention (no inf - inf NaNs)
 DEFAULT_BLOCK = 512
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_MAX_HEAD_DIM = 128
+# the differentiable route a caller that needs gradients takes instead
+FLASH_GRAD_ROUTE = ('attn_impl="chunked" (layers.chunked_attention, plain torch with '
+                    'autograd) or dense attention')
 
 # the wgmma kernel's tiles and its TMA boxes (csrc/flash_attention_wgmma.cu
 # checks that the plans it is given match)
@@ -323,7 +328,9 @@ def flash_attention(
 ):
     """Flash attention (module docstring): a CUDA kernel for tensors on
     the card (fp32 or bf16, hd <= 128; anything else raises), the plain
-    version for tensors on the CPU."""
+    version for tensors on the CPU. Forward only: under grad it raises
+    (``build.refuse_grad``) on every device."""
+    build.refuse_grad("flash_attention", FLASH_GRAD_ROUTE, q, k, v)
     _check_shapes(q, k, v, window)
     if not build.route("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window, with_lse=with_lse)

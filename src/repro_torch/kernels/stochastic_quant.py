@@ -15,7 +15,9 @@ Each kernel has a plain torch version beside it (``quantize_plain`` and so
 on) computing the same function with the same fp32 operations in the same
 order. The wrapper (``quantize`` and so on) runs the plain version for a
 tensor on the CPU and the CUDA kernel for a tensor on the card, with no
-fallback between the two; ``launches`` counts kernel launches only.
+fallback between the two; ``launches`` counts kernel launches only. The
+kernels have no backward: under grad a wrapper raises on every device
+(``build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from repro_torch.kernels import build
 from repro_torch.obs.profile import scope as _profile_scope
 
 LANES = 128
+# what a caller that needs gradients uses instead of the wire kernels
+WIRE_GRAD_ROUTE = ("the plain torch quantizer of repro_torch.core.quantization "
+                   "(quantize_pytree, quantize_indices, dequantize_indices)")
 
 # kernel launches per wrapper since the last reset_launches(); the CPU path
 # (plain version) never counts
@@ -109,6 +114,7 @@ def quantize(x: torch.Tensor, rbits: torch.Tensor, scale: torch.Tensor,
     """x fp32 and rbits uint32, both (M, 128); scale 1-element fp32.
     Returns (idx u8, signs u8), each (M, 128). On the card the kernel's
     variant is :func:`quantize_variant`'s."""
+    build.refuse_grad("quantize", WIRE_GRAD_ROUTE, x, rbits, scale)
     _check_q8(q_bits)
     if x.ndim != 2 or x.shape[1] != LANES:
         raise ValueError(f"quantize expects lane-tiled (M, {LANES}) input, got {tuple(x.shape)}")
@@ -170,6 +176,7 @@ def dequantize(idx: torch.Tensor, signs: torch.Tensor, scale: torch.Tensor,
     """idx and signs u8 (M, 128), scale 1-element fp32 -> (M, 128) fp32.
     The clamp to 2^q - 1 keeps a corrupted plane inside [-scale, scale].
     On the card the kernel's variant is :func:`dequantize_variant`'s."""
+    build.refuse_grad("dequantize", WIRE_GRAD_ROUTE, idx, signs, scale)
     if idx.ndim != 2 or idx.shape[1] != LANES:
         raise ValueError(
             f"dequantize expects lane-tiled (M, {LANES}) input, got idx {tuple(idx.shape)}")
@@ -251,6 +258,7 @@ def aggregate(idx: torch.Tensor, signs: torch.Tensor, scales: torch.Tensor,
     Any K >= 1 and any M; idx is not clamped (screen corrupt planes with
     :func:`plane_in_range` first).
     """
+    build.refuse_grad("aggregate", WIRE_GRAD_ROUTE, idx, signs, scales, weights)
     _check_aggregate(idx, signs, scales, weights)
     if not build.route("aggregate", idx, signs, scales, weights):
         return aggregate_plain(idx, signs, scales, weights, q_bits)

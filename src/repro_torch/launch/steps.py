@@ -1,0 +1,300 @@
+"""Step builders on one device: a train step and a federated round (the
+port of ``repro.launch.steps``'s ``make_train_step`` and ``make_fl_round``).
+
+The JAX builders take a mesh and return functions for ``jax.jit`` with
+shardings; on one device there is nothing to shard, so these take none and
+return the step itself. Gradients are autograd's (``torch.autograd.grad``
+of :func:`repro_torch.models.model.forward_train`), taken on detached
+copies of the parameter leaves, so a step never writes a ``.grad`` and
+returns tensors that carry no graph.
+
+The federated round (the paper's technique on the model families): the K
+clients' parameters are stacked on a leading dim; each client takes one
+local SGD step on its slice of the batch; its model is quantized at its
+level q_k against one global range (eq. 4); the server sums the K uploads
+with the eq.-2 weights, theta = sum_k w_k Q_{q_k}(theta_k), and broadcasts
+the aggregate as every client's next start point. The clients run one after
+another in a Python loop, where the JAX round ``vmap``s them: the MoE
+routing's scatter and cumsum do not batch over a client dim, and K is small
+on one device. Every stochastic draw comes in as an argument (one fp32
+uniform tensor per client per leaf for the uplink, one per leaf for the
+downlink), or is drawn from the caller's generator in that order, uplink
+before downlink, a gate that is off drawing nothing.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from repro_torch import tree as tree_util
+from repro_torch.core.quantization import quantize_pytree
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import forward_train
+from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
+
+Tree = Any
+
+# The broadcast is one payload for every client, quantized at a fixed level
+# so the index plane stays uint8 (u8 indexes + sign bitmap + one fp32 range).
+DOWNLINK_Q_BITS = 8
+DOWNLINK_MODES = ("off", "quant", "delta")
+SIGN_PAD = 128   # the packed sign plane's last dim is padded to a multiple of this
+
+
+def value_and_grad(cfg: ModelConfig, params: Tree, batch: dict,
+                   **train_kw) -> tuple[torch.Tensor, dict, Tree]:
+    """``forward_train``'s loss, metrics and the loss's gradient with
+    respect to every leaf of ``params`` (zeros for a leaf the loss does not
+    read, as ``jax.grad`` gives), all detached."""
+    key_paths = tree_util.paths(params)
+    leaves = [p.detach().requires_grad_(True) for p in tree_util.leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = forward_train(cfg, tree_util.from_leaves(key_paths, leaves), batch,
+                                      **train_kw)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_util.from_leaves(key_paths, list(grads)))
+
+
+# ------------------------------------------------------------ train
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, causal_skip: bool = False,
+                    remat: bool = True, clip_norm: float = 1.0,
+                    remat_policy: str = "full") -> Callable:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    the loss's value and gradient, the gradient clipped to ``clip_norm``
+    by its global norm, one optimizer update, applied. ``metrics`` holds
+    ``forward_train``'s and the pre-clip ``grad_norm``."""
+    def train_step(params, opt_state, batch):
+        _, metrics, grads = value_and_grad(cfg, params, batch, causal_skip=causal_skip,
+                                           remat=remat, remat_policy=remat_policy)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        del grads
+        params = apply_updates(params, updates)
+        return params, opt_state, dict(metrics, grad_norm=gnorm)
+
+    return train_step
+
+
+# ------------------------------------------------------- federated round
+
+def pack_signs(bits: torch.Tensor) -> torch.Tensor:
+    """{0,1} u8 leaf (..., d) -> (..., ceil(d'/8)) u8 bitmap, d' = d padded
+    up to a multiple of 128, packed along the last axis only, LSB first."""
+    d = bits.shape[-1]
+    b = torch.nn.functional.pad(bits, (0, (-d) % SIGN_PAD)).reshape(bits.shape[:-1] + (-1, 8))
+    weights = torch.ones(8, dtype=torch.int32, device=bits.device) << torch.arange(
+        8, dtype=torch.int32, device=bits.device)
+    return (b.to(torch.int32) * weights).sum(-1).to(torch.uint8)
+
+
+def unpack_signs(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of :func:`pack_signs`: the first ``d`` bits of each row, u8."""
+    shifts = torch.arange(8, dtype=torch.int32, device=packed.device)
+    bits = (packed.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(packed.shape[:-1] + (-1,))[..., :d].to(torch.uint8)
+
+
+def _draw(shapes: Sequence[tuple], generator: Optional[torch.Generator],
+          device: torch.device, what: str) -> list[torch.Tensor]:
+    if generator is None:
+        raise ValueError(f"fl_round: pass {what} or a generator to draw them from")
+    return [torch.rand(s, generator=generator, device=device, dtype=torch.float32)
+            for s in shapes]
+
+
+def _levels(q: torch.Tensor) -> torch.Tensor:
+    """fp32 2^q - 1 of an integer level tensor (exact)."""
+    return torch.pow(torch.full_like(q, 2.0, dtype=torch.float32), q.to(torch.float32)) - 1.0
+
+
+def _renormalized(weights: torch.Tensor, ok: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The screen's weights: failed clients at 0, the survivors scaled to
+    the round's total weight (an exact no-op when every client passes);
+    and the count of failed clients, fp32."""
+    okf = ok.to(torch.float32)
+    w_eff = weights * okf
+    w_use = w_eff * (torch.sum(weights) / torch.clamp(torch.sum(w_eff), min=1e-12))
+    return w_use, torch.sum(1.0 - okf)
+
+
+def _stacked_max_abs(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.amax(torch.stack([torch.amax(torch.abs(leaf)) for leaf in leaves]))
+
+
+def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = False,
+                  downlink: str = "off", screen: bool = False) -> Callable:
+    """One FL communication round (paper Fig. 1 steps 3-5) over K stacked
+    clients: ``fl_round(client_params, batch, q_bits, weights, *,
+    uniforms=None, downlink_uniforms=None, generator=None)``.
+
+    ``client_params`` leaves are (K, ...); ``batch`` leaves (K, B_local,
+    ...); ``q_bits`` (K,) integer levels; ``weights`` (K,) fp32 eq.-2
+    weights w_k = D_k / D^n. ``uniforms[k]`` holds client k's fp32
+    uniforms, one tensor per leaf in leaf order; ``downlink_uniforms`` one
+    per leaf at the unstacked shape; either is drawn from ``generator``
+    when not given. Returns ``(stacked params, mean local loss, theta_max
+    (K,))``, and a trailing ``n_screened`` with ``screen``.
+
+    ``wire_packed``: the uplink carries u8 magnitude indexes, a sign bitmap
+    (:func:`pack_signs`) and one fp32 range a client, q clamped to 8; the
+    server dequantizes and sums them (the same numbers as the byte planes).
+    ``downlink``: ``"off"`` broadcasts the fp32 aggregate; ``"quant"``
+    quantizes it at DOWNLINK_Q_BITS with one range; ``"delta"`` quantizes
+    the round's update ``agg - theta^{n-1}`` instead. ``screen``: a client
+    with a non-finite range or payload, or a u8 plane above its 2^q - 1
+    levels, is dropped from the sum and the survivors' weights are
+    renormalized; when every client fails the round is a no-op."""
+    if downlink not in DOWNLINK_MODES:
+        raise ValueError(f"downlink mode {downlink!r} not in {DOWNLINK_MODES}")
+
+    def local_step(params, batch):
+        loss, _, grads = value_and_grad(cfg, params, batch, remat=True)
+        with torch.no_grad():
+            new = tree_util.map(lambda p, g: (p - lr * g.to(torch.float32)).to(p.dtype),
+                                params, grads)
+        return new, loss
+
+    @torch.no_grad()
+    def fl_round(client_params, batch, q_bits, weights, *, uniforms=None,
+                 downlink_uniforms=None, generator: Optional[torch.Generator] = None):
+        key_paths = tree_util.paths(client_params)
+        c_leaves = tree_util.leaves(client_params)
+        n_clients = c_leaves[0].shape[0]
+        dev = c_leaves[0].device
+        q_bits = torch.as_tensor(q_bits, device=dev).reshape(n_clients)
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev).reshape(n_clients)
+        shapes = [tuple(leaf.shape[1:]) for leaf in c_leaves]
+        news, losses = [], []
+        for k in range(n_clients):
+            new, loss = local_step(tree_util.map(lambda t: t[k], client_params),
+                                   {name: v[k] for name, v in batch.items()})
+            news.append(tree_util.leaves(new))
+            losses.append(loss)
+        if uniforms is None:
+            uniforms = [_draw(shapes, generator, dev, "uniforms") for _ in range(n_clients)]
+        if wire_packed:
+            agg, theta_max, n_screened = _packed_uplink(news, shapes, q_bits, weights, uniforms,
+                                                        screen)
+        else:
+            agg, theta_max, n_screened = _fp32_uplink(news, key_paths, q_bits, weights,
+                                                      uniforms, screen)
+        if downlink == "off":
+            stacked = [g[None].expand(c.shape).to(c.dtype) for g, c in zip(agg, c_leaves)]
+        else:
+            if downlink_uniforms is None:
+                downlink_uniforms = _draw(shapes, generator, dev, "downlink_uniforms")
+            stacked = _downlink(downlink, agg, c_leaves, downlink_uniforms)
+        loss = torch.stack(losses).mean()
+        if not screen:
+            return tree_util.from_leaves(key_paths, stacked), loss, theta_max
+        # every client screened: the round degrades to a no-op, the
+        # start-of-round params carried forward
+        any_ok = n_screened < float(n_clients)
+        stacked = [torch.where(any_ok, s, c) for s, c in zip(stacked, c_leaves)]
+        return tree_util.from_leaves(key_paths, stacked), loss, theta_max, n_screened
+
+    return fl_round
+
+
+def _fp32_uplink(news, key_paths, q_bits, weights, uniforms, screen):
+    """``core.quantization.quantize_pytree`` per client (the dequantized
+    uploads), then the eq.-2 sum in client order."""
+    quantized, tmaxes = [], []
+    for k, leaves in enumerate(news):
+        tq, tmax = quantize_pytree(uniforms[k], tree_util.from_leaves(key_paths, leaves),
+                                   int(q_bits[k]))
+        quantized.append(tree_util.leaves(tq))
+        tmaxes.append(tmax)
+    theta_max = torch.stack(tmaxes)
+    n_screened = None
+    w_use = weights
+    if screen:
+        ok = torch.isfinite(theta_max)
+        for k, leaves in enumerate(quantized):
+            for leaf in leaves:
+                ok[k] = ok[k] & torch.isfinite(leaf.to(torch.float32)).all()
+        w_use, n_screened = _renormalized(weights, ok)
+        quantized = [[torch.where(ok[k], leaf, torch.zeros_like(leaf)) for leaf in leaves]
+                     for k, leaves in enumerate(quantized)]
+    agg = []
+    for j in range(len(key_paths)):
+        acc = quantized[0][j].to(torch.float32) * w_use[0]
+        for k in range(1, len(quantized)):
+            acc = acc + quantized[k][j].to(torch.float32) * w_use[k]
+        agg.append(acc.to(quantized[0][j].dtype))
+    return agg, theta_max, n_screened
+
+
+def _packed_uplink(news, shapes, q_bits, weights, uniforms, screen):
+    """The wire format: per client u8 indexes against its global range and
+    a packed sign bitmap; the screen on the ranges and planes; the
+    dequantize and eq.-2 sum of the unpacked planes, in client order."""
+    qb = torch.clamp(q_bits, max=8)
+    levels = _levels(qb)
+    wires, tmaxes = [], []
+    for k, leaves in enumerate(news):
+        tmax = _stacked_max_abs(leaves).to(torch.float32)
+        safe = torch.where(tmax > 0, tmax, torch.ones_like(tmax))
+        wire = []
+        for u, leaf in zip(uniforms[k], leaves):
+            scaled = torch.abs(leaf.to(torch.float32)) * (levels[k] / safe)
+            lower = torch.floor(scaled)
+            idx = lower + (u < scaled - lower).to(torch.float32)
+            wire.append((torch.minimum(idx, levels[k]).to(torch.uint8),
+                         pack_signs((leaf < 0).to(torch.uint8))))
+        wires.append(wire)
+        tmaxes.append(tmax)
+    theta_max = torch.stack(tmaxes)
+    n_screened = None
+    if screen:
+        ok = torch.isfinite(theta_max)
+        for k, wire in enumerate(wires):
+            for idx, _ in wire:
+                ok[k] = ok[k] & (torch.amax(idx.to(torch.float32)) <= levels[k])
+        w_use, n_screened = _renormalized(weights, ok)
+        coef = w_use * torch.where(ok, theta_max, torch.zeros_like(theta_max)) / levels
+    else:
+        coef = weights * theta_max / levels
+    agg = []
+    for j, shape in enumerate(shapes):
+        out = None
+        for k, wire in enumerate(wires):
+            idx, sgn = wire[j]
+            mag = idx.to(torch.float32)
+            bits = unpack_signs(sgn, shape[-1])
+            term = coef[k] * torch.where(bits > 0, -mag, mag)
+            out = term if out is None else out + term
+        agg.append(out)
+    return agg, theta_max, n_screened
+
+
+def _downlink(mode, agg, c_leaves, uniforms):
+    """The broadcast leg at DOWNLINK_Q_BITS: one range over the target (the
+    aggregate for ``"quant"``, the stacked update ``agg - theta^{n-1}`` for
+    ``"delta"``) and one uniform tensor per leaf at the unstacked shape, so
+    every client decodes the identical payload."""
+    dl_levels = torch.full((), 2.0**DOWNLINK_Q_BITS - 1.0, dtype=torch.float32,
+                           device=agg[0].device)
+    if mode == "quant":
+        target = [g.to(torch.float32) for g in agg]
+    else:
+        target = [g[None].to(torch.float32) - c.to(torch.float32) for g, c in zip(agg, c_leaves)]
+    theta_d = _stacked_max_abs(target)
+    safe_d = torch.where(theta_d > 0, theta_d, torch.ones_like(theta_d))
+    stacked = []
+    for u, tgt, c in zip(uniforms, target, c_leaves):
+        scaled = torch.abs(tgt) * (dl_levels / safe_d)
+        lower = torch.floor(scaled)
+        if mode == "delta":
+            u = u[None]
+        idx = lower + (u < scaled - lower).to(torch.float32)
+        deq = torch.sign(tgt) * torch.minimum(idx, dl_levels) * (safe_d / dl_levels)
+        deq = torch.where(theta_d > 0, deq, torch.zeros_like(deq))
+        if mode == "quant":
+            stacked.append(deq[None].expand(c.shape).to(c.dtype))
+        else:
+            stacked.append((c.to(torch.float32) + deq).to(c.dtype))
+    return stacked

@@ -40,7 +40,11 @@ def dense_init(shape: tuple[int, ...], scale: float, generator: torch.Generator,
     """``scale`` x a standard normal truncated to [-2, 2] (inverse-CDF
     sampling, as ``jax.random.truncated_normal`` does), drawn in fp32 on the
     generator's device and stored in ``dtype``. torch's generator cannot
-    replay ``jax.random``, so the numbers differ from the JAX package's."""
+    replay ``jax.random``, so the numbers differ from the JAX package's.
+    A stand-in generator on the ``meta`` device gives storage-less tensors
+    (``model.abstract_params``)."""
+    if generator.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     u = torch.rand(shape, generator=generator, device=generator.device)
     x = math.sqrt(2.0) * torch.erfinv(_TRUNC_LO + u * (_TRUNC_HI - _TRUNC_LO))
     return (scale * x.clamp_(-2.0, 2.0)).to(dtype)

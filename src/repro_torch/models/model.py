@@ -1,4 +1,5 @@
-"""Model factory in torch: init and the serving forward for all families.
+"""Model factory in torch: init, the training forward and the serving
+forward for all families.
 
 The port of ``repro.models.model``: dense (Llama, Yi, StarCoder2,
 Phi-3), moe (Granite, Grok-1: ``models/moe.py`` in place of the SwiGLU),
@@ -9,24 +10,33 @@ mix) and hybrid (Zamba2: ``models/mamba2.py`` blocks with one
 weight-shared, window-bounded attention + MLP block applied every
 ``attn_every`` layers). Layers are stacked on a leading L axis, as in the
 JAX package, so its parameter pytree carries over leaf for leaf
-(:func:`params_from_numpy`); the layer loop is a Python loop over views of
-the stacked tensors (no remat: this is the serving forward).
-:func:`init_params` holds the matrices in ``cfg.activation_dtype``, cast
-once, where the JAX package keeps fp32 masters and casts them at every
-use: the same numbers. The vectors the JAX code reads in fp32 (norms, the
-RWKV decay LoRA, bonus and mixing vectors, the Mamba2 ``a_log``,
-``d_skip`` and ``dt_bias``) stay fp32. The forward still casts at use, so
-the fp32 parameters of :func:`params_from_numpy` run too.
+(:func:`params_from_numpy`); the layer loop is a Python loop over the
+stacked tensors, each split once per forward (:func:`unstack`, one
+``torch.unbind`` a leaf, so autograd writes one stacked gradient per leaf).
+For serving, :func:`init_params` holds the matrices in
+``cfg.activation_dtype``, cast once, where the JAX package keeps fp32
+masters and casts them at every use: the same numbers. Training asks for
+fp32 masters (``param_dtype=torch.float32``), as the JAX package keeps. The
+vectors the JAX code reads in fp32 (norms, the RWKV decay LoRA, bonus and
+mixing vectors, the Mamba2 ``a_log``, ``d_skip`` and ``dt_bias``) stay fp32.
+The forward casts at use, so fp32 parameters run in every family.
 
-``forward_train`` and the ring variant of the flash dispatch are not
-ported yet (ROADMAP Queue 1, items 8 and 9).
+:func:`forward_train` is the JAX package's: the loss of a batch through a
+cross-entropy in sequence chunks (:func:`_chunked_ce`, no (B, S, V)
+logits), each layer (the hybrid family: each super-block) recomputed in
+backward when ``remat`` is on, as ``jax.checkpoint`` on the scan body does.
+Training takes dense or chunked attention; the flash kernels have no
+backward and refuse a call under grad. The ring variant of the flash
+dispatch belongs to the distribution work.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
@@ -34,6 +44,7 @@ from repro_torch.models import layers, mamba2, moe, rwkv6
 from repro_torch.models.config import ModelConfig
 
 Params = dict
+CE_CHUNK = 1024
 DENSE_ATTN_MAX_SEQ = 2048  # above this, use the chunked online-softmax path
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 RWKV_CHUNK = 64            # the chunked WKV's chunk and gate, fixed as in the JAX code
@@ -106,21 +117,24 @@ def _stack_layers(layer_fn, cfg: ModelConfig, gen: torch.Generator, dtype: torch
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: Optional[Union[str, torch.device]] = None) -> Params:
+                device: Optional[Union[str, torch.device]] = None,
+                param_dtype: Optional[torch.dtype] = None) -> Params:
     """Random parameters from ``seed``, made on ``device`` (``cuda`` unless
     asked otherwise) by a generator there, in the JAX package's tree,
     shapes and scales. Matrices are drawn in fp32 and stored in
-    ``cfg.activation_dtype``; norm scales and the vectors the recurrent
-    families read in fp32 (RWKV6's decay LoRA, bonus, mixing vectors and
-    group-norm affine; Mamba2's ``a_log``, ``d_skip``, ``dt_bias``) stay
-    fp32.
+    ``param_dtype``: ``cfg.activation_dtype`` by default (serving), fp32
+    for training's masters (the same draws); norm scales and the vectors
+    the recurrent families read in fp32 (RWKV6's decay LoRA, bonus, mixing
+    vectors and group-norm affine; Mamba2's ``a_log``, ``d_skip``,
+    ``dt_bias``) stay fp32.
     torch's generator cannot replay ``jax.random``: carry the JAX package's
     weights over with :func:`params_from_numpy`."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
     dev = resolve_device(device)
-    dtype = cfg.activation_dtype
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    dtype = cfg.activation_dtype if param_dtype is None else param_dtype
+    gen = (_MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
     params: Params = {
         "embed": layers.embedding_params(gen, cfg.vocab, cfg.d_model, dtype),
         "final_norm": layers.rmsnorm_params(cfg.d_model, dev),
@@ -164,10 +178,94 @@ def params_from_numpy(tree: dict,
         lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev), tree)
 
 
+class _MetaGenerator:
+    """Stands in for a generator on the ``meta`` device, which torch does
+    not make: ``layers.dense_init`` draws nothing from it."""
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The JAX package's parameter tree for ``cfg`` (fp32 masters, as its
+    ``abstract_params`` gives them) as tensors on the ``meta`` device:
+    shapes and dtypes, no storage."""
+    return init_params(cfg, device="meta", param_dtype=torch.float32)
+
+
 def layer_params(params: Params, i: int, stack: str = "layers") -> dict:
     """Layer ``i`` of the stacked ``params[stack]`` (views, no copy):
     ``"layers"``, or the encdec family's ``"enc_layers"``."""
     return tree_util.map(lambda t: t[i], params[stack])
+
+
+def unstack(params: Params, stack: str = "layers") -> list[dict]:
+    """Every layer of the stacked ``params[stack]``, each stacked leaf
+    split once (``torch.unbind``: views). Under autograd the split's
+    backward stacks the layers' gradients once, where ``t[i]`` views would
+    each write a zero-filled gradient the size of the whole stack."""
+    tree = params[stack]
+    key_paths = tree_util.paths(tree)
+    columns = [torch.unbind(t) for t in tree_util.leaves(tree)]
+    return [tree_util.from_leaves(key_paths, [c[i] for c in columns])
+            for i in range(len(columns[0]))]
+
+
+# =====================================================================
+# remat
+# =====================================================================
+
+class _MoeOutState(threading.local):
+    """The ``save_moe_out`` policy's flags: ``naming`` inside a layer run
+    under the policy, ``saving`` while its one saved op runs."""
+    naming = False
+    saving = False
+
+
+_MOE_OUT = _MoeOutState()
+
+
+def _save_moe_out_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing: save the output of the copy
+    :func:`_name_moe_out` makes, recompute everything else (JAX's
+    ``save_only_these_names("moe_out")``)."""
+    if _MOE_OUT.saving:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _name_moe_out(m: torch.Tensor) -> torch.Tensor:
+    """``checkpoint_name(m, "moe_out")``: inside a ``save_moe_out`` layer,
+    an exact copy of the MoE output made under the tag, so the policy saves
+    that tensor; elsewhere ``m`` itself."""
+    if not _MOE_OUT.naming:
+        return m
+    _MOE_OUT.saving = True
+    try:
+        return m.clone()
+    finally:
+        _MOE_OUT.saving = False
+
+
+def _remat(body, remat: bool, remat_policy: str = "full"):
+    """``body`` recomputed in backward (``jax.checkpoint`` of a scan body):
+    non-reentrant ``torch.utils.checkpoint``; ``remat_policy ==
+    "save_moe_out"`` keeps the MoE output. ``remat=False``, or grad mode
+    off (serving), runs ``body`` as it is; the numbers are the same."""
+    if not remat or not torch.is_grad_enabled():
+        return body
+    if remat_policy == "save_moe_out":
+        def named(*args):
+            _MOE_OUT.naming = True
+            try:
+                return body(*args)
+            finally:
+                _MOE_OUT.naming = False
+
+        def contexts():
+            return _ckpt.create_selective_checkpoint_contexts(_save_moe_out_policy)
+
+        return lambda *args: _ckpt.checkpoint(named, *args, use_reentrant=False,
+                                              context_fn=contexts)
+    return lambda *args: _ckpt.checkpoint(body, *args, use_reentrant=False)
 
 
 # =====================================================================
@@ -196,14 +294,13 @@ def _flash_dispatch(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch
 
 def _self_attention(
     cfg: ModelConfig, p: dict, x: torch.Tensor, *, causal: bool, positions: torch.Tensor,
-    window_override: Optional[int] = None,
+    causal_skip: bool = False, window_override: Optional[int] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (attn_out, k_rope, v) — k/v for optional cache building.
     Short or non-divisible sequences take dense attention, long ones flash
-    (``attn_impl="flash"``) or chunked attention, as in the JAX package.
-    ``window_override`` replaces the config's window (the hybrid family's
-    shared attention). The chunked path's ``causal_skip`` belongs to
-    training (ROADMAP Queue 1 item 8)."""
+    (``attn_impl="flash"``) or chunked attention, as in the JAX package;
+    ``causal_skip`` goes to the chunked path. ``window_override`` replaces
+    the config's window (the hybrid family's shared attention)."""
     window = cfg.sliding_window if window_override is None else window_override
     q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, cfg.rope_theta)
     k = layers.apply_rope(_proj_heads(x, p["wk"]), positions, cfg.rope_theta)
@@ -215,7 +312,7 @@ def _self_attention(
         o = _flash_dispatch(cfg, q, k, v, causal=causal, window=window)
     else:
         o = layers.chunked_attention(q, k, v, chunk=cfg.chunk_size, causal=causal,
-                                     window=window)
+                                     window=window, causal_skip=causal_skip)
     return _merge_heads(o, p["wo"]), k, v
 
 
@@ -231,24 +328,32 @@ def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
     return layers.swiglu(p["mlp"], y), {}
 
 
-def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                 causal_skip: bool = False) -> tuple[torch.Tensor, dict]:
     positions = torch.arange(x.shape[1], device=x.device)
     h, _, _ = _self_attention(
         cfg, p["attn"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps),
-        causal=True, positions=positions,
+        causal=True, positions=positions, causal_skip=causal_skip,
     )
     x = x + h
     m, aux = ffn(cfg, p, layers.rmsnorm(p["ln2"], x, cfg.norm_eps))
+    if cfg.family == "moe":
+        m = _name_moe_out(m)
     return x + m, aux
 
 
-def _forward_dense(cfg: ModelConfig, params: Params,
-                   x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def _forward_dense(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+                   causal_skip: bool = False, remat: bool = False,
+                   remat_policy: str = "full") -> tuple[torch.Tensor, dict]:
     """The decoder stack of the dense, moe and vlm families; the aux
     values averaged over the layers (none for dense and vlm)."""
+    def body(h, lp):
+        return _dense_block(cfg, lp, h, causal_skip=causal_skip)
+
+    step = _remat(body, remat, remat_policy)
     auxs = []
-    for i in range(cfg.n_layers):
-        x, aux = _dense_block(cfg, layer_params(params, i), x)
+    for lp in unstack(params):
+        x, aux = step(x, lp)
         auxs.append(aux)
     return x, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
@@ -288,10 +393,15 @@ def rwkv_state(cfg: ModelConfig, b: int, device) -> tuple[torch.Tensor, torch.Te
             torch.zeros((b, cfg.rwkv_heads, n, n), dtype=torch.float32, device=device))
 
 
-def _forward_rwkv(cfg: ModelConfig, params: Params, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    x_prev, s0 = rwkv_state(cfg, x.shape[0], x.device)
-    for i in range(cfg.n_layers):
-        x, _, _, _ = _rwkv_block(cfg, layer_params(params, i), x, x_prev, x_prev, s0)
+def _forward_rwkv(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+                  remat: bool = False) -> tuple[torch.Tensor, dict]:
+    def body(h, lp):
+        x_prev, s0 = rwkv_state(cfg, h.shape[0], h.device)
+        return _rwkv_block(cfg, lp, h, x_prev, x_prev, s0)[0]
+
+    step = _remat(body, remat)
+    for lp in unstack(params):
+        x = step(x, lp)
     return x, {}
 
 
@@ -302,42 +412,57 @@ def shared_window(cfg: ModelConfig) -> int:
 
 
 def _shared_attn_block(cfg: ModelConfig, shared: dict, h: torch.Tensor,
-                       positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       positions: torch.Tensor, *, causal_skip: bool = False,
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The hybrid family's shared attention + MLP over h (B, S, D);
     returns (h, k_rope, v)."""
     a, k, v = _self_attention(
         cfg, shared["attn"], layers.rmsnorm(shared["ln"], h, cfg.norm_eps),
-        causal=True, positions=positions, window_override=shared_window(cfg),
+        causal=True, positions=positions, causal_skip=causal_skip,
+        window_override=shared_window(cfg),
     )
     h = h + a
     return h + layers.swiglu(shared["mlp"], layers.rmsnorm(shared["ln2"], h, cfg.norm_eps)), k, v
 
 
-def _forward_hybrid(cfg: ModelConfig, params: Params,
-                    x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+def _forward_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+                    causal_skip: bool = False, remat: bool = False) -> tuple[torch.Tensor, dict]:
     """``n_layers // attn_every`` super-blocks: ``attn_every`` Mamba2
-    layers, then the shared attention block."""
+    layers, then the shared attention block; with ``remat`` each
+    super-block is recomputed in backward, as the JAX package's scan body."""
     positions = torch.arange(x.shape[1], device=x.device)
+    shared = params["shared_attn"]
+
+    def body(h, *super_layers):
+        for lp in super_layers:
+            h, _ = _mamba_block(cfg, lp, h)
+        return _shared_attn_block(cfg, shared, h, positions, causal_skip=causal_skip)[0]
+
+    step = _remat(body, remat)
+    layer_list = unstack(params)
     for j in range(cfg.n_layers // cfg.attn_every):
-        for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
-            x, _ = _mamba_block(cfg, layer_params(params, i), x)
-        x, _, _ = _shared_attn_block(cfg, params["shared_attn"], x, positions)
+        x = step(x, *layer_list[j * cfg.attn_every:(j + 1) * cfg.attn_every])
     return x, {}
 
 
-def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor) -> torch.Tensor:
+def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
+                     remat: bool = False) -> torch.Tensor:
     """The encdec family's encoder: non-causal self-attention over the
     source frames, then ``enc_norm``."""
     positions = torch.arange(src.shape[1], device=src.device)
-    h = src
-    for i in range(cfg.n_enc_layers):
-        lp = layer_params(params, i, "enc_layers")
+
+    def body(h, lp):
         a, _, _ = _self_attention(
             cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
             causal=False, positions=positions,
         )
         h = h + a
-        h = h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        return h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+
+    step = _remat(body, remat)
+    h = src
+    for lp in unstack(params, "enc_layers"):
+        h = step(h, lp)
     return layers.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
@@ -351,12 +476,11 @@ def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, mem_k: torch.Te
 
 
 def _forward_encdec(cfg: ModelConfig, params: Params, src: torch.Tensor,
-                    tgt: torch.Tensor) -> tuple[torch.Tensor, dict]:
-    mem = _forward_encoder(cfg, params, src)
+                    tgt: torch.Tensor, *, remat: bool = False) -> tuple[torch.Tensor, dict]:
+    mem = _forward_encoder(cfg, params, src, remat=remat)
     positions = torch.arange(tgt.shape[1], device=tgt.device)
-    h = tgt
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+
+    def body(h, lp, mem):
         a, _, _ = _self_attention(
             cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
             causal=True, positions=positions,
@@ -365,7 +489,12 @@ def _forward_encdec(cfg: ModelConfig, params: Params, src: torch.Tensor,
         xp = lp["xattn"]
         h = h + _cross_attention(cfg, xp, layers.rmsnorm(lp["ln_x"], h, cfg.norm_eps),
                                  _proj_heads(mem, xp["wk"]), _proj_heads(mem, xp["wv"]))
-        h = h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        return h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+
+    step = _remat(body, remat)
+    h = tgt
+    for lp in unstack(params):
+        h = step(h, lp, mem)
     return h, {}
 
 
@@ -402,3 +531,79 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tenso
         h, _ = _forward_dense(cfg, params, embed_inputs(cfg, params, batch))
     h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
     return layers.unembed(lm_head(cfg, params), h)[:, 0, :]
+
+
+# =====================================================================
+# training
+# =====================================================================
+
+def _ce_chunk(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's masked NLL sum and mask sum, fp32: the chunk's logits
+    (``layers.unembed``), logsumexp minus the gold logit."""
+    logits = layers.unembed({"table": table}, h)                  # (B, chunk, V) fp32
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum(), mask.sum()
+
+
+def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor, ce_chunk: int = CE_CHUNK) -> torch.Tensor:
+    """Cross-entropy of h (B, S, D) against ``labels`` (B, S) under the
+    fp32 ``mask``, without a (B, S, V) logits tensor: ``ce_chunk``
+    positions at a time (one chunk when S does not divide), each chunk
+    recomputed in backward under grad (``jax.checkpoint(body)`` in the JAX
+    package), so no chunk's (B, chunk, V) logits outlive it. The sums add
+    in chunk order; the loss is their ratio, over at least 1."""
+    table = lm_head(cfg, params)["table"]
+    s = h.shape[1]
+    chunk = min(ce_chunk, s)
+    if s % chunk:
+        chunk = s
+    step = _remat(_ce_chunk, True)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    denom = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        nll, m = step(table, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                      mask[:, c0:c0 + chunk])
+        total = total + nll
+        denom = denom + m
+    return total / torch.clamp(denom, min=1.0)
+
+
+def forward_train(cfg: ModelConfig, params: Params, batch: dict, *,
+                  causal_skip: bool = False, remat: bool = True,
+                  remat_policy: str = "full") -> tuple[torch.Tensor, dict]:
+    """Returns (loss, metrics) of ``batch``: ``tokens``, ``labels`` and
+    ``mask`` (B, S), with ``vis_embeds`` (B, n_vis, D) for vlm (the patch
+    positions are dropped before the loss) or ``src_embeds`` (B, S_src, D)
+    for encdec. ``metrics["loss"]`` is the cross-entropy; the MoE family's
+    loss adds ``0.01 lb_loss + 1e-3 z_loss`` and its metrics carry the aux
+    values. ``remat`` recomputes each layer in backward (``remat_policy
+    "save_moe_out"`` keeps the MoE output); the numbers are the same
+    without it."""
+    dtype = cfg.activation_dtype
+    fam = cfg.family
+    if fam == "encdec":
+        src = batch["src_embeds"].to(dtype)
+        tgt = layers.embed(params["embed"], batch["tokens"], dtype)
+        h, aux = _forward_encdec(cfg, params, src, tgt, remat=remat)
+    else:
+        x = embed_inputs(cfg, params, batch)
+        if fam == "ssm":
+            h, aux = _forward_rwkv(cfg, params, x, remat=remat)
+        elif fam == "hybrid":
+            h, aux = _forward_hybrid(cfg, params, x, causal_skip=causal_skip, remat=remat)
+        else:
+            h, aux = _forward_dense(cfg, params, x, causal_skip=causal_skip, remat=remat,
+                                    remat_policy=remat_policy)
+        if fam == "vlm":
+            h = h[:, batch["vis_embeds"].shape[1]:, :]
+    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    loss = _chunked_ce(cfg, params, h, batch["labels"], batch["mask"].to(torch.float32))
+    metrics = {"loss": loss}
+    if aux:
+        loss = loss + 0.01 * aux.get("lb_loss", 0.0) + 1e-3 * aux.get("z_loss", 0.0)
+        metrics.update(aux)
+    return loss, metrics

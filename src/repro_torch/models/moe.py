@@ -51,16 +51,20 @@ def moe_apply(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: flo
     """Capacity-based top-k MoE of x (B, S, D). A sequence longer than
     ``route_chunk`` and a multiple of it is routed chunk by chunk, each
     chunk with its own capacity; the aux values are averaged over the
-    chunks. Only one chunk's dispatch tensors are alive at a time."""
+    chunks. Only one chunk's dispatch tensors are alive at a time (without
+autograd)."""
     b, s, d = x.shape
     if s > route_chunk and s % route_chunk == 0:
-        out = torch.empty_like(x)
-        auxs = []
+        outs, auxs = [], []
         for c0 in range(0, s, route_chunk):
-            out[:, c0:c0 + route_chunk], aux = _moe_apply_dense(
+            out, aux = _moe_apply_dense(
                 params, x[:, c0:c0 + route_chunk], top_k=top_k, capacity_factor=capacity_factor)
+            outs.append(out)
             auxs.append(aux)
-        return out, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+        # concatenated, not written into slices of one buffer: under autograd
+        # slice assignment would chain in-place copies
+        return torch.cat(outs, dim=1), {k: torch.stack([a[k] for a in auxs]).mean()
+                                        for k in auxs[0]}
     return _moe_apply_dense(params, x, top_k=top_k, capacity_factor=capacity_factor)
 
 

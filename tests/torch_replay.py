@@ -13,6 +13,9 @@ and ``fold_in(PRNGKey(seed), PROBE_KEY_TAG)`` (the eps probe's normals).
 
 ``UploadReplay`` hands ``repro_torch.fl.FLExperiment`` the uniforms of the
 JAX object runtime's upload key chain (``jax_upload_uniforms``).
+``jax_fl_round_uniforms`` and ``jax_fl_downlink_uniforms`` give
+``repro_torch.launch.steps.make_fl_round`` the uniforms JAX's
+``make_fl_round`` draws from its round key.
 
 ``one_torch_thread`` is a module fixture the suites import: their torch work
 is tiny ops, and under pytest-xdist each worker's idle OpenMP threads spin
@@ -211,3 +214,20 @@ class UploadReplay:
     def upload_uniforms(self, shapes):
         self.key, sub = jax.random.split(self.key)
         return [u.to(self.device) for u in jax_upload_uniforms(sub, shapes)]
+
+
+def jax_fl_round_uniforms(key, shapes, n_clients):
+    """The uplink uniforms ``repro.launch.steps.make_fl_round``'s round
+    draws from ``key``: ``split(key, K)[k]`` per client, split once per
+    leaf (the packed wire's per-leaf keys and ``quantize_pytree``'s are the
+    same), a uniform of each leaf's unstacked shape. [client][leaf]."""
+    return [jax_upload_uniforms(k, shapes) for k in jax.random.split(key, n_clients)]
+
+
+def jax_fl_downlink_uniforms(key, shapes, tag=13):
+    """The round's downlink uniforms: ``fold_in(key, DOWNLINK_KEY_TAG)``
+    split once per leaf, drawn at the unstacked shape with the
+    partitionable threefry the round scopes them in."""
+    keys = jax.random.split(jax.random.fold_in(key, tag), len(shapes))
+    with jax.threefry_partitionable(True):
+        return [_t(jax.random.uniform(k, tuple(s), jnp.float32)) for k, s in zip(keys, shapes)]
