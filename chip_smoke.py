@@ -31,7 +31,17 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      dtypes;
      at each, bf16 inputs
      that TMA cannot describe (one element off alignment) time the SIMT
-     kernel's register-staged loads beside it;
+     kernel's register-staged loads beside it, and a call with offsets that
+     cancel and the fp32 partial must give bit-identical out (rounded) and
+     lse. Then (dist a) both kernels with a position offset and the fp32
+     partial at the 32k ring's step shapes (a diagonal and a past step of
+     Llama-3-8B's heads, StarCoder2-7B's window-4096 partial step), each
+     against the plain version with its time, bound and SDPA's with the
+     step's mask; (dist b) ``ring_flash_attention`` through ``LocalRing(4)``
+     at S = 32,768, Llama-3-8B's heads (10 wgmma launches) and StarCoder2-7B's
+     with window 4096 (7), each within the bf16 tolerance of one kernel pass,
+     the ring's summed kernel time beside the single pass's, SDPA's and the
+     bound;
   4. the main path: ``build_sim("femnist", n_clients=1024, n_channels=8)``
      on the card, 5 QCCF rounds of ``run_compiled`` at the full FEMNIST
      CNN width (Z = 246,590), with ``aggregate`` launched once per round;
@@ -63,7 +73,11 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      run_host_policy on the card under faults and under the downlink;
   6. the wire entry point: ``ops.quantize_pytree_kernel`` on the FEMNIST
      parameters at q = 4 (``quantize_kernel_vec4``, ``dequantize_kernel_vec4``),
-     round-trip error against scale / (2^q - 1);
+     round-trip error against scale / (2^q - 1); then (dist d) NCCL in a world
+     of one: ``make_production_mesh(shape="1x1x1x1")``, the ring through
+     ``GroupRing`` bit-equal to the single pass, and the FEMNIST fleet after
+     ``shard_clients`` on a one-rank ``("data",)`` mesh: 3 greedy rounds
+     bit-equal to 3 unsharded ones, ``aggregate`` once per round;
   7. the object runtime (``object_runtime``, after the FEMNIST sim is
      freed): ``build_experiment(pol, task="femnist", beta=150, seed=1)``,
      the paper's Fig.-3 setting (10 clients on 10 channels, Z = 246,590),
@@ -88,7 +102,9 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      prefill and four decode steps, and a small-input reference (reduced
      Llama-3-8B, fp32, context 2560, the same weights on the card and on the
      CPU: identical greedy tokens, logits within 1e-4; its prefill runs the
-     SIMT flash kernel);
+     SIMT flash kernel); (dist c) the same weights at
+     ``INPUT_SHAPES["prefill_32k"]`` (32,768 positions, the batch cut from 32
+     to 1), 8 new tokens: 32 wgmma launches, prefill s, decode tok/s, peak GB;
   9. the other attention families, each model freed before the next:
      Granite-3.0 1B-A400M at full size (24 layers, 32 experts top-8; B = 4,
      context 4096, 32 new tokens; 24 causal wgmma launches in the prefill,
@@ -1511,11 +1527,12 @@ FLASH_SHAPES = [
 ]
 
 
-def visible_pairs(s: int, t: int, causal: bool, window: int) -> int:
-    """(q, k) pairs the mask admits: the work these inputs need."""
+def visible_pairs(s: int, t: int, causal: bool, window: int, off: int = 0) -> int:
+    """(q, k) pairs the mask admits, query i at i + off relative to key 0
+    (a ring step's offset): the work these inputs need."""
     import numpy as np
 
-    q = np.arange(s, dtype=np.int64)
+    q = np.arange(s, dtype=np.int64) + off
     hi = np.minimum(q, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
     lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, dtype=np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())
@@ -1526,22 +1543,23 @@ FLASH_KERNELS = {"bfloat16": ("wgmma", "flash_fwd_wgmma_kernel"),
                  "float32": ("simt", "flash_fwd_kernel")}
 
 
-def _sdpa(q, k, v, causal: bool, window: int):
+def _sdpa(q, k, v, causal: bool, window: int, off=None):
     """``scaled_dot_product_attention`` on (B, L, heads, hd) tensors: the
-    same function as the flash kernels (a window as a boolean mask). The
-    library yardstick, timed here only; the port never calls it."""
+    same function as the flash kernels (a window as a boolean mask; with a
+    ring step's ``off``, query i at i + off, the step's visibility as one).
+    The library yardstick, timed here only; the port never calls it."""
     import torch
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     mask = None
-    if window:
-        qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    if window or off is not None:
+        qpos = torch.arange(q.shape[1], device=q.device)[:, None] + (off or 0)
         kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-        mask = kpos > qpos - window
+        mask = kpos > qpos - window if window else torch.ones_like(kpos > qpos)
         if causal:
             mask = mask & (kpos <= qpos)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal and not window, enable_gqa=True)
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
 
 
 @phase("flash attention kernels vs plain on the card")
@@ -1564,6 +1582,15 @@ def flash_vs_plain():
                     f"flash {name} {dtype} did not take the {route} route: {fa.launches}")
             require(dtype != torch.float32 or fa._load_variant(q, k, v) == "async",
                     f"flash {name}: contiguous fp32 must take the async loads")
+            # offsets that cancel and the fp32 partial leave the numbers as
+            # the default entry's: out rounds to the same bits, lse is equal
+            out32, lse32 = fa.flash_attention(q, k, v, with_lse=True, q_offset=3 * s,
+                                              k_offset=3 * s, out_fp32=True, **kw)
+            require(torch.equal(out32.to(dtype), out) and torch.equal(lse32, lse),
+                    f"flash {name} {dtype}: the offset-0 fp32-partial call is not "
+                    "bit-identical to the default entry")
+            _unrounded(f"flash {name} {dtype}", out32)
+            del out32, lse32
             want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
             torch.cuda.synchronize()
             err, lse_err = _flash_errors(f"flash {name} {dtype}", out, lse, want, want_lse)
@@ -1584,7 +1611,8 @@ def flash_vs_plain():
                   f"{FLASH_TOL[str(dtype)[6:]][1]:g}), lse err {lse_err:.3e}; "
                   f"kernel {k_ms:.3f} ms (profiler), bound {b_ms:.3f} ms ({b_by}), "
                   f"plain {p_ms:.3f} ms (events), scaled_dot_product_attention "
-                  f"{lib_ms:.3f} ms (events)", flush=True)
+                  f"{lib_ms:.3f} ms (events); with offsets that cancel and the fp32 partial: "
+                  f"bit-identical out (rounded) and lse", flush=True)
             row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib_ms)
             if name == "llama3_8b serve":
@@ -1601,17 +1629,34 @@ def flash_vs_plain():
     return report
 
 
-def _flash_errors(label, out, lse, want, want_lse) -> tuple[float, float]:
-    """Require a flash result within FLASH_TOL of the plain version and its
-    lse within 2e-5; return both max abs errors."""
+def _out_error(label, out, want) -> float:
+    """Require a flash output within FLASH_TOL of its own type (an fp32
+    partial of bf16 inputs at the fp32 limit) of the plain version's;
+    return the max abs error."""
     rtol, atol = FLASH_TOL[str(out.dtype)[6:]]
     err = (out.float() - want.float()).abs()
     require(bool((err <= atol + rtol * want.float().abs()).all()),
             f"{label}: max abs err {err.max().item():.3e} over rtol {rtol:g} atol {atol:g}")
+    return err.max().item()
+
+
+def _flash_errors(label, out, lse, want, want_lse) -> tuple[float, float]:
+    """Require a flash result within FLASH_TOL of the plain version and its
+    lse within 2e-5; return both max abs errors."""
+    err = _out_error(label, out, want)
     lse_err = (lse - want_lse).abs()
     require(bool((lse_err <= 2e-5 + 2e-5 * want_lse.abs()).all()),
             f"{label}: lse max abs err {lse_err.max().item():.3e}")
-    return err.max().item(), lse_err.max().item()
+    return err, lse_err.max().item()
+
+
+def _unrounded(label, out32) -> None:
+    """Require an fp32 partial to hold values that bf16 cannot (one rounded
+    to bf16 before its fp32 store would pass any looser check)."""
+    import torch
+
+    require(bool((out32 != out32.to(torch.bfloat16).float()).any()),
+            f"{label}: the fp32 partial holds only bf16 values")
 
 
 def _simt_bf16_beside(q, k, v, kw, want, want_lse, bound_ms, sdpa_ms):
@@ -2062,6 +2107,254 @@ def serve_small_reference(arch: str) -> int:
     return simt_launches
 
 
+# ---------------------------------------------------------------- distribution
+
+RING_N = 4
+# ring-step shapes: one rank's shard of the 32k ring below (S_loc = 8192)
+# name, B, S_loc, H, KV, hd, causal, window, q_offset, k_offset
+OFFSET_SHAPES = [
+    ("llama3_8b ring diagonal (offset 0)", 1, 8192, 32, 8, 128, True, 0, 8192, 8192),
+    ("llama3_8b ring past (offset 8192)", 1, 8192, 32, 8, 128, True, 0, 8192, 0),
+    ("starcoder2_7b ring window partial (offset 8192, window 4096)", 1, 8192, 36, 4, 128,
+     True, 4096, 8192, 0),
+]
+RING_SEQ = 32_768
+# name, H, KV, window, launches of LocalRing(4) with dead steps skipped
+RING_CASES = [("llama3_8b", 32, 8, 0, 10), ("starcoder2_7b", 36, 4, 4096, 7)]
+
+
+@phase("dist (a): the flash kernels with a position offset and fp32 partials vs plain, at "
+       "the 32k ring's step shapes")
+def flash_offsets(report: dict):
+    """Each ring-step shape through the wgmma kernel (bf16) and the SIMT
+    kernel (fp32), ``q_offset``/``k_offset`` and ``out_fp32`` with the lse,
+    against the plain version within FLASH_TOL["float32"] (the partial is
+    fp32 whatever the input) and not bf16-rounded; rows with no visible key
+    write 0 and lse -1e30. Kernel, plain and SDPA (the step's
+    visibility as a boolean mask) times and the bound go into the flash rows'
+    ``shapes``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, b, s, h, kv, hd, causal, window, qo, ko in OFFSET_SHAPES:
+        base = [0.3 * torch.randn(shape, generator=gen, device="cuda")
+                for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+        pairs = visible_pairs(s, s, causal, window, qo - ko)
+        for dtype in (torch.bfloat16, torch.float32):
+            route, kernel = FLASH_KERNELS[str(dtype)[6:]]
+            q, k, v = (x.to(dtype) for x in base)
+            kw = dict(causal=causal, window=window, q_offset=qo, k_offset=ko, out_fp32=True)
+            fa.reset_launches()
+            out, lse = fa.flash_attention(q, k, v, with_lse=True, **kw)
+            require(fa.launches[f"flash_attention_{route}"] == 1,
+                    f"{name} {dtype}: not the {route} route: {fa.launches}")
+            want, want_lse = fa.flash_attention_plain(q, k, v, with_lse=True, **kw)
+            torch.cuda.synchronize()
+            require(out.dtype == torch.float32, f"{name} {dtype}: out is {out.dtype}")
+            err, lse_err = _flash_errors(f"{name} {dtype}", out, lse, want, want_lse)
+            _unrounded(f"{name} {dtype}", out)
+            rtol, atol = FLASH_TOL["float32"]
+            empty = want_lse <= -1e29
+            require(bool((out[empty] == 0).all() and (lse[empty] <= -1e29).all()),
+                    f"{name} {dtype}: a row with no visible key did not write 0 / -1e30")
+            b_ms, b_by = bound((q.numel() + k.numel() + v.numel()) * q.element_size()
+                               + out.numel() * 4, 4.0 * b * h * hd * pairs,
+                               BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            k_ms = kernel_ms(lambda: fa.flash_attention(q, k, v, **kw), kernel, iters=5)
+            p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2, warmup=1)
+            lib_ms = cuda_ms(_sdpa(q, k, v, causal, window, off=qo - ko), 5, warmup=1)
+            rows_empty = int(empty.sum().item())
+            print(f"flash {name} B={b} S_loc={s} H={h}/{kv} hd={hd} q_offset={qo} k_offset={ko}"
+                  f" {str(dtype)[6:]} ({route}, fp32 partial): max_abs_err={err:.3e}"
+                  f" (tol rtol {rtol:g} atol {atol:g}), not bf16-rounded, lse err {lse_err:.3e}, "
+                  f"{rows_empty} (row, head)s with no visible key; kernel {k_ms:.3f} ms "
+                  f"(profiler), bound {b_ms:.3f} ms ({b_by}, {pairs} visible pairs), plain "
+                  f"{p_ms:.3f} ms (events), scaled_dot_product_attention with the step's mask "
+                  f"{lib_ms:.3f} ms (events)", flush=True)
+            report[f"flash_attention_{route}"]["shapes"][name] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+            del q, k, v, out, lse, want, want_lse
+        del base
+    torch.cuda.empty_cache()
+
+
+@phase(f"dist (b): ring flash attention at S = {RING_SEQ} through LocalRing({RING_N}), bf16, "
+       "against one kernel pass")
+def ring_32k(report: dict) -> dict:
+    """Llama-3-8B's attention shape (B = 1, H = 32 / KV = 8, hd 128, causal)
+    and StarCoder2-7B's heads with its 4096 window at S = 32,768: the single
+    pass and the ring's merged output each within FLASH_TOL["bfloat16"] of
+    the plain version, the ring's of the single pass too, its wgmma
+    launches (dead steps skipped) counted from 0; the ring's summed kernel
+    time, its wall time with the merges, the single pass's, the plain
+    version's and SDPA's, and the bound. Returns each case's ring launches."""
+    import torch
+    from repro_torch.dist.ring import LocalRing, ring_flash_attention
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    paths = {}
+    for arch, h, kv, window, want_launches in RING_CASES:
+        q, k, v = ((0.3 * torch.randn((1, RING_SEQ, heads, 128), generator=gen, device="cuda"))
+                   .to(torch.bfloat16) for heads in (h, kv, kv))
+        single = fa.flash_attention(q, k, v, causal=True, window=window)
+        plain = lambda: fa.flash_attention_plain(q, k, v, causal=True, window=window)
+        want = plain()
+        single_err = _out_error(f"single pass {arch} S={RING_SEQ}", single, want)
+        ring = LocalRing(RING_N)
+        _reset_all_launches()
+        got = ring_flash_attention(q, k, v, ring=ring, causal=True, window=window)
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        require(launches["flash_attention_wgmma"] == want_launches
+                and launches["flash_attention"] == want_launches,
+                f"ring {arch}: launches {launches}, want {want_launches} through wgmma")
+        rtol, atol = FLASH_TOL["bfloat16"]
+        err = (got.float() - single.float()).abs()
+        require(bool((err <= atol + rtol * single.float().abs()).all()),
+                f"ring {arch}: max abs err {err.max().item():.3e} against the single pass")
+        ring_err = _out_error(f"ring {arch} S={RING_SEQ}", got, want)
+        pairs = visible_pairs(RING_SEQ, RING_SEQ, True, window)
+        b_ms, b_by = bound((q.numel() + 2 * k.numel() + q.numel()) * 2, 4.0 * h * 128 * pairs,
+                           BF16_FLOPS)
+        call = lambda: ring_flash_attention(q, k, v, ring=ring, causal=True, window=window)
+        # the mean launch of three rings times a ring's launches: their sum
+        ring_ms = kernel_ms(call, "flash_fwd_wgmma_kernel", iters=3) * want_launches
+        ring_wall = cuda_ms(call, 3, warmup=1)
+        single_ms = kernel_ms(lambda: fa.flash_attention(q, k, v, causal=True, window=window),
+                              "flash_fwd_wgmma_kernel", iters=3)
+        sdpa_ms = cuda_ms(_sdpa(q, k, v, True, window), 5, warmup=1)
+        p_ms = cuda_ms(plain, 1, warmup=0)
+        print(f"ring {arch} B=1 S={RING_SEQ} H={h}/{kv} hd=128 causal window={window}, "
+              f"LocalRing({RING_N}), S_loc={RING_SEQ // RING_N}: {want_launches} wgmma launches "
+              f"(dead steps skipped); max abs err vs the plain version: single pass "
+              f"{single_err:.3e}, ring {ring_err:.3e}; ring vs the single pass "
+              f"{err.max().item():.3e} (tol rtol {rtol:g} atol {atol:g}); ring kernels summed "
+              f"{ring_ms:.3f} ms (profiler), ring wall with merges {ring_wall:.3f} ms (events), "
+              f"single pass {single_ms:.3f} ms (profiler), ratio {ring_ms / single_ms:.3f}; "
+              f"plain {p_ms:.3f} ms (events); scaled_dot_product_attention "
+              f"{sdpa_ms:.3f} ms (events{', window as a mask' if window else ', is_causal'}); "
+              f"bound {b_ms:.3f} ms ({b_by})", flush=True)
+        report["flash_attention_wgmma"]["shapes"][f"{arch} S={RING_SEQ} single pass"] = dict(
+            max_abs_err=single_err, ms=single_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=sdpa_ms)
+        report["flash_attention_wgmma"]["shapes"][f"{arch} S={RING_SEQ} ring of {RING_N}"] = \
+            dict(max_abs_err=ring_err, max_abs_err_vs_single_pass=err.max().item(), ms=ring_ms,
+                 wall_ms=ring_wall, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=sdpa_ms, launches=want_launches)
+        paths[f"ring {arch} S={RING_SEQ}"] = launches["flash_attention_wgmma"]
+        del q, k, v, single, got, want
+    torch.cuda.empty_cache()
+    return paths
+
+
+@phase("dist (c): serve path: llama3_8b prefill_32k (batch cut from 32 to 1), 8 new tokens")
+def serve_32k(cfg, params) -> dict:
+    """``serve.generate`` on the Llama-3-8B weights of the serve phase at
+    ``INPUT_SHAPES["prefill_32k"]``'s 32,768 positions with the batch cut to
+    1: one wgmma flash launch per layer, counted from 0; prefill s, decode
+    tok/s, peak GB."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.config import INPUT_SHAPES
+
+    seq = INPUT_SHAPES["prefill_32k"].seq_len
+    new = 8
+    ctx = np.random.default_rng(3).integers(0, cfg.vocab, (1, seq))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    gen = serve.generate(cfg, params, ctx, new)
+    launches = _all_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(launches["flash_attention_wgmma"] == cfg.n_layers
+            and launches["flash_attention_simt"] == 0,
+            f"prefill_32k: flash launches {launches}, want {cfg.n_layers} through wgmma")
+    require(tuple(gen.tokens.shape) == (1, new + 1), f"tokens {tuple(gen.tokens.shape)}")
+    require(bool(((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()), "token out of range")
+    require(bool(torch.isfinite(gen.logits).all()), "non-finite logits")
+    tok_s = new / gen.decode_seconds
+    print(f"{SERVE_ARCH} 1 x {seq} tokens: prefill {gen.prefill_seconds:.4f} s "
+          f"({seq / gen.prefill_seconds:.0f} tok/s); decode {new} tokens: "
+          f"{gen.decode_seconds:.4f} s ({tok_s:.2f} tok/s, {gen.decode_seconds / new * 1e3:.2f} "
+          f"ms/step); peak memory {peak:.2f} GB (max_memory_allocated); {cfg.n_layers} wgmma "
+          f"flash launches; req0 tokens {gen.tokens[0].tolist()}", flush=True)
+    return {f"{SERVE_ARCH} prefill_32k": launches["flash_attention_wgmma"]}
+
+
+@phase("dist (d): NCCL in a world of one: the 1x1x1x1 mesh, GroupRing, the client-sharded "
+       "FEMNIST fleet")
+def nccl_world_of_one(sim) -> dict:
+    """``init_process_group("nccl")`` with one rank; ``make_production_mesh
+    (shape="1x1x1x1")`` on the card; ``ring_flash_attention`` through
+    ``GroupRing`` over its seq group bit-equal to the single pass; the
+    FEMNIST fleet sharded on a one-rank ``("data",)`` mesh running 3 greedy
+    rounds bit-equal to 3 unsharded rounds of the same sim, ``aggregate``
+    once per round. The group is destroyed at the end; nothing is caught.
+    Returns the ring's and the sharded rounds' launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.ring import GroupRing, ring_flash_attention
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_production_mesh, mesh_label
+
+    rounds = 3
+    base = sim.run_compiled(rounds, with_eval=False)
+    base_flat, base_s = sim.final_flat.clone(), sim.run_seconds
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_production_mesh(shape="1x1x1x1")
+            require(mesh_label(mesh) == "1x1x1x1"
+                    and tuple(mesh.mesh_dim_names) == ("pod", "data", "seq", "model"),
+                    f"mesh {mesh_label(mesh)} {mesh.mesh_dim_names}")
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            q, k, v = ((0.3 * torch.randn((1, 8192, heads, 128), generator=gen, device="cuda"))
+                       .to(torch.bfloat16) for heads in (32, 8, 8))
+            want = fa.flash_attention(q, k, v)
+            _reset_all_launches()
+            got = ring_flash_attention(q, k, v, ring=GroupRing(mesh.get_group("seq")))
+            torch.cuda.synchronize()
+            ring_launches = _all_launches()["flash_attention_wgmma"]
+            require(ring_launches == 1, f"GroupRing n=1: launches {_all_launches()}")
+            require(torch.equal(got, want), "GroupRing n=1 differs from the single pass")
+            del q, k, v, got, want
+            data_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            t0 = time.perf_counter()
+            sim.shard_clients(data_mesh)
+            torch.cuda.synchronize()
+            shard_s = time.perf_counter() - t0
+            require(sim.fleet.group is not None, "the one-rank data axis did not shard the fleet")
+            _reset_all_launches()
+            res = sim.run_compiled(rounds, with_eval=False)
+            run_s = sim.run_seconds
+            launches = _all_launches()
+            require(launches["aggregate"] == rounds, f"sharded rounds: launches {launches}")
+            fields = ("energy", "q_levels", "n_scheduled", "rates", "lambda1", "lambda2",
+                      "latency", "payload_bits")
+            for f in fields:
+                require(np.array_equal(getattr(res, f), getattr(base, f)),
+                        f"sharded {f} differs from the unsharded run")
+            require(torch.equal(sim.final_flat, base_flat),
+                    "sharded final parameters differ from the unsharded run")
+        finally:
+            dist.destroy_process_group()
+    print(f"nccl world of one: mesh 1x1x1x1 {tuple(mesh.mesh_dim_names)}; GroupRing (n=1) "
+          f"bit-equal to the single pass, 1 wgmma launch; shard_clients on a one-rank data "
+          f"axis in {shard_s:.3f} s, {rounds} greedy rounds bit-equal to the unsharded "
+          f"rounds ({len(fields)} outputs and the final parameters), {launches['aggregate']} "
+          f"aggregate launches, {run_s / rounds:.4f} s/round against "
+          f"{base_s / rounds:.4f} unsharded; group destroyed", flush=True)
+    return {"ring": ring_launches, "aggregate": launches["aggregate"]}
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_REDUCED_ARCHS = (SERVE_ARCH, GRANITE_ARCH, INTERNVL2_ARCH, SEAMLESS_ARCH, RWKV6_ARCH,
@@ -2344,6 +2637,8 @@ def main() -> int:
     wire_m = 2048                  # FEMNIST Z in 256-row tiles of 128 lanes
     report = kernels_vs_plain(zpad, wire_m)
     report.update(flash_vs_plain())
+    flash_offsets(report)
+    ring_launches = ring_32k(report)
     sim, main_launches = main_path()
     policies(sim)
     telemetry(sim)
@@ -2354,6 +2649,7 @@ def main() -> int:
     replay_reference()
     profile_round(sim)
     wire_launches = wire_entry(sim)
+    nccl_launches = nccl_world_of_one(sim)
     del sim                        # its 5.33 GB fleet tensor, before the 8B model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2362,6 +2658,7 @@ def main() -> int:
     two_layer_prefill(cfg, params, ctx)
     phase("profile of one serve prefill and 4 decode steps")(profile_serve)(
         SERVE_ARCH, cfg, params, ctx)
+    serve32_launches = serve_32k(cfg, params)
     del params
     _release()
     # each serve path's launches, its counts set to 0 just before it
@@ -2396,14 +2693,20 @@ def main() -> int:
         "flash_attention_simt": "src/repro/kernels/flash_attention.py:183",
     }
     # each kernel's launches in the runs of the paths that take it: the
-    # FEMNIST rounds, the wire entry point, the bf16 serve prefills (wgmma;
-    # RWKV6's has none), the fp32 prefills of the small-input references
-    # (simt); the flash rows sum their paths and list each
-    by_path = {"flash_attention_wgmma": {a: n["flash_attention_wgmma"]
-                                         for a, n in serve_launches.items()},
+    # FEMNIST rounds (unsharded, and sharded in the NCCL world of one), the
+    # wire entry point, the bf16 serve prefills (wgmma; RWKV6's has none),
+    # the 32k rings and the 32k prefill, the ring through NCCL, the fp32
+    # prefills of the small-input references (simt); rows with paths sum
+    # them and list each
+    by_path = {"aggregate": {"femnist greedy": main_launches["aggregate"],
+                             "femnist greedy, client-sharded (nccl, 1 rank)":
+                                 nccl_launches["aggregate"]},
+               "flash_attention_wgmma": {**{a: n["flash_attention_wgmma"]
+                                            for a, n in serve_launches.items()},
+                                         **ring_launches, **serve32_launches,
+                                         "GroupRing n=1 (nccl)": nccl_launches["ring"]},
                "flash_attention_simt": fp32_launches}
-    launches = {"aggregate": main_launches["aggregate"],
-                "quantize": wire_launches["quantize"],
+    launches = {"quantize": wire_launches["quantize"],
                 "dequantize": wire_launches["dequantize"],
                 **{k: sum(v.values()) for k, v in by_path.items()}}
     for name, paths in by_path.items():

@@ -51,15 +51,17 @@ LIBRARIES = {
     }),
     "flash_attention": ("fa_error_string", {
         # q, k, v, out, lse, q/k/v strides (batch, position, head),
-        # batch, s, t, h, kv heads, hd, causal, window, scale, is_bf16,
-        # async_loads (flash_attention._load_variant), device, stream
-        "fa_forward": (_PTR, _PTR, _PTR, _PTR, _PTR, *(_I64,) * 9, *(_INT,) * 8,
+        # batch, s, t, h, kv heads, hd, causal, window, offset, out_f32,
+        # scale, is_bf16, async_loads (flash_attention._load_variant),
+        # device, stream
+        "fa_forward": (_PTR, _PTR, _PTR, _PTR, _PTR, *(_I64,) * 9, *(_INT,) * 10,
                        ctypes.c_float, _INT, _INT, _INT, _PTR),
     }),
     "flash_attention_wgmma": ("faw_error_string", {
         # q, k, v, out, lse, 3 x 11 tensor-map plans (flash_attention.tma_plan),
-        # batch, s, t, h, kv heads, hd, causal, window, scale, device, stream
-        "faw_forward": (_PTR, _PTR, _PTR, _PTR, _PTR, ctypes.POINTER(_I64), *(_INT,) * 8,
+        # batch, s, t, h, kv heads, hd, causal, window, offset, out_f32,
+        # scale, device, stream
+        "faw_forward": (_PTR, _PTR, _PTR, _PTR, _PTR, ctypes.POINTER(_I64), *(_INT,) * 10,
                         ctypes.c_float, _INT, _PTR),
         # hd -> dynamic shared memory of one CTA, bytes
         "faw_shared_bytes": (_INT,),

@@ -93,6 +93,13 @@
 // no copy is required. Heaviest query tiles (last under causal masking) are
 // scheduled first: the grid is one-dimensional, position tile slowest and
 // counted down.
+//
+// Position offset: query position p sits at p + off relative to key 0
+// (off = q_offset - k_offset of a ring step), so every row's visible key
+// interval, the tile range and the edge test shift by off; the tile range
+// divides with floor_div, since an offset can make the dividend negative and
+// C++ '/' truncates toward zero. With out_f32 the output is written in fp32
+// whatever the input type (a ring step's partial, merged before rounding).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,6 +129,8 @@ struct Args {
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
   int s, t, h, kvh, hd, causal, window;
+  int off;       // position of query 0 minus that of key 0
+  int out_f32;   // 1: out is fp32 whatever T is
   int gc;        // heads of the group per CTA: min(g, kRows)
   int n_chunks;  // ceil(g / gc)
   int n_pos;     // positions per CTA: kRows / gc
@@ -148,6 +157,11 @@ __device__ __forceinline__ uint32_t raw_bits(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// floor(a / b) for b > 0 (C++ '/' truncates toward zero)
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
 
 __device__ __forceinline__ float exp2_sfu(float x) {
   float y;
@@ -299,8 +313,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Args a) {
   }
   if (tid < kRows) {
     // key k is visible to position qp iff k < t, k <= qp when causal and
-    // k > qp - window when windowed: row tid sees keys klo .. khi
-    const int qp = p_first + tid / a.gc;
+    // k > qp - window when windowed: row tid sees keys klo .. khi (qp
+    // counted from key 0)
+    const int qp = p_first + tid / a.gc + a.off;
     ms[tid] = kNegInf;
     ls[tid] = 0.0f;
     klo[tid] = a.window ? qp - a.window + 1 : 0;
@@ -311,8 +326,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Args a) {
   // with a visible (q, k) pair for some real position of this tile
   int lo = 0;
   int hi = (a.t + kBK - 1) / kBK;
-  if (a.causal) hi = min(hi, p_last / kBK + 1);
-  if (a.window) lo = max(0, (p_first - a.window + 1) / kBK);
+  if (a.causal) hi = min(hi, floor_div(p_last + a.off, kBK) + 1);
+  if (a.window) lo = max(0, floor_div(p_first + a.off - a.window + 1, kBK));
   const int total = max(hi - lo, 0) * L::CPT;
 
   float sc[8][8], acc[8][4 * L::NG];
@@ -384,8 +399,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Args a) {
         // and l live in shared memory, one value per row, read by the 16
         // lanes of the row and written by its lane tx = 0 (the registers go
         // to the two 8 x 8 tiles).
-        const bool edge = (a.causal && k_first + kBK - 1 > p_first) ||
-                          (a.window && k_first <= p_last - a.window) || (k_first + kBK > a.t);
+        const bool edge = (a.causal && k_first + kBK - 1 > p_first + a.off) ||
+                          (a.window && k_first <= p_last + a.off - a.window) ||
+                          (k_first + kBK > a.t);
         if (edge) {
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
@@ -488,20 +504,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Args a) {
   if constexpr (ASYNC) cp_async_wait<0>();  // no copy outlives the CTA
   __syncthreads();  // m and l of every row are written
 
-  // out = acc / max(l, 1e-30) in the input type; lse = m + log(max(l, 1e-30))
+  // out = acc / max(l, 1e-30) in the input type (or fp32); lse = m + log(max(l, 1e-30))
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = ty + 16 * i, pos = p_first + r / a.gc, jj = r % a.gc;
     if (r >= a.n_pos * a.gc || pos >= a.s || j0 + jj >= g) continue;
     const float den = fmaxf(ls[r], 1e-30f);
     const int64_t at = (static_cast<int64_t>(b) * a.s + pos) * a.h + kv_head * g + j0 + jj;
-    T* o = static_cast<T*>(a.o) + at * a.hd;
 #pragma unroll
     for (int gg = 0; gg < L::NG; ++gg)
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         const int d = gg * 64 + tx * 4 + cc;
-        if (d < a.hd) store_f(o + d, acc[i][gg * 4 + cc] / den);
+        if (d >= a.hd) continue;
+        const float x = acc[i][gg * 4 + cc] / den;
+        if (a.out_f32) store_f(static_cast<float*>(a.o) + at * a.hd + d, x);
+        else store_f(static_cast<T*>(a.o) + at * a.hd + d, x);
       }
     if (a.lse != nullptr && tx == 0) a.lse[at] = ms[r] + logf(den);
   }
@@ -537,7 +555,9 @@ extern "C" {
 
 // q (B, S, H, hd), k and v (B, T, KV, hd), each with unit stride on hd and
 // the given element strides on batch, position and head; out (B, S, H, hd)
-// contiguous in the input type; lse (B, S, H) contiguous fp32 or null.
+// contiguous in the input type, or fp32 when out_f32; lse (B, S, H)
+// contiguous fp32 or null. offset: the position of query 0 minus that of
+// key 0 (0 for a single pass; a ring step's q_offset - k_offset).
 // is_bf16: 1 for bf16 inputs and output, 0 for fp32. async_loads: 1 for the
 // cp.async variant (fp32, k and v 16-byte aligned with 16-byte strides and
 // hd % 4 == 0, as flash_attention._load_variant decides), 0 for the
@@ -547,8 +567,8 @@ int fa_forward(const void* q, const void* k, const void* v, void* out, void* lse
                int64_t k_sb, int64_t k_ss, int64_t k_sh,
                int64_t v_sb, int64_t v_ss, int64_t v_sh,
                int batch, int s, int t, int h, int kvh, int hd,
-               int causal, int window, float scale, int is_bf16, int async_loads,
-               int device, void* stream) {
+               int causal, int window, int offset, int out_f32, float scale, int is_bf16,
+               int async_loads, int device, void* stream) {
   if (batch < 1 || s < 1 || t < 0 || kvh < 1 || h % kvh != 0 || hd < 1 || hd > 128 ||
       window < 0 || static_cast<int64_t>(batch) * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -566,7 +586,7 @@ int fa_forward(const void* q, const void* k, const void* v, void* out, void* lse
   const int n_pos = kRows / gc;
   const Args a{q, k, v, out, static_cast<float*>(lse),
                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-               s, t, h, kvh, hd, causal, window,
+               s, t, h, kvh, hd, causal, window, offset, out_f32,
                gc, (g + gc - 1) / gc, n_pos, (s + n_pos - 1) / n_pos, scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)

@@ -45,6 +45,13 @@
 //   tiles (causal diagonal, window edge, ragged T) pay the element mask,
 //   with the finite NEG_INF = -1e30 and p-masking after the exp, so a fully
 //   masked row and an empty KV range write 0 and lse -1e30.
+// - Position offset: query row i sits at position i + off relative to key 0
+//   (off = q_offset - k_offset of a ring step), so key j is visible iff
+//   j <= i + off (causal) and j > i + off - window. Each thread shifts its
+//   rows once; the tile range and the edge test shift by off, the range by
+//   floor_div, since an offset can make the dividend negative and C++ '/'
+//   truncates toward zero. A row with no visible key in the launch keeps
+//   (m, l, acc) = (-1e30, 0, 0).
 // - O += P V: the fp32 score fragment of an m64 wgmma is, pair by pair, the
 //   bf16 A-operand register fragment of the next one. p is split into
 //   p_hi = bf16(p) and p_lo = bf16(p - p_hi), and both are issued against
@@ -57,8 +64,9 @@
 //   1.5x the tensor-core work (QK^T, then PV twice).
 // - Overlap: each consumer runs one tile ahead, issuing tile i's QK^T and
 //   tile i - 1's PV together and doing tile i's softmax while that PV runs.
-// - Epilogue: out = acc / max(l, 1e-30) rounded to bf16, lse =
-//   m + log(max(l, 1e-30)), from registers.
+// - Epilogue: out = acc / max(l, 1e-30) rounded to bf16, or kept fp32 in
+//   the OUT_F32 instantiations (a ring step's partial, merged before any
+//   rounding), lse = m + log(max(l, 1e-30)), from registers.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -96,11 +104,17 @@ struct Layout {
 };
 
 struct Params {
-  void* o;     // (B, S, H, hd) bf16, contiguous
+  void* o;     // (B, S, H, hd) contiguous: bf16, or fp32 (the OUT_F32 kernels)
   float* lse;  // (B, S, H) fp32, contiguous; nullptr: not asked for
   int s, t, h, kvh, hd, causal, window;
+  int off;     // position of query row 0 minus that of key 0
   float scale;
 };
+
+// floor(a / b) for b > 0 (C++ '/' truncates toward zero)
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -235,6 +249,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 64) wgmma_rs_n64(d, a, db); else wgmma_rs_n128(d, a, db);
 }
 
+// qpos: the query's position counted from key 0 (its row + a.off)
 __device__ __forceinline__ bool visible(const Params& a, int qpos, int kpos) {
   return kpos < a.t && (!a.causal || kpos <= qpos) && (!a.window || kpos > qpos - a.window);
 }
@@ -287,19 +302,19 @@ __device__ __forceinline__ void issue_pv(float (&acc)[HDP / 2], const uint32_t (
 // Mask one tile of raw scores and run the online softmax on it, in place:
 // sc becomes p. Updates the running max m (of the scaled scores) and this
 // thread's share of the row sums l, and returns the accumulator's
-// correction factors. Score element sc[4j + 2r + e] is row row0 + 8r, key
-// k_first + 8j + col0 + e. The scale is applied inside the exponent,
+// correction factors. Score element sc[4j + 2r + e] is the query at
+// position pos0 + 8r (counted from key 0), key k_first + 8j + col0 + e. The scale is applied inside the exponent,
 // p = 2^(s * scale * log2 e - m log2 e): scaling by a positive constant
 // keeps each row's max where it is, and m is kept in the scaled units.
 __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], const Params& a, bool edge,
-                                             int row0, int k_first, int col0, float (&m)[2],
+                                             int pos0, int k_first, int col0, float (&m)[2],
                                              float (&l)[2], float (&corr)[2]) {
   float rmax[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (edge && !visible(a, row0 + 8 * (e / 2), k_first + 8 * j + col0 + (e & 1)))
+      if (edge && !visible(a, pos0 + 8 * (e / 2), k_first + 8 * j + col0 + (e & 1)))
         sc[4 * j + e] = kNegInf;
       rmax[e / 2] = fmaxf(rmax[e / 2], sc[4 * j + e]);
     }
@@ -320,7 +335,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], const Params&
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float p = exp2_sfu(fmaf(sc[4 * j + e], scale_log2, -m_log2[e / 2]));
-      if (edge && !visible(a, row0 + 8 * (e / 2), k_first + 8 * j + col0 + (e & 1))) p = 0.0f;
+      if (edge && !visible(a, pos0 + 8 * (e / 2), k_first + 8 * j + col0 + (e & 1))) p = 0.0f;
       sc[4 * j + e] = p;
       rsum[e / 2] += p;
     }
@@ -345,12 +360,30 @@ __device__ __forceinline__ void split_p(const float (&p)[kBK / 2], uint32_t (&p_
     }
 }
 
-template <int HDP>
+// The epilogue's output element and its stores: fp32 as is (a ring step's
+// partial), bf16 rounded to nearest; a pair of adjacent columns as one store.
+template <bool F32> struct OutType { using type = __nv_bfloat16; };
+template <> struct OutType<true> { using type = float; };
+__device__ __forceinline__ void store_one(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* o, float x) { *o = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store_pair(float* o, float x0, float x1) {
+  *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x0, x1);
+}
+
+// OUT_F32: out is written in fp32 (a ring step's partial), else in bf16.
+// OFFSET: a.off may be nonzero; the instantiations without it compile the
+// offset out (a runtime offset slowed the kernel at Llama's shape).
+template <int HDP, bool OUT_F32, bool OFFSET>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const Params a) {
   using L = Layout<HDP>;
   extern __shared__ uint8_t smem_raw[];
+  const int off = OFFSET ? a.off : 0;
+  using OutT = typename OutType<OUT_F32>::type;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sk = base + L::kK, sv = base + L::kV;
   const uint32_t bar_q = base + L::kBar;
@@ -370,8 +403,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
   // walk is key tile hi - 1 - i, in ring stage i % kStages
   int lo = 0;
   int hi = (a.t + kBK - 1) / kBK;
-  if (a.causal) hi = min(hi, q_last / kBK + 1);
-  if (a.window) lo = max(0, (q_first - a.window + 1) / kBK);
+  if (a.causal) hi = min(hi, floor_div(q_last + off, kBK) + 1);
+  if (a.window) lo = max(0, floor_div(q_first + off - a.window + 1, kBK));
   const int n_tiles = max(hi - lo, 0);
 
   const int wg = threadIdx.x / 128;
@@ -417,14 +450,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int qw_first = q_first + 64 * wg;            // this warpgroup's rows
-    const int qw_last = qw_first + 63;
-    const int row0 = qw_first + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
-    const int col0 = 2 * (lane % 4);                   // and columns col0, col0 + 1 of each 8
+    // this thread's rows row0 = qw_first + 16 warp + lane / 4 and row0 + 8, at
+    // positions pos0 = row0 + off and pos0 + 8 counted from key 0 (row0 is
+    // not kept live through the walk), and columns col0, col0 + 1 of each 8
+    const int pos0 = qw_first + 16 * warp + lane / 4 + off;
+    const int col0 = 2 * (lane % 4);
+    const int pos_first = qw_first + off;
+    const int pos_last = pos_first + 63;
     const uint32_t q_rows = sq + 64 * wg * 128;
     // a tile that is not wholly visible to every row pays the element mask
     auto edge = [&](int k_first) {
-      return (a.causal && k_first + kBK - 1 > qw_first) ||
-             (a.window && k_first <= qw_last - a.window) || (k_first + kBK > a.t);
+      return (a.causal && k_first + kBK - 1 > pos_first) ||
+             (a.window && k_first <= pos_last - a.window) || (k_first + kBK > a.t);
     };
 
     // accumulator fragment of m64 x n(HDP): acc[4j + 2r + e] is row row0 + 8r,
@@ -447,7 +484,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
       issue_qk<HDP>(sc, q_rows, sk);
       wgmma_wait<0>();
       fence_regs(sc);
-      softmax_tile(sc, a, edge(k_first), row0, k_first, col0, m, l, corr);
+      softmax_tile(sc, a, edge(k_first), pos0, k_first, col0, m, l, corr);
       split_p(sc, p_hi, p_lo);
     }
     for (int i = 1; i < n_tiles; ++i) {
@@ -465,7 +502,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
       issue_pv<HDP>(acc, p_hi, p_lo, sv + prev * L::kTileBytes);
       wgmma_wait<1>();  // the scores are in; the PV may still run
       fence_regs(sc);
-      softmax_tile(sc, a, edge(k_first), row0, k_first, col0, m, l, corr);
+      softmax_tile(sc, a, edge(k_first), pos0, k_first, col0, m, l, corr);
       wgmma_wait<0>();
       fence_regs(acc);
       bar_arrive(empty(prev));
@@ -488,27 +525,27 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
       bar_arrive(empty(st));
     }
 
-    // out = acc / max(l, 1e-30) in bf16; lse = m + log(max(l, 1e-30))
+    // out = acc / max(l, 1e-30) in bf16 (or fp32); lse = m + log(max(l, 1e-30))
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float lr = l[r];
       lr += __shfl_xor_sync(0xffffffffu, lr, 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      const int row = row0 + 8 * r;
+      const int row = pos0 - off + 8 * r;
       if (row >= a.s) continue;
       const float den = fmaxf(lr, 1e-30f);
       const int64_t at = (static_cast<int64_t>(b) * a.s + row) * a.h + hh;
-      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + at * a.hd;
+      OutT* o = static_cast<OutT*>(a.o) + at * a.hd;
 #pragma unroll
       for (int j = 0; j < HDP / 8; ++j) {
         const int col = 8 * j + col0;
         const float x0 = acc[4 * j + 2 * r] / den;
         const float x1 = acc[4 * j + 2 * r + 1] / den;
         if (col + 1 < a.hd && (a.hd & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(x0, x1);
+          store_pair(o + col, x0, x1);
         } else {
-          if (col < a.hd) o[col] = __float2bfloat16_rn(x0);
-          if (col + 1 < a.hd) o[col + 1] = __float2bfloat16_rn(x1);
+          if (col < a.hd) store_one(o + col, x0);
+          if (col + 1 < a.hd) store_one(o + col + 1, x1);
         }
       }
       if (a.lse != nullptr && lane % 4 == 0) a.lse[at] = m[r] + logf(den);
@@ -563,16 +600,26 @@ int encode(CUtensorMap* map, const void* ptr, const int64_t* plan, int rows) {
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
 }
 
-template <int HDP>
+template <int HDP, bool OUT_F32, bool OFFSET>
 cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
                    const Params& a, int batch, cudaStream_t stream) {
   constexpr int smem = Layout<HDP>::kAlloc;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HDP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HDP, OUT_F32, OFFSET>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.s + kBQ - 1) / kBQ, batch * a.h);
-  flash_fwd_wgmma_kernel<HDP><<<grid, kThreads, smem, stream>>>(q, k, v, a);
+  flash_fwd_wgmma_kernel<HDP, OUT_F32, OFFSET><<<grid, kThreads, smem, stream>>>(q, k, v, a);
   return cudaGetLastError();
+}
+
+template <int HDP>
+cudaError_t launch_hd(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
+                      const Params& a, int batch, bool out_f32, cudaStream_t stream) {
+  if (out_f32)
+    return a.off ? launch<HDP, true, true>(q, k, v, a, batch, stream)
+                 : launch<HDP, true, false>(q, k, v, a, batch, stream);
+  return a.off ? launch<HDP, false, true>(q, k, v, a, batch, stream)
+               : launch<HDP, false, false>(q, k, v, a, batch, stream);
 }
 
 // The library keeps its own (static) CUDA runtime, whose current device is
@@ -590,10 +637,13 @@ extern "C" {
 
 // q (B, S, H, hd), k and v (B, T, KV, hd) in bf16, each described by its
 // tensor-map plan (kMapArgs int64 each, q then k then v: see encode); out
-// (B, S, H, hd) contiguous bf16; lse (B, S, H) contiguous fp32 or null.
+// (B, S, H, hd) contiguous, bf16, or fp32 when out_f32; lse (B, S, H)
+// contiguous fp32 or null. offset: the position of query row 0 minus that
+// of key 0 (0 for a single pass; a ring step's q_offset - k_offset).
 int faw_forward(const void* q, const void* k, const void* v, void* out, void* lse,
                 const int64_t* plans, int batch, int s, int t, int h, int kvh, int hd,
-                int causal, int window, float scale, int device, void* stream) {
+                int causal, int window, int offset, int out_f32, float scale, int device,
+                void* stream) {
   if (batch < 1 || s < 1 || t < 0 || kvh < 1 || h % kvh != 0 || hd < 1 || hd > 128 ||
       window < 0 || static_cast<int64_t>(batch) * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -605,10 +655,11 @@ int faw_forward(const void* q, const void* k, const void* v, void* out, void* ls
   if (err == 0 && t > 0) err = encode(&tm_v, v, plans + 2 * kMapArgs, kBK);
   if (err != 0) return err;
   if (t == 0) tm_k = tm_v = tm_q;  // no key tile is ever loaded
-  const Params a{out, static_cast<float*>(lse), s, t, h, kvh, hd, causal, window, scale};
+  const Params a{out, static_cast<float*>(lse), s, t, h, kvh, hd, causal, window, offset,
+                 scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cerr = hd <= 64 ? launch<64>(tm_q, tm_k, tm_v, a, batch, st)
-                  : launch<128>(tm_q, tm_k, tm_v, a, batch, st);
+  cerr = hd <= 64 ? launch_hd<64>(tm_q, tm_k, tm_v, a, batch, out_f32, st)
+                  : launch_hd<128>(tm_q, tm_k, tm_v, a, batch, out_f32, st);
   return static_cast<int>(cerr);
 }
 

@@ -12,7 +12,12 @@ The port of ``repro.kernels.flash_attention``'s Pallas TPU kernel
 with causal and/or sliding-window masking (a key k is visible to query q iff
 ``k <= q`` when causal and ``k > q - window`` when ``window > 0``), online
 softmax in fp32 with the finite ``NEG_INF = -1e30`` and p-masking, so a
-fully masked row writes 0.
+fully masked row writes 0 (and lse -1e30). Positions are global when the
+Python ints ``q_offset`` and ``k_offset`` are given: query i sits at
+``q_offset + i`` and key j at ``k_offset + j`` (a ring step's shards, as in
+``flash_attention_xla(q_offset=, k_offset=)``); ``out_fp32`` writes ``out``
+in fp32 (``acc / max(l, 1e-30)`` unrounded), the normalized partial a ring
+merges before its one rounding.
 
 ``flash_attention_plain`` is the XLA twin's block schedule and math in
 torch (``flash_attention_xla``: GQA by row folding, fully visible blocks
@@ -41,8 +46,8 @@ the two routes meet the same tolerances against the plain version.
 ``launches`` counts kernel launches only: ``"flash_attention"`` in total and
 one counter per route. Neither kernel has a backward (nor has the Pallas
 kernel): under grad the wrapper raises on every device
-(``build.refuse_grad``), and training takes chunked attention. The ring variant and ``merge_partials`` belong to
-the distribution work.
+(``build.refuse_grad``), and training takes chunked attention. The ring
+variant and ``merge_partials`` live in ``repro_torch.dist.ring``.
 """
 from __future__ import annotations
 
@@ -139,6 +144,23 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
 
 
+# the kernels hold positions, offsets and the window's edge in int32
+_POS_LIMIT = 2**31 - 4 * 128
+
+
+def _check_offsets(q: torch.Tensor, k: torch.Tensor, window: int, q_offset, k_offset) -> None:
+    """Offsets are Python ints (static, as the XLA twin's ring-free path
+    takes them), and every position the kernels form fits int32."""
+    for name, off in (("q_offset", q_offset), ("k_offset", k_offset)):
+        if not isinstance(off, int) or isinstance(off, bool):
+            raise TypeError(f"flash_attention: {name} must be a Python int, got {type(off)}")
+    if abs(q_offset - k_offset) + max(q.shape[1], k.shape[1]) + window >= _POS_LIMIT:
+        raise ValueError(
+            f"flash_attention: q_offset - k_offset = {q_offset - k_offset} with "
+            f"{q.shape[1]} queries, {k.shape[1]} keys and window {window} overflows "
+            "int32 positions")
+
+
 def _pad_positions(x: torch.Tensor, n_blocks: int, block: int) -> torch.Tensor:
     """(B, L, ...) -> zero-padded to n_blocks * block positions."""
     pad = n_blocks * block - x.shape[1]
@@ -151,6 +173,7 @@ def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block_q: int = DEFAULT_BLOCK, block_k: int = DEFAULT_BLOCK,
     causal: bool = True, window: int = 0, with_lse: bool = False,
+    q_offset: int = 0, k_offset: int = 0, out_fp32: bool = False,
 ):
     """Plain torch flash attention on any device: the XLA twin's schedule.
 
@@ -160,9 +183,12 @@ def flash_attention_plain(
     ``kv_block_range`` run first without a mask, then the edge blocks with
     the element mask and p-masking, in fp32 (bf16 operands widen exactly).
     S and T need not divide the blocks: padded keys are masked, padded
-    queries dropped.
+    queries dropped. ``q_offset``/``k_offset`` place the queries and keys
+    at global positions (static ints, as the XLA twin's static offsets);
+    ``out_fp32`` returns ``out`` in fp32.
     """
     _check_shapes(q, k, v, window)
+    _check_offsets(q, k, window, q_offset, k_offset)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -192,18 +218,19 @@ def flash_attention_plain(
 
     parts = []
     for qi in range(nq):
-        q_first = qi * block_q
+        q_first = q_offset + qi * block_q
         q_last = q_first + block_q - 1
         q_pos = torch.arange(q_first, q_first + block_q, device=dev)
 
         def is_full(kj):
-            k_first = kj * block_k
+            k_first = k_offset + kj * block_k
             k_last = k_first + block_k - 1
-            return (k_last < t and (not causal or k_last <= q_first)
+            return ((kj + 1) * block_k <= t and (not causal or k_last <= q_first)
                     and (not window or k_first > q_last - window))
 
         lo, hi = kv_block_range(qi, block_q=block_q, block_k=block_k, nk=nk,
-                                causal=causal, window=window)
+                                causal=causal, window=window,
+                                q_offset=q_offset, k_offset=k_offset)
         carry = (torch.full((b, kvh, g * block_q), NEG_INF, device=dev),
                  torch.zeros((b, kvh, g * block_q), device=dev),
                  torch.zeros((b, kvh, g * block_q, hd), device=dev))
@@ -212,8 +239,9 @@ def flash_attention_plain(
                 carry = step(qf[:, qi], kj, carry, None)
         for kj in range(lo, hi):
             if not is_full(kj):
-                k_pos = torch.arange(kj * block_k, (kj + 1) * block_k, device=dev)
-                mask = k_pos[None, :] < t
+                k_idx = torch.arange(kj * block_k, (kj + 1) * block_k, device=dev)
+                k_pos = k_offset + k_idx
+                mask = k_idx[None, :] < t
                 if causal:
                     mask = mask & (k_pos[None, :] <= q_pos[:, None])
                 if window:
@@ -233,7 +261,9 @@ def flash_attention_plain(
     m = stitch([p[0] for p in parts])
     l = torch.clamp(stitch([p[1] for p in parts]), min=1e-30)
     acc = stitch([p[2] for p in parts])
-    out = (acc / l[..., None]).to(q.dtype)
+    out = acc / l[..., None]
+    if not out_fp32:
+        out = out.to(q.dtype)
     if with_lse:
         return out, m + torch.log(l)
     return out
@@ -325,19 +355,26 @@ def _load_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int = 0, with_lse: bool = False,
+    q_offset: int = 0, k_offset: int = 0, out_fp32: bool = False,
 ):
     """Flash attention (module docstring): a CUDA kernel for tensors on
     the card (fp32 or bf16, hd <= 128; anything else raises), the plain
-    version for tensors on the CPU. Forward only: under grad it raises
-    (``build.refuse_grad``) on every device."""
+    version for tensors on the CPU. ``q_offset``/``k_offset`` (Python ints)
+    place queries and keys at global positions; the kernels take their
+    difference. ``out_fp32`` writes ``out`` in fp32. Forward only: under
+    grad it raises (``build.refuse_grad``) on every device."""
     build.refuse_grad("flash_attention", FLASH_GRAD_ROUTE, q, k, v)
     _check_shapes(q, k, v, window)
+    _check_offsets(q, k, window, q_offset, k_offset)
     if not build.route("flash_attention", q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, window=window, with_lse=with_lse)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, with_lse=with_lse,
+                                     q_offset=q_offset, k_offset=k_offset, out_fp32=out_fp32)
     _check_kernel_inputs(q, k, v)
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    off = q_offset - k_offset
+    out = torch.empty((b, s, h, hd), dtype=torch.float32 if out_fp32 else q.dtype,
+                      device=q.device)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel():
         route = _kernel_route(q, k, v)
@@ -351,7 +388,7 @@ def flash_attention(
                                               *tma_plan(v, WGMMA_BLOCK_K))
                 err = build.library(lib_name).faw_forward(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, plans,
-                    b, s, t, h, kvh, hd, int(causal), int(window), scale,
+                    b, s, t, h, kvh, hd, int(causal), int(window), off, int(out_fp32), scale,
                     q.device.index or 0, build.stream(q.device),
                 )
             else:
@@ -360,7 +397,7 @@ def flash_attention(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
                     q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
                     v.stride(0), v.stride(1), v.stride(2),
-                    b, s, t, h, kvh, hd, int(causal), int(window), scale,
+                    b, s, t, h, kvh, hd, int(causal), int(window), off, int(out_fp32), scale,
                     int(q.dtype == torch.bfloat16), int(_load_variant(q, k, v) == "async"),
                     q.device.index or 0, build.stream(q.device),
                 )

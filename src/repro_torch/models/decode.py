@@ -20,6 +20,13 @@ sliding window when the config sets one. RoPE is applied to keys at write
 time with absolute positions, so ring overwrites need no re-rotation. The
 vlm family's positions count its patch tokens first.
 
+Under a sequence-parallel plan (``models.model``'s docstring) the dense
+family's :func:`prefill` runs each rank's shard of the context, gathers
+each layer's k/v over the seq group into the cache (the cache's positions
+are never sharded, as the JAX package's ``cache_seq`` rule says), and takes
+the last logits from the last seq rank: every rank leaves with the whole
+cache and the same logits, and decoding runs replicated.
+
 Unlike the JAX functions, which return a new cache, :func:`decode_step`
 and :func:`encode` update the cache in place (and return the same dict):
 at Llama-3-8B's size a copy of the cache per token would cost 2.2 GB of
@@ -35,9 +42,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers, mamba2, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
-    Params, _cross_attention, _forward_encoder, _mamba_block, _merge_heads, _proj_heads,
-    _rwkv_block, _self_attention, _shared_attn_block, embed_inputs, ffn, layer_params,
-    lm_head, rwkv_state, shared_window,
+    _SEQ_SHARD, Params, _cross_attention, _forward_encoder, _holding, _mamba_block,
+    _merge_heads, _positions, _proj_heads, _rwkv_block, _self_attention, _shared_attn_block,
+    embed_inputs, ffn, from_last_shard, gather_seq, layer_params, lm_head, rwkv_state,
+    seq_shard, shared_window,
 )
 
 Cache = dict
@@ -246,14 +254,28 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     The recurrent families keep each layer's final states, from the
     chunked scans when S is a multiple of their chunk.
     """
+    shard, batch = seq_shard(cfg, batch)
     if cfg.family == "encdec":
         src = batch["src_embeds"]
         b = src.shape[0]
         cache = encode(cfg, params, init_cache(cfg, b, seq_len, device=src.device), src)
         bos = torch.zeros((b,), dtype=torch.int64, device=src.device)
         return decode_step(cfg, params, cache, bos)
+    with _holding(shard):
+        return _prefill_decoder(cfg, params, batch, seq_len)
+
+
+def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
+                     seq_len: int) -> tuple[torch.Tensor, Cache]:
+    """:func:`prefill` of every family but encdec. In a sequence-parallel
+    prefill (dense only) ``batch`` holds this rank's shard of the tokens
+    and the active ``_SEQ_SHARD`` says which."""
+    shard = _SEQ_SHARD.get()
     h = embed_inputs(cfg, params, batch)
     b, s = h.shape[:2]
+    positions = _positions(h)
+    if shard is not None:
+        s *= shard.n                       # the context's length
     dev = h.device
     cache = init_cache(cfg, b, seq_len, device=dev)
     cache["pos"] = s
@@ -267,7 +289,6 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     m_keep = min(lc, s)
     kept = torch.arange(s - m_keep, s, device=dev)
     slots = kept % lc
-    positions = torch.arange(s, device=dev)
     cache["slot_pos"][slots] = kept.to(torch.int32)
     if cfg.family == "hybrid":
         for j in range(cfg.n_layers // cfg.attn_every):
@@ -287,6 +308,9 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
         h = h + a
         m, _ = ffn(cfg, lp, layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
         h = h + m
+        if shard is not None:
+            k, v = gather_seq(k, shard), gather_seq(v, shard)
         cache["k"][i][:, slots] = k[:, s - m_keep:]
         cache["v"][i][:, slots] = v[:, s - m_keep:]
-    return _logits(cfg, params, h[:, -1:, :]), cache
+    return from_last_shard(_logits(cfg, params, h[:, -1:, :]), shard), cache
+

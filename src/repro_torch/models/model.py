@@ -26,13 +26,27 @@ cross-entropy in sequence chunks (:func:`_chunked_ce`, no (B, S, V)
 logits), each layer (the hybrid family: each super-block) recomputed in
 backward when ``remat`` is on, as ``jax.checkpoint`` on the scan body does.
 Training takes dense or chunked attention; the flash kernels have no
-backward and refuse a call under grad. The ring variant of the flash
-dispatch belongs to the distribution work.
+backward and refuse a call under grad.
+
+Sequence parallelism: under ``dist.activations.activation_mesh(plan)``
+whose ``seq`` axis resolves to n > 1 ranks for the context's length S,
+:func:`forward_logits` and ``decode.prefill`` of the dense family take the
+whole batch on every rank, keep this rank's shard of S / n positions
+(``plan.local_slice``), run the layers on it with global RoPE positions,
+and run attention as the ring over the mesh's ``seq`` group
+(``dist.ring.ring_flash_attention``, each step through the flash kernels);
+the last position's logits come from the last seq rank. This needs
+``attn_impl="flash"``, S above 2,048 and ``S % (n chunk_size) == 0`` (the
+JAX package's ring test); anything else under such a plan raises, as do
+the other families and a ``model`` axis above 1 (heads on ``model`` are
+not ported).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import threading
-from typing import Optional, Union
+from typing import Any, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -40,6 +54,9 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
+from repro_torch.dist.activations import current_activation_plan
+from repro_torch.dist.plan import mesh_coord
+from repro_torch.dist.ring import GroupRing, ring_flash_attention
 from repro_torch.models import layers, mamba2, moe, rwkv6
 from repro_torch.models.config import ModelConfig
 
@@ -284,11 +301,100 @@ def _merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(o.reshape(o.shape[:-2] + (h * k,)), w.to(o.dtype).reshape(h * k, d))
 
 
+# =====================================================================
+# sequence parallelism
+# =====================================================================
+
+class SeqShard(NamedTuple):
+    """This rank's part of a sequence-parallel forward: shard ``idx`` of
+    ``n`` over the process group ``group``."""
+    n: int
+    idx: int
+    group: Any
+
+
+_SEQ_SHARD: contextvars.ContextVar[Optional[SeqShard]] = contextvars.ContextVar(
+    "repro_torch_seq_shard", default=None)
+
+
+def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[SeqShard], dict]:
+    """Under an active plan whose ``seq`` axis resolves to n > 1 ranks for
+    the batch's S positions: this rank's :class:`SeqShard` and its slice of
+    ``batch["tokens"]``; else ``(None, batch)``. Raises where the port has
+    no sequence-parallel path (module docstring)."""
+    plan = current_activation_plan()
+    if plan is None or plan.axis_size("seq") == 1:
+        return None, batch
+    if cfg.family != "dense":
+        raise ValueError(
+            f"the {cfg.family} family has no sequence-parallel path (its scans or routing "
+            "carry state across the sequence); run it under a plan without a seq axis")
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    ent = plan.resolve(s, "seq")
+    if not isinstance(ent, str) or plan.axis_size(ent) == 1:
+        return None, batch           # not sharded: every rank runs the whole sequence
+    n = plan.axis_size(ent)
+    if plan.axis_size("model") > 1:
+        raise ValueError(
+            "a model axis above 1 under a seq plan puts heads on 'model': distribution "
+            "part B2 (tensor parallelism), not ported")
+    if not (cfg.attn_impl == "flash" and s > DENSE_ATTN_MAX_SEQ
+            and s % (n * cfg.chunk_size) == 0):
+        raise ValueError(
+            f"a sequence-parallel forward over {n} ranks takes the ring: it needs "
+            f'attn_impl="flash", S > {DENSE_ATTN_MAX_SEQ} and S % (n * chunk_size) == 0, '
+            f"got attn_impl={cfg.attn_impl!r}, S={s}, chunk_size={cfg.chunk_size}")
+    spec = plan.spec(tokens.shape, ("act_batch", "seq"), align="left")
+    local = tokens[plan.local_slice(spec, tokens.shape, mesh_coord(plan.mesh))]
+    shard = SeqShard(n, plan.mesh.get_local_rank(ent), plan.mesh.get_group(ent))
+    return shard, {**batch, "tokens": local}
+
+
+@contextlib.contextmanager
+def _holding(shard: Optional[SeqShard]):
+    token = _SEQ_SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _SEQ_SHARD.reset(token)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """The global positions of x's (B, S, ...) rows: ``arange(S)``, or this
+    rank's ``idx * S_loc + arange(S_loc)`` in a sequence-parallel forward."""
+    shard = _SEQ_SHARD.get()
+    start = 0 if shard is None else shard.idx * x.shape[1]
+    return torch.arange(start, start + x.shape[1], device=x.device)
+
+
+def gather_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """All shards of x (B, S_loc, ...) in sequence order, on every rank."""
+    parts = [torch.empty_like(x) for _ in range(shard.n)]
+    torch.distributed.all_gather(parts, x.contiguous(), group=shard.group)
+    return torch.cat(parts, dim=1)
+
+
+def from_last_shard(x: torch.Tensor, shard: Optional[SeqShard]) -> torch.Tensor:
+    """x as the last seq rank holds it (the sequence's last position),
+    broadcast to every rank of the group."""
+    if shard is not None:
+        x = x.contiguous()
+        src = torch.distributed.get_global_rank(shard.group, shard.n - 1)
+        torch.distributed.broadcast(x, src=src, group=shard.group)
+    return x
+
+
 def _flash_dispatch(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int) -> torch.Tensor:
-    """``attn_impl="flash"``: single-device blockwise flash attention. The
-    kernel picks its own tiles, so the config's chunk size only gates the
-    dispatch (``s % chunk_size == 0``). The ring variant on a sequence-sharded mesh is ROADMAP Queue 1 item 9."""
+    """``attn_impl="flash"``: single-device blockwise flash attention, or
+    the ring over the seq group in a sequence-parallel forward (each rank
+    holds its q/k/v shard). The kernel picks its own tiles, so the
+    config's chunk size only gates the dispatch."""
+    shard = _SEQ_SHARD.get()
+    if shard is not None:
+        return ring_flash_attention(q, k, v, ring=GroupRing(shard.group), causal=causal,
+                                    window=window)
     return layers.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -306,7 +412,9 @@ def _self_attention(
     k = layers.apply_rope(_proj_heads(x, p["wk"]), positions, cfg.rope_theta)
     v = _proj_heads(x, p["wv"])
     s = x.shape[1]
-    if s <= DENSE_ATTN_MAX_SEQ or s % cfg.chunk_size != 0:
+    if _SEQ_SHARD.get() is not None:   # a ring shard: seq_shard gated the whole sequence
+        o = _flash_dispatch(cfg, q, k, v, causal=causal, window=window)
+    elif s <= DENSE_ATTN_MAX_SEQ or s % cfg.chunk_size != 0:
         o = layers.dense_attention(q, k, v, causal=causal, window=window)
     elif cfg.attn_impl == "flash":
         o = _flash_dispatch(cfg, q, k, v, causal=causal, window=window)
@@ -330,7 +438,7 @@ def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
 
 def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                  causal_skip: bool = False) -> tuple[torch.Tensor, dict]:
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = _positions(x)
     h, _, _ = _self_attention(
         cfg, p["attn"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps),
         causal=True, positions=positions, causal_skip=causal_skip,
@@ -517,7 +625,15 @@ def lm_head(cfg: ModelConfig, params: Params) -> dict:
 def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     """Last-position logits (B, V) fp32 of ``batch``: ``tokens`` (B, S),
     with ``vis_embeds`` (B, n_vis, D) for vlm, or ``src_embeds``
-    (B, S_src, D) and the target ``tokens`` for encdec."""
+    (B, S_src, D) and the target ``tokens`` for encdec. Sequence-parallel
+    under a seq plan (module docstring): every rank passes the whole batch
+    and gets the same logits."""
+    shard, batch = seq_shard(cfg, batch)
+    if shard is not None:
+        with _holding(shard):
+            h, _ = _forward_dense(cfg, params, embed_inputs(cfg, params, batch))
+        h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
+        return from_last_shard(layers.unembed(lm_head(cfg, params), h)[:, 0, :], shard)
     fam = cfg.family
     if fam == "encdec":
         src = batch["src_embeds"].to(cfg.activation_dtype)

@@ -820,6 +820,43 @@ class FleetSim:
             start=int(meta["next_round"]), carry=carry, parts=[tree["out"]],
             entry="resume_compiled")
 
+    # -------------------------------------------------------------- sharding
+
+    def shard_clients(self, mesh, axis: str = "data") -> None:
+        """Distribute the client axis over the ``DeviceMesh`` axis ``axis``
+        through the logical-axis plan (``make_plan(mesh, client_axis=axis)``,
+        ``data_specs(..., leading="clients")``): when U divides the axis,
+        this rank keeps only its clients' rows of ``fleet.x`` and
+        ``fleet.y``; otherwise the spec replicates and the fleet stays
+        whole, as the JAX package's divisibility rule does. ``n_samples``
+        stays whole (the decision reads all U sizes).
+
+        The round stays replicated: every rank of the mesh runs the same
+        rounds on the same draws, and the slots' rows are assembled by a
+        collective (``fleet.gather_active``), so a sharded run is bit-equal
+        to the unsharded one on the same device type. Every rank must run
+        the same calls; a segmented run checkpoints on each rank into the
+        directory that rank is given (a checkpoint holds no fleet rows).
+        The port keeps no compiled state to clear."""
+        from repro_torch.dist.plan import make_plan, mesh_coord
+        from repro_torch.dist.sharding import data_specs, shard_tree
+
+        fleet = self.fleet
+        if fleet.group is not None:
+            raise ValueError("shard_clients: this sim's fleet is sharded already")
+        plan = make_plan(mesh, client_axis=axis)
+        rows = {"x": fleet.x, "y": fleet.y}
+        specs = data_specs(plan, rows, leading="clients")
+        ent = specs["x"][0]
+        if ent is None:
+            return                    # U does not divide the axis: replicated
+        coord = mesh_coord(mesh)
+        mine = shard_tree(plan, rows, specs, coord)
+        self.fleet = dataclasses.replace(
+            fleet, x=mine["x"].clone(), y=mine["y"].clone(),
+            client_offset=plan.local_slice(specs["x"], fleet.x.shape, coord)[0].start,
+            group=mesh.get_group(ent))
+
     # ------------------------------------------------------------- ledger
 
     def _ledger_header(self, entry: str, n_rounds: int) -> None:

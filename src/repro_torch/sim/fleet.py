@@ -9,14 +9,23 @@ G²/σ² observations back (:func:`scatter_slots`). Minibatch indices are an
 input, (S, tau, B) in ``[0, n_s)``, drawn by the round's entropy source, so
 padding rows are never sampled and a test can replay the JAX package's
 per-slot draws.
+
+A client-sharded fleet (``FleetSim.shard_clients``) holds only its rank's
+rows of ``x`` and ``y`` (clients ``client_offset`` on) and the process
+group they are sharded over; ``n_samples`` stays whole. Its
+:func:`gather_active` is a collective: each rank writes the slot rows it
+owns into zeros and an ``all_reduce(SUM)`` of the rows' bits (int32 for
+the fp32 images) assembles them on every rank, exactly, since one rank
+contributes each row.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.fl.client import _local_sgd
 from repro_torch.obs.profile import scope as _profile_scope
@@ -26,14 +35,16 @@ from repro_torch.obs.profile import scope as _profile_scope
 class Fleet:
     """All U client datasets as stacked, padded tensors."""
 
-    x: torch.Tensor          # (U, N_max, H, W, C) fp32
-    y: torch.Tensor          # (U, N_max) int64
-    n_samples: torch.Tensor  # (U,) int64 true per-client sizes (mask)
+    x: torch.Tensor          # (U, N_max, H, W, C) fp32 (sharded: this rank's rows)
+    y: torch.Tensor          # (U, N_max) int64 (sharded: this rank's rows)
+    n_samples: torch.Tensor  # (U,) int64 true per-client sizes (mask), always whole
     d_sizes: np.ndarray      # host copy of n_samples for setup-time math
+    client_offset: int = 0   # the client id of x's first row
+    group: Any = None        # the process group the rows are sharded over, or None
 
     @property
     def n_clients(self) -> int:
-        return int(self.x.shape[0])
+        return int(self.n_samples.shape[0])
 
 
 def build_fleet(datasets: list[dict], device) -> Fleet:
@@ -53,9 +64,21 @@ def build_fleet(datasets: list[dict], device) -> Fleet:
 
 def gather_active(fleet: Fleet, slots: torch.Tensor):
     """(S,) slot client ids (-1 padded) -> ``(x_s, y_s, n_s)`` with leading
-    axis S; padding slots gather client 0 and are masked downstream."""
+    axis S; padding slots gather client 0 and are masked downstream. On a
+    sharded fleet every rank of its group must call it with the same slots
+    (module docstring)."""
     cid = torch.clamp(slots, min=0)
-    return fleet.x[cid], fleet.y[cid], fleet.n_samples[cid]
+    if fleet.group is None:
+        return fleet.x[cid], fleet.y[cid], fleet.n_samples[cid]
+    lo = fleet.client_offset
+    own = (cid >= lo) & (cid < lo + fleet.x.shape[0])
+    rows = torch.where(own, cid - lo, torch.zeros_like(cid))
+    x_bits = fleet.x.view(torch.int32)[rows]
+    x_bits = torch.where(own.reshape((-1,) + (1,) * (x_bits.ndim - 1)), x_bits, 0)
+    y_s = torch.where(own[:, None], fleet.y[rows], 0)
+    dist.all_reduce(x_bits, group=fleet.group)
+    dist.all_reduce(y_s, group=fleet.group)
+    return x_bits.view(torch.float32), y_s, fleet.n_samples[cid]
 
 
 def scatter_slots(slots: torch.Tensor, obs: torch.Tensor, n_clients: int) -> torch.Tensor:

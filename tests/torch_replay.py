@@ -21,12 +21,21 @@ JAX object runtime's upload key chain (``jax_upload_uniforms``).
 is tiny ops, and under pytest-xdist each worker's idle OpenMP threads spin
 against the other workers' (the new sim suites ran ~4x slower in wall time
 with the default thread count).
+
+``spawn_gloo`` runs a function on n CPU ranks of a ``gloo`` process group
+(``torch.multiprocessing.spawn``, rendezvous through a file): the
+distribution suites' multi-rank cases.
 """
+import os
+import uuid
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from repro.sim import channel as jch
 from repro.sim import engine as jeng
@@ -231,3 +240,30 @@ def jax_fl_downlink_uniforms(key, shapes, tag=13):
     keys = jax.random.split(jax.random.fold_in(key, tag), len(shapes))
     with jax.threefry_partitionable(True):
         return [_t(jax.random.uniform(k, tuple(s), jnp.float32)) for k, s in zip(keys, shapes)]
+
+
+def _gloo_rank(rank, world, init_file, fn, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_gloo(fn, world: int, tmp_dir, *args, join: bool = True):
+    """``fn(rank, world, *args)`` on ``world`` spawned processes joined in
+    a gloo group (one torch thread each); ``fn`` must be a module-level
+    function. Raises if any rank fails. ``join=False`` returns the running
+    processes' context instead (``join_all`` waits for it)."""
+    init_file = os.path.join(str(tmp_dir), f"gloo_{uuid.uuid4().hex}")
+    return mp.spawn(_gloo_rank, args=(world, init_file, fn, args), nprocs=world, join=join)
+
+
+def join_all(*contexts) -> None:
+    """Wait for every context ``spawn_gloo(..., join=False)`` returned;
+    raises if a rank failed."""
+    for ctx in contexts:
+        while not ctx.join():
+            pass
