@@ -131,17 +131,39 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      with fp32 masters, bf16 activations, adamw, clip 1.0 and full remat, on
      ``launch.inputs.train_batch_spec`` of train_4k with the global batch
      cut from 256 to 4 (one card holds 16 B a parameter plus one layer's
-     recomputed activations): 1 warm-up + 5 timed steps, s/step, tokens/s,
+     recomputed activations): 1 warm-up + 3 timed steps, s/step, tokens/s,
      model TFLOP/s from ``launch.analytic.train_flops`` and its share of
      989 TFLOP/s, peak GB, busy share and launches of one profiled step,
-     finite losses with the 5th timed below the 1st; (c) the four kernel
+     finite losses with the last timed below the 1st; (c) the four kernel
      wrappers refusing CUDA inputs that require grad before any launch, and
      launching once each under ``no_grad``; (d) ``make_fl_round`` on the
      reduced Granite with K = 4, packed wire and screen, card against CPU
      on the same uniforms (the one-level rule);
- 11. one JSON line with each kernel's launches, error and times (the flash
+ 11. model parallelism (``dist.parallel``, ``dist.placement``,
+     ``dist.collectives``), its phases beside the paths they extend: (mp c)
+     after the flash phase, the wgmma kernel on a TP rank's local heads at
+     Llama-3-8B's serve shape (B = 4, 4,096, H 16 / KV 4 for ``model`` 2,
+     H 8 / KV 2 for ``model`` 4) against the plain version, with its bound
+     and SDPA's time; (mp b) inside the 32k ring phase, heads on ``model``
+     = 2 emulated as two head halves through ``LocalRing(4)`` each: 20
+     wgmma launches, within ``FLASH_TOL["bfloat16"]`` of the single pass
+     and the plain version; (mp a) in an NCCL world of one on a 1x1 mesh,
+     after the Llama-3-8B serve phases a prefill + 8 decode tokens under a
+     serve plan with the weights placed as DTensors, and after Granite's
+     train (b) one placed ``make_train_step`` from its state, each
+     bit-equal to the unplaced run, with no collective counted and every
+     gradient and output placement its parameter's; (mp d) after the train
+     phases, ``launch.dryrun`` of a 4-card Llama-3-8B trainer (``data`` 2 x
+     ``model`` 2, train_4k with the global batch cut from 256 to 2) as rank
+     0 under torch's fake process group (no data moved: values not held):
+     its collective bytes by axis and kind equal to the analytic count, its
+     peak below 80 GB, s/step and per-rank state; then prefills on 1x2 and
+     1x4 serve meshes (B = 4, 4,096 positions): 32 wgmma launches each at
+     the local heads;
+ 12. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
-     checked shape's times).
+     checked shape's times; rows of their own for the local-heads shapes
+     and the heads-on-``model`` ring).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the repository's sources beside this file, it exits non-zero
@@ -149,6 +171,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2245,6 +2268,9 @@ def ring_32k(report: dict) -> dict:
                  wall_ms=ring_wall, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                  library_ms=sdpa_ms, launches=want_launches)
         paths[f"ring {arch} S={RING_SEQ}"] = launches["flash_attention_wgmma"]
+        if arch == SERVE_ARCH:
+            paths.update(_ring_heads_on_model(q, k, v, single, want, ring_ms, p_ms, sdpa_ms,
+                                              report))
         del q, k, v, single, got, want
     torch.cuda.empty_cache()
     return paths
@@ -2355,6 +2381,288 @@ def nccl_world_of_one(sim) -> dict:
     return {"ring": ring_launches, "aggregate": launches["aggregate"]}
 
 
+# ------------------------------------------------------- model parallelism
+
+RING_HEADS_MODEL = 2       # the model axis the heads-on-model ring emulates
+LOCAL_HEADS = ((16, 4, 2), (8, 2, 4))   # a TP rank's Llama heads: H, KV, model
+DRYRUN_PREFILLS = ("1x2", "1x4")
+# the dry run's predicted forward/backward peak (PERF.md §6): 32.1 GB of fp32
+# state, the two gathered vocab tables and a gathered layer, the remat inputs
+DRYRUN_FWD_BWD_GB = (36.0, 42.0)
+
+
+def _ring_heads_on_model(q, k, v, single, want, ring_ms, plain_ms, sdpa_ms,
+                         report) -> dict:
+    """(mp b) The ring with heads on ``model`` = RING_HEADS_MODEL emulated
+    on one card: each model rank's contiguous head block (H/m q heads,
+    KV/m K/V heads, as ``models.model`` hands a TP rank's projections to
+    the kernel) through ``LocalRing(RING_N)``; the concatenated output
+    within FLASH_TOL["bfloat16"] of the single pass and of the plain
+    version, m times the ring's launches through wgmma, none through SIMT.
+    Adds the row ``flash_attention_wgmma_ring_heads_on_model``."""
+    import torch
+    from repro_torch.dist.ring import LocalRing, ring_flash_attention
+
+    m, h, kv = RING_HEADS_MODEL, q.shape[2], k.shape[2]
+    blocks = [tuple(x[:, :, i * x.shape[2] // m:(i + 1) * x.shape[2] // m].contiguous()
+                    for x in (q, k, v)) for i in range(m)]
+    ring = LocalRing(RING_N)
+
+    def run():
+        return [ring_flash_attention(qb, kb, vb, ring=ring, causal=True) for qb, kb, vb in blocks]
+
+    _reset_all_launches()
+    got = torch.cat(run(), dim=2)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    want_launches = m * RING_N * (RING_N + 1) // 2
+    require(launches["flash_attention_wgmma"] == want_launches
+            and launches["flash_attention_simt"] == 0,
+            f"heads-on-model ring: launches {launches}, want {want_launches} through wgmma")
+    rtol, atol = FLASH_TOL["bfloat16"]
+    err = (got.float() - single.float()).abs()
+    require(bool((err <= atol + rtol * single.float().abs()).all()),
+            f"heads-on-model ring: max abs err {err.max().item():.3e} against the single pass")
+    plain_err = _out_error(f"heads-on-model ring S={RING_SEQ}", got, want)
+    pairs = visible_pairs(RING_SEQ, RING_SEQ, True, 0)
+    b_ms, b_by = bound((q.numel() + 2 * k.numel() + q.numel()) * 2, 4.0 * h * 128 * pairs,
+                       BF16_FLOPS)
+    k_ms = kernel_ms(run, "flash_fwd_wgmma_kernel", iters=2) * want_launches
+    print(f"ring with heads on model={m} ({m} blocks of H={h // m}/{kv // m}, LocalRing"
+          f"({RING_N}) each, B=1 S={RING_SEQ} hd=128 causal bf16): {want_launches} wgmma "
+          f"launches, 0 SIMT; max abs err vs the single pass {err.max().item():.3e}, vs the "
+          f"plain version {plain_err:.3e} (tol rtol {rtol:g} atol {atol:g}); kernels summed "
+          f"{k_ms:.3f} ms (profiler) against the {RING_N * (RING_N + 1) // 2}-launch ring of "
+          f"all {h} heads {ring_ms:.3f} ms, ratio {k_ms / ring_ms:.3f}; bound {b_ms:.3f} ms "
+          f"({b_by})", flush=True)
+    report["flash_attention_wgmma_ring_heads_on_model"] = dict(
+        max_abs_err=plain_err, max_abs_err_vs_single_pass=err.max().item(), ms=k_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=sdpa_ms,
+        launches=want_launches, ring_of_all_heads_ms=ring_ms)
+    del blocks, got
+    return {f"ring heads on model={m} S={RING_SEQ}": launches["flash_attention_wgmma"]}
+
+
+@phase("model parallelism (c): the wgmma kernel on a TP rank's local heads at Llama's serve "
+       "shape vs plain")
+def local_heads(report: dict) -> None:
+    """Llama-3-8B's attention at its serve shape (B = 4, S = T = 4,096, hd
+    128, causal, bf16) on one TP rank's heads: H 16 / KV 4 (``model`` 2)
+    and H 8 / KV 2 (``model`` 4), through the wgmma route, against the
+    plain version within FLASH_TOL; kernel time, bound and SDPA's time.
+    Adds the rows ``flash_attention_wgmma_local_heads_h{H}_kv{KV}``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, s, hd = 4, 4096, 128
+    for h, kv, m in LOCAL_HEADS:
+        q, k, v = ((0.3 * torch.randn((b, s, heads, hd), generator=gen, device="cuda"))
+                   .to(torch.bfloat16) for heads in (h, kv, kv))
+        fa.reset_launches()
+        out = fa.flash_attention(q, k, v, causal=True)
+        require(fa.launches["flash_attention_wgmma"] == 1 and fa.launches["flash_attention_simt"]
+                == 0, f"local heads H={h}/{kv}: not the wgmma route: {fa.launches}")
+        want = fa.flash_attention_plain(q, k, v, causal=True)
+        err = _out_error(f"local heads H={h}/{kv}", out, want)
+        pairs = visible_pairs(s, s, True, 0)
+        b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * 2, 4.0 * b * h * hd * pairs,
+                           BF16_FLOPS)
+        k_ms = kernel_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                         "flash_fwd_wgmma_kernel", iters=10)
+        p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 2, warmup=1)
+        lib_ms = cuda_ms(_sdpa(q, k, v, True, 0), 20)
+        print(f"local heads of model={m}: B={b} S=T={s} H={h}/{kv} hd={hd} causal bf16 (wgmma): "
+              f"max_abs_err={err:.3e} (tol rtol {FLASH_TOL['bfloat16'][0]:g} atol "
+              f"{FLASH_TOL['bfloat16'][1]:g}); kernel {k_ms:.3f} ms (profiler), bound "
+              f"{b_ms:.3f} ms ({b_by}), plain {p_ms:.3f} ms (events), "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms (events)", flush=True)
+        report[f"flash_attention_wgmma_local_heads_h{h}_kv{kv}"] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms)
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _nccl_world_of_one():
+    """An NCCL process group of one rank on the card, destroyed on exit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+@phase("model parallelism (a): Llama-3-8B prefill + 8 decode tokens on a 1x1 serve plan "
+       "(NCCL, world of one), weights placed as DTensors")
+def tp_serve_world_of_one(cfg, params) -> int:
+    """The serve phase's weights placed on a 1x1 ``(data, model)`` mesh
+    (``dist.placement.place_tree``; every placement Replicate) and served
+    under ``activation_mesh(make_plan(mesh, mode="serve"))``: B = 4, the
+    serve context, 8 greedy tokens; tokens and last logits bit-equal to
+    the unplaced ``serve.generate``, no collective counted, 32 wgmma
+    launches in the placed run. Returns those launches."""
+    import numpy as np
+    import torch
+    from repro_torch.dist.activations import activation_mesh
+    from repro_torch.dist.collectives import CollectiveCounter
+    from repro_torch.dist.placement import place_tree
+    from repro_torch.dist.plan import make_plan
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_production_mesh
+
+    new = 8
+    ctx = np.random.default_rng(5).integers(0, cfg.vocab, (SERVE_BATCH, SERVE_CONTEXT))
+    want = serve.generate(cfg, params, ctx, new)
+    with _nccl_world_of_one():
+        plan = make_plan(make_production_mesh(shape="1x1"), mode="serve")
+        placed = place_tree(plan, params)
+        _reset_all_launches()
+        with CollectiveCounter() as counter, activation_mesh(plan):
+            got = serve.generate(cfg, placed, ctx, new)
+        launches = _all_launches()
+        del placed
+    require(launches["flash_attention_wgmma"] == cfg.n_layers
+            and launches["flash_attention_simt"] == 0,
+            f"placed serve: launches {launches}, want {cfg.n_layers} through wgmma")
+    require(not counter.log, f"a world of one counted collectives: {counter.log[:4]}")
+    require(torch.equal(got.tokens, want.tokens), "placed serve: tokens differ")
+    require(torch.equal(got.logits, want.logits), "placed serve: last logits differ")
+    print(f"{SERVE_ARCH} on a 1x1 serve plan (NCCL, one rank), weights as DTensors: "
+          f"{SERVE_BATCH} x {SERVE_CONTEXT} prefill + {new} tokens bit-equal to the unplaced "
+          f"serve (tokens and last logits), 0 collectives, {launches['flash_attention_wgmma']} "
+          f"wgmma launches; prefill {got.prefill_seconds:.4f} s against "
+          f"{want.prefill_seconds:.4f} unplaced; group destroyed", flush=True)
+    return launches["flash_attention_wgmma"]
+
+
+@phase("model parallelism (a): one Granite-3.0 1B-A400M train step placed on a 1x1 mesh "
+       "(NCCL, world of one) from train (b)'s state")
+def tp_train_world_of_one(cfg, opt, params, state, batch) -> None:
+    """Train (b)'s parameters and Adam state placed on a 1x1 ``(data,
+    model)`` mesh (``place_tree``, ``place_opt_state``) and one
+    ``make_train_step(..., mesh=)`` on the first row of its batch, against
+    the unplaced step from the same state: parameters, Adam state and
+    metrics bit-equal; every output placement its input's (the step checks
+    each gradient's); no collective counted."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.dist.collectives import CollectiveCounter
+    from repro_torch.dist.placement import full_tree, place_opt_state, place_tree
+    from repro_torch.dist.plan import make_plan
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import make_train_step
+
+    batch = {k: v[:1] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    want_p, want_s, want_m = make_train_step(cfg, opt)(params, state, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    with _nccl_world_of_one():
+        mesh = make_production_mesh(shape="1x1")
+        plan = make_plan(mesh)
+        placed = place_tree(plan, params)
+        pstate = place_opt_state(plan, state, param_specs(plan, params))
+        step = make_train_step(cfg, opt, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CollectiveCounter() as counter:
+            got_p, got_s, got_m = step(placed, pstate, batch)
+        torch.cuda.synchronize()
+        placed_s = time.perf_counter() - t0
+        for a, b in zip(tree_util.leaves(got_p) + tree_util.leaves(got_s["mu"]),
+                        tree_util.leaves(placed) + tree_util.leaves(pstate["mu"])):
+            require(a.placements == b.placements, "a placement changed in the step")
+        got_p, got_s = full_tree(got_p), full_tree(got_s)
+    require(not counter.log, f"a world of one counted collectives: {counter.log[:4]}")
+    for name, a, b in (("params", got_p, want_p), ("adam state", got_s, want_s)):
+        require(all(torch.equal(x, y) for x, y in zip(tree_util.leaves(a), tree_util.leaves(b))),
+                f"placed step: {name} differ from the unplaced step")
+    require(all(torch.equal(got_m[k], want_m[k]) for k in want_m), "placed step: metrics differ")
+    print(f"{cfg.name} train step on a 1x1 mesh (NCCL, one rank), parameters and Adam state as "
+          f"DTensors, 1 x {batch['tokens'].shape[1]} tokens: parameters, Adam state and "
+          f"metrics bit-equal to the unplaced step (loss {want_m['loss'].item():.6f}); 0 "
+          f"collectives; placements unchanged; {placed_s:.3f} s against {plain_s:.3f} s "
+          f"unplaced; group destroyed", flush=True)
+
+
+@phase("model parallelism (d): rank 0 of a 4-card Llama-3-8B trainer (data 2 x model 2) "
+       "under the fake process group, then TP prefills on 1x2 and 1x4 serve meshes")
+def tp_dryrun() -> dict:
+    """``launch.dryrun`` at full width: train_4k with the global batch cut
+    from 256 to 2, 1 warm-up + 2 timed steps, adamw with fp32 masters and
+    full remat, as rank 0 of a 2x2 mesh under torch's fake process group
+    (no data moves: the loss is not held). Its collective bytes and counts
+    by axis and kind for a step must equal ``analytic_collectives``, alike
+    in both timed steps; peak below 80 GB, and the peak from a step's start
+    to its optimizer update (forward, backward, clip) inside DRYRUN_FWD_BWD_GB,
+    PERF.md's prediction (a layer gathered outside its remat body would
+    raise it past the band); no kernel launch (training runs none). Then a
+    prefill_32k shape cut to B = 4, 4,096 positions (flash) on each of
+    DRYRUN_PREFILLS' serve meshes: one wgmma launch a layer and a pass at
+    the rank's local heads. Returns each prefill's launches."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    _reset_all_launches()
+    rec = dryrun.main(["--arch", SERVE_ARCH, "--shape", "train_4k", "--mesh-shape", "2x2",
+                       "--batch", "2", "--steps", "2"])
+    launches = _all_launches()
+    require(not any(launches.values()), f"the dry-run train steps launched kernels: {launches}")
+    require(rec["collectives"] == rec["analytic_collectives"],
+            f"collectives {rec['collectives']} != analytic {rec['analytic_collectives']}")
+    require(rec["collectives_same_each_step"], "the two timed steps issued different collectives")
+    require(rec["peak_gb"] < 80.0, f"peak {rec['peak_gb']:.2f} GB")
+    lo, hi = DRYRUN_FWD_BWD_GB
+    require(lo <= rec["fwd_bwd_peak_gb"] <= hi,
+            f"forward/backward peak {rec['fwd_bwd_peak_gb']:.2f} GB outside {lo}-{hi} GB")
+    coll = "; ".join(f"{axis} {kind} {v['count']} / {v['bytes'] / 1e9:.4f} GB"
+                     for axis, kinds in sorted(rec["collectives"].items())
+                     for kind, v in sorted(kinds.items()))
+    print(f"dry run {SERVE_ARCH} train_4k (global batch cut to 2), rank 0 of 2x2 (data x model), "
+          f"fake process group (no data moved: values not held): {rec['s_per_step']:.3f} s/step "
+          f"(steps {[f'{t:.3f}' for t in rec['step_seconds']]}), peak {rec['peak_gb']:.2f} GB, "
+          f"forward/backward peak {rec['fwd_bwd_peak_gb']:.2f} GB; "
+          f"per rank: params {rec['param_bytes'] / 1e9:.3f} GB, grads "
+          f"{rec['grad_bytes'] / 1e9:.3f} GB, adamw {rec['opt_bytes'] / 1e9:.3f} GB; "
+          f"collectives a step (result bytes), equal to the analytic count: {coll}; roofline "
+          f"terms compute {rec['compute_term_s']:.4f} s, memory {rec['memory_term_s']:.4f} s, "
+          f"collectives' wire bytes at NVLink {rec['collective_term_s']:.4f} s", flush=True)
+    out = {}
+    cfg_layers = 32
+    for mesh_shape in DRYRUN_PREFILLS:
+        m = int(mesh_shape.split("x")[1])
+        _reset_all_launches()
+        rec = dryrun.main(["--arch", SERVE_ARCH, "--shape", "prefill_32k", "--mesh-shape",
+                           mesh_shape, "--batch", str(SERVE_BATCH), "--seq", "4096",
+                           "--steps", "1"])
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        require(launches["flash_attention_wgmma"] == 2 * cfg_layers
+                and launches["flash_attention_simt"] == 0,
+                f"dry-run prefill {mesh_shape}: launches {launches}, want {2 * cfg_layers} wgmma")
+        coll = "; ".join(f"{axis} {kind} {v['count']} / {v['bytes'] / 1e9:.4f} GB"
+                         for axis, kinds in sorted(rec["collectives"].items())
+                         for kind, v in sorted(kinds.items()))
+        print(f"dry run {SERVE_ARCH} prefill B={SERVE_BATCH} x 4096 on a {mesh_shape} serve mesh "
+              f"(heads H={32 // m}/{8 // m} a rank; fake group: values not held): "
+              f"{rec['s_per_step']:.4f} s, peak {rec['peak_gb']:.2f} GB, params "
+              f"{rec['param_bytes'] / 1e9:.3f} GB a rank, {launches['flash_attention_wgmma']} "
+              f"wgmma launches (warm-up + 1), collectives {coll}", flush=True)
+        out[f"dry-run prefill {mesh_shape} (H={32 // m}/{8 // m})"] = \
+            launches["flash_attention_wgmma"]
+    return out
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_REDUCED_ARCHS = (SERVE_ARCH, GRANITE_ARCH, INTERNVL2_ARCH, SEAMLESS_ARCH, RWKV6_ARCH,
@@ -2364,7 +2672,7 @@ TRAIN_RTOL = 1e-5         # losses and gradient norms, card vs CPU, each step fr
 # train_4k (4,096 positions, global batch 256) with the batch cut to 4: fp32
 # masters, grads and two Adam moments (16 B a parameter) and the activations
 # of one recomputed layer must fit one 80 GB card
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_TIMED = 4096, 4, 5
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_TIMED = 4096, 4, 3
 
 
 def _train_batch_like(cfg, shape, seed: int) -> dict:
@@ -2444,14 +2752,15 @@ def train_reduced_card_vs_cpu():
     require(not any(launches.values()), f"the reduced train steps launched kernels: {launches}")
 
 
-def train_full(arch: str) -> dict:
+def train_full(arch: str, after=None) -> dict:
     """``make_train_step`` of ``arch`` at full width and depth: fp32 masters
     from seed 0, bf16 activations, adamw(TRAIN_LR), clip 1.0, full remat, on
     one fixed batch of ``train_batch_spec`` at train_4k cut to TRAIN_BATCH;
     one warm-up step, TRAIN_TIMED timed steps (host clock, each ended by a
     sync), then one profiled step. Every launch count is set to 0 just
     before the steps and must still be 0 after: training runs no kernel of
-    the port."""
+    the port. ``after(cfg, opt, params, state, batch)`` then runs on the
+    last state."""
     import torch
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_config
@@ -2488,7 +2797,7 @@ def train_full(arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 1e9
     timed = losses[1:]
     require(all(map(math.isfinite, losses)), f"{arch}: non-finite losses {losses}")
-    require(timed[-1] < timed[0], f"{arch}: the 5th timed loss {timed[-1]} is not below the "
+    require(timed[-1] < timed[0], f"{arch}: the last timed loss {timed[-1]} is not below the "
                                   f"1st {timed[0]}")
     (_, prof) = _profiled(f"{arch} train step", lambda: step(params, state, batch), top=10,
                           host_ops=False)
@@ -2518,6 +2827,8 @@ def train_full(arch: str) -> dict:
           f"{numbers['busy_share']:.3f}, {prof.n_launches} launches; losses "
           f"{[f'{x:.4f}' for x in losses]} (first is the warm-up); 0 kernel launches "
           f"of the port", flush=True)
+    if after is not None:
+        after(cfg, opt, params, state, batch)
     return numbers
 
 
@@ -2637,6 +2948,7 @@ def main() -> int:
     wire_m = 2048                  # FEMNIST Z in 256-row tiles of 128 lanes
     report = kernels_vs_plain(zpad, wire_m)
     report.update(flash_vs_plain())
+    local_heads(report)
     flash_offsets(report)
     ring_launches = ring_32k(report)
     sim, main_launches = main_path()
@@ -2659,6 +2971,7 @@ def main() -> int:
     phase("profile of one serve prefill and 4 decode steps")(profile_serve)(
         SERVE_ARCH, cfg, params, ctx)
     serve32_launches = serve_32k(cfg, params)
+    tp_serve_launches = tp_serve_world_of_one(cfg, params)
     del params
     _release()
     # each serve path's launches, its counts set to 0 just before it
@@ -2678,18 +2991,22 @@ def main() -> int:
     train_reduced_card_vs_cpu()
     for arch in (GRANITE_ARCH, SEAMLESS_ARCH):
         phase(f"train (b): {arch} full width and depth, train_4k cut to batch {TRAIN_BATCH}, "
-              f"1 warm-up + {TRAIN_TIMED} timed steps")(train_full)(arch)
+              f"1 warm-up + {TRAIN_TIMED} timed steps")(train_full)(
+            arch, after=tp_train_world_of_one if arch == GRANITE_ARCH else None)
         _release()
     train_refusals()
     train_fl_round()
+    dry_launches = tp_dryrun()
 
-    sources = {"flash_attention_wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+    wgmma_rows = ("flash_attention_wgmma", "flash_attention_wgmma_ring_heads_on_model",
+                  *(f"flash_attention_wgmma_local_heads_h{h}_kv{kv}" for h, kv, _m in LOCAL_HEADS))
+    sources = {**{n: "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu" for n in wgmma_rows},
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     replaces = {
         "aggregate": "src/repro/kernels/stochastic_quant.py:172",
         "quantize": "src/repro/kernels/stochastic_quant.py:49",
         "dequantize": "src/repro/kernels/stochastic_quant.py:97",
-        "flash_attention_wgmma": "src/repro/kernels/flash_attention.py:183",
+        **{n: "src/repro/kernels/flash_attention.py:183" for n in wgmma_rows},
         "flash_attention_simt": "src/repro/kernels/flash_attention.py:183",
     }
     # each kernel's launches in the runs of the paths that take it: the
@@ -2704,8 +3021,17 @@ def main() -> int:
                "flash_attention_wgmma": {**{a: n["flash_attention_wgmma"]
                                             for a, n in serve_launches.items()},
                                          **ring_launches, **serve32_launches,
-                                         "GroupRing n=1 (nccl)": nccl_launches["ring"]},
+                                         "GroupRing n=1 (nccl)": nccl_launches["ring"],
+                                         "placed serve, 1x1 (nccl)": tp_serve_launches,
+                                         **dry_launches},
                "flash_attention_simt": fp32_launches}
+    # the model-parallel rows: the launches of the paths that take each shape
+    by_path.update({
+        "flash_attention_wgmma_ring_heads_on_model": {
+            k: n for k, n in ring_launches.items() if "heads on model" in k},
+        **{f"flash_attention_wgmma_local_heads_h{h}_kv{kv}": {
+            k: n for k, n in dry_launches.items() if f"(H={h}/{kv})" in k}
+           for h, kv, _m in LOCAL_HEADS}})
     launches = {"quantize": wire_launches["quantize"],
                 "dequantize": wire_launches["dequantize"],
                 **{k: sum(v.values()) for k, v in by_path.items()}}

@@ -118,6 +118,15 @@ def quantize_pytree(uniforms: Sequence[torch.Tensor], tree: Tree,
                          f"{len(leaves)} leaves")
     theta_max = torch.amax(torch.stack([torch.amax(torch.abs(leaf)) for leaf in leaves]))
     theta_max = theta_max.to(torch.float32)
+    out = quantize_leaves(uniforms, leaves, q_bits, theta_max)
+    return tree_util.from_leaves(tree_util.paths(tree), out), theta_max
+
+
+def quantize_leaves(uniforms: Sequence[torch.Tensor], leaves: Sequence[torch.Tensor],
+                    q_bits: int, theta_max: torch.Tensor) -> list:
+    """:func:`quantize_pytree`'s per-leaf step against a given fp32 range
+    (a sharded model's range is the max over its shards): the dequantized
+    leaves."""
     safe_max = _safe(theta_max)
     levels = _levels(q_bits, theta_max.device)
     out = []
@@ -126,7 +135,7 @@ def quantize_pytree(uniforms: Sequence[torch.Tensor], tree: Tree,
         xq = torch.sign(leaf).to(torch.float32) * idx * (safe_max / levels)
         xq = torch.where(theta_max > 0, xq, torch.zeros_like(xq))
         out.append(xq.to(leaf.dtype))
-    return tree_util.from_leaves(tree_util.paths(tree), out), theta_max
+    return out
 
 
 def pytree_size(tree: Tree) -> int:

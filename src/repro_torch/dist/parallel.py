@@ -1,0 +1,306 @@
+"""The per-rank view of a model-parallel forward: FSDP on the data axes,
+tensor and expert parallelism on ``model`` (the port of what GSPMD does
+for the JAX package under ``param_specs``/``make_opt_specs``).
+
+Parameters are DTensors (``dist.placement``) with the plan's placements.
+A forward under ``activation_mesh(plan)`` calls :func:`enter` once: each
+DTensor leaf becomes its local tensor (``to_local()``, differentiable:
+its gradient comes back as a DTensor with the leaf's placements) and its
+spec is read off its placements; a plain tensor is a whole, replicated
+leaf. A train forward keeps its rows of the global batch (the plan's
+``batch`` rule; the rows must divide over those axes), so its FSDP axes
+are the batch's axes.
+
+The model code then asks for each leaf at its use (:func:`layer`,
+:func:`tree`, :func:`table`):
+
+  * a dim sharded over a batch axis is all-gathered, and the gradient
+    reduce-scattered (``collectives.gather_fsdp``): FSDP, inside each
+    layer's remat body, so the gathered copy dies with the layer and the
+    recompute gathers it again;
+  * a dim sharded over a data axis the batch is not split over is
+    gathered with the rank's slice as its backward (every such rank
+    computes the same gradient);
+  * a batch axis the leaf is whole on gets the identity with an all-reduce
+    backward: the data-parallel gradient sum of a replicated leaf;
+  * a dim on ``model`` stays local: the rank's heads, SwiGLU columns or
+    experts (:func:`heads_mode`, :func:`local_experts`), which the model
+    code wraps in ``copy_to_model``/``reduce_from_model``. The vocab
+    tables are gathered over ``model`` at use (:func:`table`).
+
+Without an active plan every function hands its input back unchanged.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch import tree as tree_util
+from repro_torch.dist import collectives
+from repro_torch.dist.activations import current_activation_plan
+from repro_torch.dist.plan import MeshPlan, PartitionSpec as P, _entry_axes, mesh_coord
+
+TP_FAMILIES = ("dense", "moe")
+
+
+@dataclasses.dataclass(frozen=True)
+class RankView:
+    """One rank's part of a forward: the plan, each leaf's spec by key
+    path, the mesh axes the batch rows are split over, and the rank's
+    place on ``model``."""
+    plan: MeshPlan
+    specs: dict
+    batch_axes: tuple
+    model: int
+    model_idx: int
+
+
+_VIEW: contextvars.ContextVar[Optional[RankView]] = contextvars.ContextVar(
+    "repro_torch_rank_view", default=None)
+
+
+def current() -> Optional[RankView]:
+    return _VIEW.get()
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def spec_of(t) -> P:
+    """A DTensor's spec, read off its placements (mesh axes per tensor dim,
+    major to minor); a plain tensor's is all-replicated."""
+    if not _is_dtensor(t):
+        return P()
+    names = t.device_mesh.mesh_dim_names
+    entries: list = [[] for _ in range(t.ndim)]
+    for name, pl in zip(names, t.placements):
+        if pl.is_shard():
+            entries[pl.dim].append(name)
+        elif not pl.is_replicate():
+            raise ValueError(f"placement {pl} of a parameter is not supported")
+    return P(*[tuple(e) if e else None for e in entries])
+
+
+def batch_axes(plan: MeshPlan, rows: int) -> tuple:
+    """The non-``model`` mesh axes a global batch of ``rows`` is split over
+    in a train forward; raises when the FSDP axes do not divide it (the
+    rows would be replicated under sharded leaves)."""
+    ent = plan.spec((rows,), ("batch",), align="left")[0]
+    axes = tuple(a for a in _entry_axes(ent) if plan.axis_size(a) > 1)
+    fsdp = tuple(a for a in _entry_axes(plan.rules["batch"][0]) if plan.axis_size(a) > 1)
+    if set(fsdp) - set(axes):
+        raise ValueError(f"a global batch of {rows} rows does not divide over the FSDP axes "
+                         f"{fsdp} {[plan.axis_size(a) for a in fsdp]}")
+    return axes
+
+
+def _local_rows(plan: MeshPlan, batch: dict, axes: tuple) -> dict:
+    if not axes:
+        return batch
+    coord = mesh_coord(plan.mesh)
+    out = {}
+    for name, v in batch.items():
+        spec = P(axes if len(axes) > 1 else axes[0])
+        out[name] = v[plan.local_slice(spec, v.shape[:1], coord) + (Ellipsis,)]
+    return out
+
+
+def enter(cfg, params, batch: Optional[dict] = None, *, train: bool = False):
+    """``(view, local params, local batch)`` for a forward under the active
+    plan; ``(None, params, batch)`` without one; the held view and the
+    inputs as they are inside a forward that entered already. Raises for tensor
+    parallelism of a family that has none here, and for DTensor leaves
+    without a plan."""
+    held = _VIEW.get()
+    if held is not None:               # an inner entry point: the leaves are local already
+        return held, params, batch
+    plan = current_activation_plan()
+    leaves = tree_util.leaves(params)
+    if plan is None:
+        if any(_is_dtensor(t) for t in leaves):
+            raise ValueError("DTensor parameters need an active plan "
+                             "(dist.activations.activation_mesh)")
+        return None, params, batch
+    m = plan.axis_size("model")
+    if m > 1 and cfg.family not in TP_FAMILIES:
+        raise ValueError(
+            f"tensor parallelism of the {cfg.family} family is distribution part B2b, not "
+            "ported: run it under a plan whose model axis is 1 (FSDP alone works)")
+    key_paths = tree_util.paths(params)
+    specs = {p: spec_of(t) for p, t in zip(key_paths, leaves)}
+    local = tree_util.from_leaves(key_paths, [t.to_local() if _is_dtensor(t) else t
+                                              for t in leaves])
+    axes = ()
+    if train and batch is not None:
+        rows = next(iter(batch.values())).shape[0]
+        axes = batch_axes(plan, rows)
+        batch = _local_rows(plan, batch, axes)
+    idx = plan.mesh.get_local_rank("model") if "model" in plan.mesh.mesh_dim_names else 0
+    return RankView(plan, specs, axes, m, idx), local, batch
+
+
+@contextlib.contextmanager
+def holding(view: Optional[RankView]):
+    token = _VIEW.set(view)
+    try:
+        yield
+    finally:
+        _VIEW.reset(token)
+
+
+def bind(fn):
+    """``fn`` run, wherever and whenever it is called (a remat body's
+    recompute runs on autograd's thread on the card), inside the context
+    variables of the call to ``bind``: the active plan, rank view and
+    sequence shard."""
+    ctx = contextvars.copy_context()
+
+    def run(*args, **kwargs):
+        return ctx.copy().run(fn, *args, **kwargs)
+
+    return run
+
+
+# ------------------------------------------------------------ leaves
+
+def _use(t: torch.Tensor, spec: P, view: RankView) -> torch.Tensor:
+    """The leaf as the rank computes with it: FSDP dims gathered, model
+    dims local (module docstring)."""
+    used = {a for ent in spec for a in _entry_axes(ent)}
+    t = collectives.copy_to(t, tuple(a for a in view.batch_axes if a not in used))
+    for d, ent in enumerate(spec):
+        for a in reversed(_entry_axes(ent)):
+            if a == "model":
+                continue
+            if a in view.batch_axes:
+                t = collectives.gather_fsdp(t, a, d)
+            else:
+                t = collectives.gather_replicated(t, a, d)
+    return t
+
+
+def layer(lp: dict, stack: str = "layers") -> dict:
+    """One layer's leaves (of ``params[stack]``, unstacked) as the rank
+    computes with them."""
+    view = _VIEW.get()
+    if view is None:
+        return lp
+    key_paths = tree_util.paths(lp)
+    return tree_util.from_leaves(key_paths, [
+        _use(t, P(*view.specs[(stack,) + p][1:]), view)
+        for p, t in zip(key_paths, tree_util.leaves(lp))])
+
+
+def tree(sub: dict, top: str) -> dict:
+    """An unstacked sub-tree ``params[top]`` (the hybrid family's shared
+    block, the vlm projection) as the rank computes with it."""
+    view = _VIEW.get()
+    if view is None:
+        return sub
+    key_paths = tree_util.paths(sub)
+    return tree_util.from_leaves(key_paths, [_use(t, view.specs[(top,) + p], view)
+                                             for p, t in zip(key_paths, tree_util.leaves(sub))])
+
+
+def table(t: torch.Tensor, path: tuple) -> torch.Tensor:
+    """A (V, d) vocab table whole: its FSDP dim as any leaf's, and its
+    vocab rows gathered over ``model`` (every model rank uses the whole)."""
+    view = _VIEW.get()
+    if view is None:
+        return t
+    t = _use(t, view.specs[path], view)
+    if "model" in _entry_axes(view.specs[path][0] if view.specs[path] else None):
+        t = collectives.gather_model(t, 0)
+    return t
+
+
+# --------------------------------------------------- tensor parallelism
+
+def heads_mode(cfg, h_local: int, kv_local: int, *, ring: bool = False) -> str:
+    """How the rank runs attention, from the heads its ``wq``/``wk`` hold:
+    ``"whole"`` (every head: no model axis, or heads that do not divide
+    it), ``"sharded"`` (H/m and KV/m heads), ``"expand"`` (H/m heads, KV
+    not dividing m: each local q head takes its own K/V head, GQA expanded
+    to g = 1 for the rank) or, under the ring (``ring``), ``"gather"``:
+    heads stay replicated where either count does not divide m, as the JAX
+    package's ring rule says, and the sharded query weights are
+    gathered."""
+    if h_local == cfg.n_heads:
+        return "whole"
+    if kv_local < cfg.n_kv_heads:
+        return "sharded"
+    return "gather" if ring else "expand"
+
+
+def local_kv_index(cfg, h_local: int, device) -> torch.Tensor:
+    """``"expand"`` mode: the K/V head of each of the rank's q heads."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = _VIEW.get().model_idx * h_local
+    return torch.arange(lo, lo + h_local, device=device) // g
+
+
+def on_model(path: tuple, dim: int) -> bool:
+    """Whether the leaf at ``path`` is sharded on ``model`` along ``dim``."""
+    view = _VIEW.get()
+    if view is None or path not in view.specs:
+        return False
+    spec = view.specs[path]
+    return dim < len(spec) and "model" in _entry_axes(spec[dim])
+
+
+def local_experts(n_experts: int, e_local: int) -> Optional[tuple]:
+    """The rank's expert range ``(lo, hi)`` when its expert leaves hold
+    ``e_local`` of ``n_experts``; None when it holds them all."""
+    if e_local == n_experts:
+        return None
+    view = _VIEW.get()
+    return (view.model_idx * e_local, (view.model_idx + 1) * e_local)
+
+
+class _GradOnFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, first):
+        ctx.first = first
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+def aux_grad_gate(x: torch.Tensor) -> torch.Tensor:
+    """The identity; under expert parallelism, the gradient passes on
+    model rank 0 only. The MoE's aux losses are computed alike on every
+    model rank from the replicated router, whose gradient is then summed
+    over ``model`` with the partial gradients of the rank's experts: the
+    aux part enters that sum once."""
+    view = _VIEW.get()
+    if view is None or view.model == 1:
+        return x
+    return _GradOnFirst.apply(x, view.model_idx == 0)
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a per-rank batch mean over the batch axes (equal rows
+    a rank): the global batch's mean. All-reduce forward, identity
+    backward, then the division."""
+    view = _VIEW.get()
+    if view is None or not view.batch_axes:
+        return x
+    n = view.plan.axis_size(view.batch_axes)
+    return collectives.reduce_over(x, view.batch_axes) / n
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """A per-rank batch sum summed over the batch axes (identity backward)."""
+    view = _VIEW.get()
+    if view is None or not view.batch_axes:
+        return x
+    return collectives.reduce_over(x, view.batch_axes)

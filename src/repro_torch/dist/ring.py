@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist import collectives
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 
@@ -68,10 +69,13 @@ def step_visible(s_loc: int, t_loc: int, *, causal: bool, window: int,
 
 class GroupRing:
     """The ring over a process group: this process is rank
-    ``dist.get_rank(group)`` of ``n = dist.get_world_size(group)``."""
+    ``dist.get_rank(group)`` of ``n = dist.get_world_size(group)``; its
+    exchanges are counted on the mesh axis ``axis``
+    (``dist.collectives``)."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, axis: str = "seq"):
         self.group = group
+        self.axis = axis
         self.n = dist.get_world_size(group)
         self.ranks = (dist.get_rank(group),)
 
@@ -88,12 +92,8 @@ class GroupRing:
         dst, src = self._global((idx + 1) % n), self._global((idx - 1) % n)
         k_in, v_in = (torch.empty_like(x[0], memory_format=torch.contiguous_format)
                       for x in (ks, vs))
-        ops = [dist.P2POp(dist.isend, ks[0].contiguous(), dst, self.group),
-               dist.P2POp(dist.isend, vs[0].contiguous(), dst, self.group),
-               dist.P2POp(dist.irecv, k_in, src, self.group),
-               dist.P2POp(dist.irecv, v_in, src, self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        collectives.send_recv([ks[0].contiguous(), vs[0].contiguous()], [k_in, v_in], dst, src,
+                              self.group, self.axis)
         return [k_in], [v_in]
 
     def join(self, outs: list) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Serving launcher: batched greedy decode with the ring-buffer cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_7b \\
-        --batch 4 --context 96 --new-tokens 32 [--ckpt-dir DIR]
+        --batch 4 --context 96 --new-tokens 32 [--ckpt-dir DIR] [--mesh-shape 1x2]
 
 The port of ``repro.launch.serve``, with its flags, for every family:
 :func:`generate` runs the prefill, then greedy argmax decode,
@@ -14,10 +14,15 @@ of a parameter tree; loaded as fp32 copies). For encdec it follows the
 JAX launcher: ``encode`` of ``--context`` normal frames, then greedy
 decode from BOS = 0. It refuses the vlm family: the launcher draws no
 patch embeddings (the JAX launcher fails there with a ``KeyError``).
+``--mesh-shape`` serves tensor-parallel on a mesh of the initialized
+process group (``make_plan(mesh, mode="serve")``: the parameters placed as
+DTensors, each rank its heads, SwiGLU columns or experts; the dense and
+moe families), every rank with the same tokens; without it, one device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import NamedTuple, Optional, Sequence, Union
 
@@ -115,6 +120,8 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-shape", default=None,
+                    help="e.g. 1x2: tensor-parallel serving on the initialized process group")
     args = ap.parse_args(argv)
 
     from repro_torch.ckpt import load_checkpoint
@@ -134,9 +141,34 @@ def main(argv: Optional[Sequence[str]] = None,
         print(f"restored step {meta['step']}")
     else:
         params = init_params(cfg, args.seed, device=dev)
+    scope = contextlib.nullcontext()
+    if args.mesh_shape:
+        from repro_torch.dist.activations import activation_mesh
+        from repro_torch.dist.placement import place_tree
+        from repro_torch.dist.plan import make_plan
+        from repro_torch.launch.mesh import make_production_mesh, parse_mesh_shape
+
+        plan = make_plan(make_production_mesh(shape=parse_mesh_shape(args.mesh_shape),
+                                              device=dev), mode="serve")
+        params = place_tree(plan, params)
+        scope = activation_mesh(plan)
     rng = np.random.default_rng(args.seed)
     b = args.batch
     ctx = rng.integers(0, cfg.vocab, (b, args.context))
+    with scope:
+        gen = _serve(cfg, params, args, rng, ctx, b, dev)
+    if args.mesh_shape and torch.distributed.get_rank() != 0:
+        return gen
+    dt = gen.decode_seconds
+    print(f"{args.new_tokens} tokens x {b} requests in {dt:.2f}s "
+          f"({args.new_tokens * b / dt:.1f} tok/s)")
+    tokens = gen.tokens.cpu().numpy()
+    for r in range(b):
+        print(f"req{r}: {list(tokens[r][:16])}")
+    return gen
+
+
+def _serve(cfg, params, args, rng, ctx, b, dev) -> Generation:
     if cfg.family == "encdec":
         # the JAX launcher's branch: its cache, frames drawn after the context
         src = torch.as_tensor(rng.normal(size=(b, args.context, cfg.d_model)),
@@ -150,12 +182,6 @@ def main(argv: Optional[Sequence[str]] = None,
     else:
         gen = generate(cfg, params, ctx, args.new_tokens, device=dev)
         print(f"prefill of {b} x {args.context} tokens in {gen.prefill_seconds:.2f}s")
-    dt = gen.decode_seconds
-    print(f"{args.new_tokens} tokens x {b} requests in {dt:.2f}s "
-          f"({args.new_tokens * b / dt:.1f} tok/s)")
-    tokens = gen.tokens.cpu().numpy()
-    for r in range(b):
-        print(f"req{r}: {list(tokens[r][:16])}")
     return gen
 
 

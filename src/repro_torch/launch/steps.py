@@ -1,9 +1,11 @@
-"""Step builders on one device: a train step and a federated round (the
-port of ``repro.launch.steps``'s ``make_train_step`` and ``make_fl_round``).
+"""Step builders: a train step and a federated round (the port of
+``repro.launch.steps``'s ``make_train_step`` and ``make_fl_round``).
 
 The JAX builders take a mesh and return functions for ``jax.jit`` with
-shardings; on one device there is nothing to shard, so these take none and
-return the step itself. Gradients are autograd's (``torch.autograd.grad``
+shardings. Here, without a mesh, a builder returns the step on one device;
+with a ``DeviceMesh`` (``mesh=``), the step every rank runs on its part
+(the train step: FSDP and TP on DTensor parameters and optimizer state,
+``dist.parallel``; the round: one client a rank, below). Gradients are autograd's (``torch.autograd.grad``
 of :func:`repro_torch.models.model.forward_train`), taken on detached
 copies of the parameter leaves, so a step never writes a ``.grad`` and
 returns tensors that carry no graph.
@@ -20,15 +22,41 @@ on one device. Every stochastic draw comes in as an argument (one fp32
 uniform tensor per client per leaf for the uplink, one per leaf for the
 downlink), or is drawn from the caller's generator in that order, uplink
 before downlink, a gate that is off drawing nothing.
+
+With a mesh, the round puts one client on each rank of ``client_axis``,
+as the JAX package's ``lower_fl_round`` lays it out: the client stack is
+a DTensor sharded on the client axis (:func:`place_clients`), and the
+mesh's other axes shard each client's model: ``data`` is FSDP and data
+parallelism within the client, ``model`` its TP (a ``seq`` axis above 1
+raises). A rank takes its client's local step as a train step does
+(``dist.parallel``: its rows of the client's batch, each layer gathered
+inside its remat body, the gradient reduce-scattered), so it holds only
+its shard of the model and the step's gradient. It quantizes its shard
+with its client's uniforms cut to the shard; the client's range is a MAX
+all-reduce over its shards. ``collectives.all_gather_clients`` then moves
+exactly what the JAX round forces across the client axis (its
+``replicate_over_clients``): the fp32 dequantized payloads, or with
+``wire_packed`` the u8 index planes and packed sign planes, and each
+client's fp32 range. Every rank sums the eq.-2 terms in client order and
+runs the downlink and the screen on its shard. Where the client axis is
+the only axis above 1, the round is bit-equal to the stacked round on the
+same uniforms on the same device type; with intra-client axes the
+gradient's sums run in another order, so the local step agrees to fp32
+rounding and a stochastic rounding may land one level apart.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.core.quantization import quantize_pytree
+from repro_torch.core.quantization import quantize_leaves, quantize_pytree
+from repro_torch.dist import collectives
+from repro_torch.dist.activations import activation_mesh
+from repro_torch.dist.parallel import _is_dtensor, spec_of
+from repro_torch.dist.plan import MeshPlan, PartitionSpec as P, make_plan, mesh_coord
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import forward_train
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
@@ -53,22 +81,35 @@ def value_and_grad(cfg: ModelConfig, params: Tree, batch: dict,
         loss, metrics = forward_train(cfg, tree_util.from_leaves(key_paths, leaves), batch,
                                       **train_kw)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    for path, p, g in zip(key_paths, leaves, grads):
+        if _is_dtensor(p) and (not _is_dtensor(g) or g.placements != p.placements):
+            raise RuntimeError(f"the gradient of {'/'.join(path)} lost its parameter's "
+                               f"placements {p.placements}")
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_util.from_leaves(key_paths, list(grads)))
 
 
 # ------------------------------------------------------------ train
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, causal_skip: bool = False,
-                    remat: bool = True, clip_norm: float = 1.0,
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, mesh=None,
+                    causal_skip: bool = False, remat: bool = True, clip_norm: float = 1.0,
                     remat_policy: str = "full") -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss's value and gradient, the gradient clipped to ``clip_norm``
     by its global norm, one optimizer update, applied. ``metrics`` holds
-    ``forward_train``'s and the pre-clip ``grad_norm``."""
+    ``forward_train``'s and the pre-clip ``grad_norm``.
+
+    With a ``DeviceMesh``, every rank calls the step with its DTensor
+    params and optimizer state (``dist.placement``) and the global batch;
+    the forward and backward run under ``activation_mesh(make_plan(mesh))``
+    (``dist.parallel``: FSDP on the data axes, TP/EP on ``model``), and the
+    step returns DTensors with unchanged placements."""
+    plan = None if mesh is None else make_plan(mesh)
+
     def train_step(params, opt_state, batch):
-        _, metrics, grads = value_and_grad(cfg, params, batch, causal_skip=causal_skip,
-                                           remat=remat, remat_policy=remat_policy)
+        with activation_mesh(plan) if plan is not None else contextlib.nullcontext():
+            _, metrics, grads = value_and_grad(cfg, params, batch, causal_skip=causal_skip,
+                                               remat=remat, remat_policy=remat_policy)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         del grads
@@ -124,8 +165,39 @@ def _stacked_max_abs(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.amax(torch.stack([torch.amax(torch.abs(leaf)) for leaf in leaves]))
 
 
+def fl_plan(mesh, client_axis: str = "pod") -> MeshPlan:
+    """The round's plan (``lower_fl_round``'s): the client axis routes the
+    ``clients`` logical axis, the mesh's other data axes shard each
+    client's model."""
+    names = tuple(mesh.mesh_dim_names)
+    if client_axis not in names:
+        raise ValueError(f"client axis {client_axis!r} is not an axis of the mesh {names}")
+    intra = tuple(a for a in ("data", "seq") if a in names and a != client_axis)
+    return make_plan(mesh, dp_override=intra, client_axis=client_axis)
+
+
+def client_specs(plan: MeshPlan, stacked: Tree) -> Tree:
+    """Specs of a (K, ...) client stack: the client axis, then each
+    client's ``param_specs``."""
+    from repro_torch.dist.sharding import param_specs
+
+    k = tree_util.leaves(stacked)[0].shape[0]
+    one = tree_util.map(lambda t: t[0], stacked)
+    return tree_util.map(lambda s: plan.stack(s, "clients", k), param_specs(plan, one))
+
+
+def place_clients(mesh, stacked: Tree, client_axis: str = "pod") -> Tree:
+    """A (K, ...) client stack of whole tensors (every rank the same) as
+    DTensors laid out for :func:`make_fl_round` on ``mesh``."""
+    from repro_torch.dist.placement import place_tree
+
+    plan = fl_plan(mesh, client_axis)
+    return place_tree(plan, stacked, client_specs(plan, stacked))
+
+
 def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = False,
-                  downlink: str = "off", screen: bool = False) -> Callable:
+                  downlink: str = "off", screen: bool = False, mesh=None,
+                  client_axis: str = "pod") -> Callable:
     """One FL communication round (paper Fig. 1 steps 3-5) over K stacked
     clients: ``fl_round(client_params, batch, q_bits, weights, *,
     uniforms=None, downlink_uniforms=None, generator=None)``.
@@ -146,7 +218,14 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
     the round's update ``agg - theta^{n-1}`` instead. ``screen``: a client
     with a non-finite range or payload, or a u8 plane above its 2^q - 1
     levels, is dropped from the sum and the survivors' weights are
-    renormalized; when every client fails the round is a no-op."""
+    renormalized; when every client fails the round is a no-op.
+
+    ``mesh``: one client a rank of ``client_axis`` (module docstring);
+    ``client_params`` is then :func:`place_clients`' DTensor stack, the
+    other arguments as above on every rank (the whole (K, ...) batch, all
+    K clients' uniforms; B_local must divide over the intra-client data
+    axes), and the returned params a DTensor stack with the same
+    placements."""
     if downlink not in DOWNLINK_MODES:
         raise ValueError(f"downlink mode {downlink!r} not in {DOWNLINK_MODES}")
 
@@ -156,6 +235,10 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
             new = tree_util.map(lambda p, g: (p - lr * g.to(torch.float32)).to(p.dtype),
                                 params, grads)
         return new, loss
+
+    if mesh is not None:
+        return _fl_round_ranks(fl_plan(mesh, client_axis), client_axis, local_step,
+                               wire_packed, downlink, screen)
 
     @torch.no_grad()
     def fl_round(client_params, batch, q_bits, weights, *, uniforms=None,
@@ -176,10 +259,10 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
         if uniforms is None:
             uniforms = [_draw(shapes, generator, dev, "uniforms") for _ in range(n_clients)]
         if wire_packed:
-            agg, theta_max, n_screened = _packed_uplink(news, shapes, q_bits, weights, uniforms,
+            agg, n_screened, theta_max = _packed_uplink(news, shapes, q_bits, weights, uniforms,
                                                         screen)
         else:
-            agg, theta_max, n_screened = _fp32_uplink(news, key_paths, q_bits, weights,
+            agg, n_screened, theta_max = _fp32_uplink(news, key_paths, q_bits, weights,
                                                       uniforms, screen)
         if downlink == "off":
             stacked = [g[None].expand(c.shape).to(c.dtype) for g, c in zip(agg, c_leaves)]
@@ -199,6 +282,99 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
     return fl_round
 
 
+def _fl_round_ranks(plan: MeshPlan, client_axis: str, local_step, wire_packed: bool,
+                    downlink: str, screen: bool) -> Callable:
+    """:func:`make_fl_round` with one client a rank of ``client_axis``
+    (module docstring)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = plan.mesh
+    if plan.axis_size("seq") > 1:
+        raise ValueError("fl_round: a seq axis above 1 within a client (the round's "
+                         "sequence-parallel step) is distribution part B2b, not ported")
+    coord = mesh_coord(mesh)
+    k_rank = coord[client_axis]
+    intra = tuple(a for a in mesh.mesh_dim_names if a != client_axis and plan.axis_size(a) > 1)
+
+    def client_leaf(c, t):
+        """The rank's client as a DTensor on ``mesh``: the stack's
+        placements without the client dim (the client axis replicates
+        it: every rank of a client computes with that client alone)."""
+        pls = tuple(Replicate() if p.is_shard() and p.dim == 0
+                    else Shard(p.dim - 1) if p.is_shard() else p for p in t.placements)
+        shape = t.shape[1:]
+        return DTensor.from_local(c[0], mesh, pls, run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    def ok_reduce(ok):
+        return collectives.all_reduce_axes(ok.to(torch.float32), intra, "min") > 0
+
+    @torch.no_grad()
+    def fl_round(client_params, batch, q_bits, weights, *, uniforms=None,
+                 downlink_uniforms=None, generator: Optional[torch.Generator] = None):
+        key_paths = tree_util.paths(client_params)
+        stacks = tree_util.leaves(client_params)
+        n_clients = stacks[0].shape[0]
+        if n_clients != plan.axis_size(client_axis):
+            raise ValueError(f"fl_round: {n_clients} clients on a {client_axis} axis of "
+                             f"{plan.axis_size(client_axis)}")
+        dev = stacks[0].device
+        q_bits = torch.as_tensor(q_bits, device=dev).reshape(n_clients)
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev).reshape(n_clients)
+        shapes = [tuple(t.shape[1:]) for t in stacks]
+        specs = [P(*spec_of(t)[1:]) for t in stacks]
+        cuts = [plan.local_slice(sp, shp, coord) for sp, shp in zip(specs, shapes)]
+        c_loc = [t.to_local() for t in stacks]                   # (1, ...) the rank's shard
+        with activation_mesh(plan):
+            new, loss = local_step(
+                tree_util.from_leaves(key_paths, [client_leaf(c, t) for c, t in zip(c_loc, stacks)]),
+                {name: v[k_rank] for name, v in batch.items()})
+        new = [t.to_local() for t in tree_util.leaves(new)]
+        if uniforms is None:
+            uniforms = [_draw(shapes, generator, dev, "uniforms") for _ in range(n_clients)]
+        mine = [u[c] for u, c in zip(uniforms[k_rank], cuts)]
+        with activation_mesh(plan):
+            tmax = collectives.all_reduce_axes(_stacked_max_abs(new).to(torch.float32), intra,
+                                               "max")
+            theta_max = collectives.all_gather_clients(tmax, client_axis)
+            losses = collectives.all_gather_clients(loss.to(torch.float32), client_axis,
+                                                    tag="loss")
+            if wire_packed:
+                levels = _levels(torch.clamp(q_bits, max=8))
+                wire = _client_wire(new, mine, levels[k_rank], tmax)
+                planes = [(collectives.all_gather_clients(i, client_axis),
+                           collectives.all_gather_clients(sg, client_axis)) for i, sg in wire]
+                wires = [[(i[k], sg[k]) for i, sg in planes] for k in range(n_clients)]
+                agg, n_screened = _packed_sum(wires, [tuple(t.shape) for t in new], theta_max,
+                                              levels, weights, screen, ok_reduce)
+            else:
+                xq = quantize_leaves(mine, new, int(q_bits[k_rank]), tmax)
+                gathered = [collectives.all_gather_clients(x, client_axis) for x in xq]
+                agg, n_screened = _fp32_sum([[g[k] for g in gathered] for k in range(n_clients)],
+                                            theta_max, weights, screen, ok_reduce)
+            if downlink == "off":
+                out = [g[None].expand(c.shape).to(c.dtype) for g, c in zip(agg, c_loc)]
+            else:
+                if downlink_uniforms is None:
+                    downlink_uniforms = _draw(shapes, generator, dev, "downlink_uniforms")
+                axes = intra + ((client_axis,) if downlink == "delta" else ())
+                out = _downlink(downlink, agg, c_loc, [u[c] for u, c in zip(downlink_uniforms, cuts)],
+                                theta_reduce=lambda t: collectives.all_reduce_axes(
+                                    t, axes, "max", tag="downlink"))
+        loss = losses.mean()
+        if screen:
+            any_ok = n_screened < float(n_clients)
+            out = [torch.where(any_ok, o, c) for o, c in zip(out, c_loc)]
+        out = [DTensor.from_local(o.contiguous(), mesh, t.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride()) for o, t in zip(out, stacks)]
+        params = tree_util.from_leaves(key_paths, out)
+        if not screen:
+            return params, loss, theta_max
+        return params, loss, theta_max, n_screened
+
+    return fl_round
+
+
 def _fp32_uplink(news, key_paths, q_bits, weights, uniforms, screen):
     """``core.quantization.quantize_pytree`` per client (the dequantized
     uploads), then the eq.-2 sum in client order."""
@@ -209,6 +385,14 @@ def _fp32_uplink(news, key_paths, q_bits, weights, uniforms, screen):
         quantized.append(tree_util.leaves(tq))
         tmaxes.append(tmax)
     theta_max = torch.stack(tmaxes)
+    return _fp32_sum(quantized, theta_max, weights, screen) + (theta_max,)
+
+
+def _fp32_sum(quantized, theta_max, weights, screen, ok_reduce=None):
+    """The screen (a client with a non-finite range or payload leaves the
+    sum; ``ok_reduce`` ANDs the flags over a client's shards) and the eq.-2
+    sum of the dequantized uploads ``quantized[k]`` in client order.
+    Returns ``(agg, n_screened)``."""
     n_screened = None
     w_use = weights
     if screen:
@@ -216,44 +400,60 @@ def _fp32_uplink(news, key_paths, q_bits, weights, uniforms, screen):
         for k, leaves in enumerate(quantized):
             for leaf in leaves:
                 ok[k] = ok[k] & torch.isfinite(leaf.to(torch.float32)).all()
+        if ok_reduce is not None:
+            ok = ok_reduce(ok)
         w_use, n_screened = _renormalized(weights, ok)
         quantized = [[torch.where(ok[k], leaf, torch.zeros_like(leaf)) for leaf in leaves]
                      for k, leaves in enumerate(quantized)]
     agg = []
-    for j in range(len(key_paths)):
+    for j in range(len(quantized[0])):
         acc = quantized[0][j].to(torch.float32) * w_use[0]
         for k in range(1, len(quantized)):
             acc = acc + quantized[k][j].to(torch.float32) * w_use[k]
         agg.append(acc.to(quantized[0][j].dtype))
-    return agg, theta_max, n_screened
+    return agg, n_screened
+
+
+def _client_wire(leaves, uniforms, level, tmax):
+    """One client's wire planes: u8 indexes against its range ``tmax`` at
+    ``level`` = 2^q - 1 levels, and the packed sign bitmaps."""
+    safe = torch.where(tmax > 0, tmax, torch.ones_like(tmax))
+    wire = []
+    for u, leaf in zip(uniforms, leaves):
+        scaled = torch.abs(leaf.to(torch.float32)) * (level / safe)
+        lower = torch.floor(scaled)
+        idx = lower + (u < scaled - lower).to(torch.float32)
+        wire.append((torch.minimum(idx, level).to(torch.uint8),
+                     pack_signs((leaf < 0).to(torch.uint8))))
+    return wire
 
 
 def _packed_uplink(news, shapes, q_bits, weights, uniforms, screen):
     """The wire format: per client u8 indexes against its global range and
     a packed sign bitmap; the screen on the ranges and planes; the
     dequantize and eq.-2 sum of the unpacked planes, in client order."""
-    qb = torch.clamp(q_bits, max=8)
-    levels = _levels(qb)
+    levels = _levels(torch.clamp(q_bits, max=8))
     wires, tmaxes = [], []
     for k, leaves in enumerate(news):
         tmax = _stacked_max_abs(leaves).to(torch.float32)
-        safe = torch.where(tmax > 0, tmax, torch.ones_like(tmax))
-        wire = []
-        for u, leaf in zip(uniforms[k], leaves):
-            scaled = torch.abs(leaf.to(torch.float32)) * (levels[k] / safe)
-            lower = torch.floor(scaled)
-            idx = lower + (u < scaled - lower).to(torch.float32)
-            wire.append((torch.minimum(idx, levels[k]).to(torch.uint8),
-                         pack_signs((leaf < 0).to(torch.uint8))))
-        wires.append(wire)
+        wires.append(_client_wire(leaves, uniforms[k], levels[k], tmax))
         tmaxes.append(tmax)
     theta_max = torch.stack(tmaxes)
+    return _packed_sum(wires, shapes, theta_max, levels, weights, screen) + (theta_max,)
+
+
+def _packed_sum(wires, shapes, theta_max, levels, weights, screen, ok_reduce=None):
+    """The screen on the ranges and the u8 planes (``ok_reduce`` ANDs the
+    flags over a client's shards), then the dequantize and eq.-2 sum of the
+    unpacked planes in client order. Returns ``(agg, n_screened)``."""
     n_screened = None
     if screen:
         ok = torch.isfinite(theta_max)
         for k, wire in enumerate(wires):
             for idx, _ in wire:
                 ok[k] = ok[k] & (torch.amax(idx.to(torch.float32)) <= levels[k])
+        if ok_reduce is not None:
+            ok = ok_reduce(ok)
         w_use, n_screened = _renormalized(weights, ok)
         coef = w_use * torch.where(ok, theta_max, torch.zeros_like(theta_max)) / levels
     else:
@@ -268,14 +468,15 @@ def _packed_uplink(news, shapes, q_bits, weights, uniforms, screen):
             term = coef[k] * torch.where(bits > 0, -mag, mag)
             out = term if out is None else out + term
         agg.append(out)
-    return agg, theta_max, n_screened
+    return agg, n_screened
 
 
-def _downlink(mode, agg, c_leaves, uniforms):
+def _downlink(mode, agg, c_leaves, uniforms, theta_reduce=None):
     """The broadcast leg at DOWNLINK_Q_BITS: one range over the target (the
     aggregate for ``"quant"``, the stacked update ``agg - theta^{n-1}`` for
-    ``"delta"``) and one uniform tensor per leaf at the unstacked shape, so
-    every client decodes the identical payload."""
+    ``"delta"``; ``theta_reduce`` takes it to the max over every rank's
+    part) and one uniform tensor per leaf at the unstacked shape, so every
+    client decodes the identical payload."""
     dl_levels = torch.full((), 2.0**DOWNLINK_Q_BITS - 1.0, dtype=torch.float32,
                            device=agg[0].device)
     if mode == "quant":
@@ -283,6 +484,8 @@ def _downlink(mode, agg, c_leaves, uniforms):
     else:
         target = [g[None].to(torch.float32) - c.to(torch.float32) for g, c in zip(agg, c_leaves)]
     theta_d = _stacked_max_abs(target)
+    if theta_reduce is not None:
+        theta_d = theta_reduce(theta_d)
     safe_d = torch.where(theta_d > 0, theta_d, torch.ones_like(theta_d))
     stacked = []
     for u, tgt, c in zip(uniforms, target, c_leaves):

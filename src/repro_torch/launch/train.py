@@ -1,23 +1,33 @@
 """Training launcher on one device (the port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi_6b --reduced \\
-        --steps 100 --batch 8 --seq 128 [--ckpt-dir DIR] [--fl-interval 10]
+        --steps 100 --batch 8 --seq 128 [--ckpt-dir DIR] [--fl-interval 10] \\
+        [--mesh-shape 2x2]
 
 The JAX launcher's flags and printed lines. ``--reduced`` (the default)
 trains the arch's reduced variant, ``--full`` its published config, on
-``cuda`` (one card; the JAX launcher's ``--full`` takes a 256-device mesh,
-which has no counterpart here). Parameters are fp32 masters from
+``cuda``. ``--mesh-shape`` (``launch.mesh.parse_mesh_shape``; the caller
+initializes the process group, ``nccl`` on the card, ``gloo`` with
+``device="cpu"``) places the parameters and the adamw state as DTensors
+through the mesh's train plan (``dist.placement.init_params_local``: each
+rank draws and keeps its shards, the draws of the unsharded run) and
+trains with ``make_train_step(..., mesh=)``: the JAX launcher's
+``plan.named(param_specs)`` path. Every rank draws the same global batch.
+Without the flag the run is on one device. Parameters are fp32 masters from
 ``--seed``; the optimizer is ``adamw(--lr)`` with the step's global-norm
 clip at 1.0; batches come from ``np.random.default_rng(--seed)``, draw for
 draw as the JAX launcher makes them. ``--ckpt-dir``/``--ckpt-every`` save
 the parameters (``repro_torch.ckpt``: the JAX package's layout, so either
-package resumes from the other's files); ``--resume`` restores the latest
-complete one, re-initializes the optimizer and fast-forwards the data
+package resumes from the other's files; on a mesh the whole tree, written
+by global rank 0); ``--resume`` restores the latest complete one (on a
+mesh: re-placed), re-initializes the optimizer and fast-forwards the data
 stream and the FL uniforms over the trained steps. ``--fl-interval N``
 inserts the paper's quantized aggregation every N steps: two virtual
-clients quantize the parameters with ``core.quantization.quantize_pytree``
-at ``--fl-q`` bits, on uniforms from a torch generator seeded with
-``--seed`` (one tensor per leaf, client 1 then client 2), and average them.
+clients quantize the parameters (on a mesh the whole tree, then
+re-placed; the clients are not ranks) with
+``core.quantization.quantize_pytree`` at ``--fl-q`` bits, on uniforms from
+a torch generator seeded with ``--seed`` (one tensor per leaf, client 1
+then client 2), and average them.
 ``--ledger`` writes the run's header and timings, ``--xprof`` a profile of
 the steps after the first.
 """
@@ -36,7 +46,7 @@ from repro_torch.device import resolve_device
 
 
 class TrainRun(NamedTuple):
-    params: dict            # the final parameters
+    params: dict            # the final parameters (on a mesh: the whole tree, every rank)
     losses: list            # [float] each trained step's loss (the cross-entropy)
     grad_norms: list        # [float] each trained step's pre-clip gradient norm
     start_step: int         # 0, or the resumed checkpoint's step
@@ -101,6 +111,8 @@ def main(argv: Optional[Sequence[str]] = None,
                     help="JSONL run-ledger path (default: $REPRO_LEDGER)")
     ap.add_argument("--xprof", default=None, metavar="DIR",
                     help="profiler capture of the steps after the first")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="e.g. 2x2: train on a DeviceMesh of the initialized process group")
     args = ap.parse_args(argv)
 
     from repro_torch.ckpt import latest_step, load_checkpoint, save_checkpoint
@@ -108,11 +120,20 @@ def main(argv: Optional[Sequence[str]] = None,
     from repro_torch.core.quantization import quantize_pytree
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import init_params, params_from_numpy
-    from repro_torch.obs import default_ledger, maybe_trace
+    from repro_torch.obs import Ledger, default_ledger, maybe_trace
     from repro_torch.optim import adamw
 
     dev = resolve_device(device)
-    ledger = default_ledger(args.ledger)
+    plan = None
+    if args.mesh_shape:
+        from repro_torch.dist.plan import make_plan
+        from repro_torch.launch.mesh import make_production_mesh, parse_mesh_shape
+
+        plan = make_plan(make_production_mesh(shape=parse_mesh_shape(args.mesh_shape),
+                                              device=dev))
+    lead = plan is None or torch.distributed.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    ledger = default_ledger(args.ledger) if lead else Ledger(None)
     ledger.run_header(
         name=f"train[{args.arch}]", entry="launch.train", arch=args.arch,
         reduced=bool(args.reduced), steps=args.steps, batch=args.batch,
@@ -121,24 +142,31 @@ def main(argv: Optional[Sequence[str]] = None,
     )
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     opt = adamw(args.lr)
-    params = init_params(cfg, args.seed, device=dev, param_dtype=torch.float32)
+    if plan is None:
+        params = init_params(cfg, args.seed, device=dev, param_dtype=torch.float32)
+    else:
+        from repro_torch.dist.placement import full_tree, init_params_local, place_tree
+
+        params = init_params_local(cfg, plan, args.seed, device=dev, param_dtype=torch.float32)
     start_step = 0
     if args.resume:
         if not args.ckpt_dir:
             ap.error("--resume requires --ckpt-dir")
         last = latest_step(args.ckpt_dir)
         if last is None:
-            print(f"--resume: no complete checkpoint in {args.ckpt_dir}; starting fresh",
-                  flush=True)
+            say(f"--resume: no complete checkpoint in {args.ckpt_dir}; starting fresh",
+                flush=True)
         else:
             # load_checkpoint validates the sidecar (keys/shapes/dtypes)
             tree, meta = load_checkpoint(args.ckpt_dir, last)
             params = params_from_numpy(tree, dev)
+            if plan is not None:
+                params = place_tree(plan, params)
             start_step = int(meta["step"])
             ledger.write("resume", step=start_step, action="load", dir=str(args.ckpt_dir))
-            print(f"resumed from step {start_step} ({args.ckpt_dir})", flush=True)
-    opt_state = opt.init(params)
-    step = make_train_step(cfg, opt)
+            say(f"resumed from step {start_step} ({args.ckpt_dir})", flush=True)
+    opt_state = opt.init(params)     # on a mesh: DTensor moments, the params' placements
+    step = make_train_step(cfg, opt, mesh=None if plan is None else plan.mesh)
 
     rng = np.random.default_rng(args.seed)
     fl_gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -164,26 +192,34 @@ def main(argv: Optional[Sequence[str]] = None,
             if args.xprof:  # steady state only
                 prof.enter_context(maybe_trace(args.xprof))
         if i % 10 == 0 or i == args.steps - 1:
-            print(f"step {i:4d} loss {float(metrics['loss']):.4f} "
+            say(f"step {i:4d} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time()-t0)/(i-start_step+1):.2f}s/step)", flush=True)
         if args.fl_interval and (i + 1) % args.fl_interval == 0:
             # paper eq. 2 on 2 virtual clients: quantize + weighted-average
-            u1, u2 = _fl_uniforms(params, fl_gen)
-            q1, t1 = quantize_pytree(u1, params, args.fl_q)
-            q2, _ = quantize_pytree(u2, params, args.fl_q)
+            whole = params if plan is None else full_tree(params)
+            u1, u2 = _fl_uniforms(whole, fl_gen)
+            q1, t1 = quantize_pytree(u1, whole, args.fl_q)
+            q2, _ = quantize_pytree(u2, whole, args.fl_q)
             params = tree_util.map(
                 lambda a, c: (0.5 * a.to(torch.float32) + 0.5 * c.to(torch.float32)).to(a.dtype),
                 q1, q2)
-            print(f"  fl sync @ step {i+1}: q={args.fl_q} theta_max={float(t1):.3f}", flush=True)
+            if plan is not None:
+                params = place_tree(plan, params)
+            say(f"  fl sync @ step {i+1}: q={args.fl_q} theta_max={float(t1):.3f}", flush=True)
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
-            path = save_checkpoint(args.ckpt_dir, i + 1, params,
-                                   extra={"loss": float(metrics["loss"])})
-            print(f"  saved {path}", flush=True)
+            whole = params if plan is None else full_tree(params)
+            if lead:
+                path = save_checkpoint(args.ckpt_dir, i + 1, whole,
+                                       extra={"loss": float(metrics["loss"])})
+                print(f"  saved {path}", flush=True)
+            del whole
     prof.close()
+    if plan is not None:
+        params = full_tree(params)
     run = TrainRun(params, [float(x) for x in losses], [float(x) for x in gnorms], start_step)
     if metrics is None:
-        print(f"nothing to do: resumed step {start_step} >= --steps {args.steps}", flush=True)
+        say(f"nothing to do: resumed step {start_step} >= --steps {args.steps}", flush=True)
         return run
     ledger.timing("train_loop", time.time() - t0, entry="launch.train", steps=args.steps,
                   final_loss=float(metrics["loss"]))

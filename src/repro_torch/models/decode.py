@@ -27,6 +27,13 @@ are never sharded, as the JAX package's ``cache_seq`` rule says), and takes
 the last logits from the last seq rank: every rank leaves with the whole
 cache and the same logits, and decoding runs replicated.
 
+Under a tensor-parallel serve plan (``make_plan(mesh, mode="serve")``,
+``params`` placed as DTensors) each rank runs its heads, SwiGLU columns or
+experts; its cache holds its KV/m heads where KV divides the ``model``
+axis (``_CACHE_DIMS``: ``cache_seq`` is never sharded), else every KV head;
+the vocab table is gathered at use, so every rank leaves with the same
+logits.
+
 Unlike the JAX functions, which return a new cache, :func:`decode_step`
 and :func:`encode` update the cache in place (and return the same dict):
 at Llama-3-8B's size a copy of the cache per token would cost 2.2 GB of
@@ -39,13 +46,15 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives, parallel
 from repro_torch.models import layers, mamba2, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     _SEQ_SHARD, Params, _cross_attention, _forward_encoder, _holding, _mamba_block,
     _merge_heads, _positions, _proj_heads, _rwkv_block, _self_attention, _shared_attn_block,
-    embed_inputs, ffn, from_last_shard, gather_seq, layer_params, lm_head, rwkv_state,
-    seq_shard, shared_window,
+    attention_mode, embed_inputs, embed_table, expand_local_kv, ffn, final_norm,
+    from_last_shard, gather_seq, head_table, layer_params, rwkv_state, seq_shard,
+    shared_window,
 )
 
 Cache = dict
@@ -82,7 +91,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, *,
             "pos": 0,
         }
     lc = cfg.effective_cache_len(seq_len)
-    shape = (cfg.n_layers, b, lc, cfg.n_kv_heads, cfg.hd)
+    kv = cfg.n_kv_heads
+    if parallel.on_model(("layers", "attn", "wk"), 2):      # the rank's KV heads
+        kv //= parallel.current().model
+    shape = (cfg.n_layers, b, lc, kv, cfg.hd)
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=dev),
         "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -115,13 +127,19 @@ def encode(cfg: ModelConfig, params: Params, cache: Cache, src_embeds: torch.Ten
     (B, S_src, D), then each decoder layer's cross-attention k/v of its
     output, written into ``cache["mem_k"]``/``cache["mem_v"]`` (the cache,
     returned)."""
+    view, params, _ = parallel.enter(cfg, params)
+    with parallel.holding(view):
+        return _encode(cfg, params, cache, src_embeds)
+
+
+def _encode(cfg: ModelConfig, params: Params, cache: Cache, src_embeds: torch.Tensor) -> Cache:
     mem = _forward_encoder(cfg, params, src_embeds.to(cfg.activation_dtype))
     b, s = mem.shape[:2]
     shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd)
     mem_k = torch.empty(shape, dtype=mem.dtype, device=mem.device)
     mem_v = torch.empty_like(mem_k)
     for i in range(cfg.n_layers):
-        xp = layer_params(params, i)["xattn"]
+        xp = parallel.layer(layer_params(params, i))["xattn"]
         mem_k[i] = _proj_heads(mem, xp["wk"])
         mem_v[i] = _proj_heads(mem, xp["wv"])
     cache["mem_k"], cache["mem_v"] = mem_k, mem_v
@@ -134,6 +152,9 @@ def _attn_cache_step(cfg: ModelConfig, p: dict, x: torch.Tensor, k_cache: torch.
     position's k/v into slot ``pos % Lc`` of the layer's cache views and
     marks the slot in ``slot_pos``, in place."""
     lc = k_cache.shape[1]
+    mode, p = attention_mode(cfg, p)
+    if mode != "whole":
+        x = collectives.copy_to_model(x)
     q = _proj_heads(x, p["wq"])[:, None]                 # (B, 1, H, hd)
     k = _proj_heads(x, p["wk"])[:, None]
     v = _proj_heads(x, p["wv"])[:, None]
@@ -144,8 +165,10 @@ def _attn_cache_step(cfg: ModelConfig, p: dict, x: torch.Tensor, k_cache: torch.
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
     slot_pos[slot] = pos
-    o = layers.decode_attention(q, k_cache, v_cache, slot_pos)
-    return _merge_heads(o[:, 0], p["wo"])
+    o = layers.decode_attention(q, *expand_local_kv(cfg, mode, k_cache, v_cache, q.shape[2]),
+                                slot_pos)
+    out = _merge_heads(o[:, 0], p["wo"])
+    return out if mode == "whole" else collectives.reduce_from_model(out)
 
 
 def _rwkv_step(cfg: ModelConfig, params: Params, cache: Cache, h: torch.Tensor) -> torch.Tensor:
@@ -153,7 +176,7 @@ def _rwkv_step(cfg: ModelConfig, params: Params, cache: Cache, h: torch.Tensor) 
     sequential WKV at T = 1) and the channel mix, carries and states
     written back into the cache."""
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = parallel.layer(layer_params(params, i))
         a, tm_carry, s_new = rwkv6.time_mix_step(
             lp["tm"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps), cache["x_tm"][i],
             cache["s"][i], cfg.rwkv_heads)
@@ -172,10 +195,10 @@ def _hybrid_step(cfg: ModelConfig, params: Params, cache: Cache, h: torch.Tensor
     """The hybrid family's layers at one token: each Mamba2 layer's step
     on its states, then each shared-attention application on its own ring;
     every application writes slot ``pos % Lc`` of the one ``slot_pos``."""
-    shared = params["shared_attn"]
+    shared = parallel.tree(params["shared_attn"], "shared_attn")
     for j in range(cfg.n_layers // cfg.attn_every):
         for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
-            lp = layer_params(params, i)
+            lp = parallel.layer(layer_params(params, i))
             a, st = mamba2.mamba2_step(
                 lp["mamba"], layers.rmsnorm(lp["ln"], h, cfg.norm_eps),
                 {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
@@ -196,17 +219,24 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     """One token for every sequence in the batch. tokens: (B,) int.
     Returns (logits (B, V) fp32, the cache, updated in place). The moe
     family routes with ``capacity_factor = n_experts``: no drops at S = 1."""
+    view, params, _ = parallel.enter(cfg, params)
+    with parallel.holding(view):
+        return _decode_step(cfg, params, cache, tokens)
+
+
+def _decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                 tokens: torch.Tensor) -> tuple[torch.Tensor, Cache]:
     encdec = cfg.family == "encdec"
     if encdec and cache["mem_k"] is None:
         raise ValueError("decode_step: the encdec cache has no cross k/v; run encode() first")
     pos = cache["pos"]
-    h = layers.embed(params["embed"], tokens, cfg.activation_dtype)   # (B, D)
+    h = layers.embed(embed_table(params), tokens, cfg.activation_dtype)   # (B, D)
     if cfg.family == "ssm":
         return _finish_step(cfg, params, cache, _rwkv_step(cfg, params, cache, h))
     if cfg.family == "hybrid":
         return _finish_step(cfg, params, cache, _hybrid_step(cfg, params, cache, h, pos))
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = parallel.layer(layer_params(params, i))
         h = h + _attn_cache_step(
             cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
             cache["k"][i], cache["v"][i], cache["slot_pos"], pos,
@@ -231,8 +261,7 @@ def _finish_step(cfg: ModelConfig, params: Params, cache: Cache,
 
 def _logits(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
     """fp32 logits (B, V) of the final norm of h (B, 1, D)."""
-    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return layers.unembed(lm_head(cfg, params), h)[:, 0, :]
+    return layers.unembed(head_table(cfg, params), final_norm(cfg, params, h))[:, 0, :]
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: dict,
@@ -244,6 +273,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     for vlm (its positions come first); for encdec it holds
     ``src_embeds`` (B, S_src, D) and the prefill is :func:`encode`
     followed by one :func:`decode_step` of BOS = 0, as in the JAX package.
+    Under a tensor-parallel serve plan every rank passes the whole batch
+    (module docstring).
 
     Each attention layer ring-writes the RoPE'd k/v of its last
     ``m_keep = min(Lc, S)`` positions into slots ``(S - m_keep +
@@ -254,6 +285,13 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
     The recurrent families keep each layer's final states, from the
     chunked scans when S is a multiple of their chunk.
     """
+    view, params, batch = parallel.enter(cfg, params, batch)
+    with parallel.holding(view):
+        return _prefill(cfg, params, batch, seq_len)
+
+
+def _prefill(cfg: ModelConfig, params: Params, batch: dict,
+             seq_len: int) -> tuple[torch.Tensor, Cache]:
     shard, batch = seq_shard(cfg, batch)
     if cfg.family == "encdec":
         src = batch["src_embeds"]
@@ -283,7 +321,7 @@ def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
         x_prev, s0 = rwkv_state(cfg, b, dev)
         for i in range(cfg.n_layers):
             h, cache["x_tm"][i], cache["x_cm"][i], cache["s"][i] = _rwkv_block(
-                cfg, layer_params(params, i), h, x_prev, x_prev, s0)
+                cfg, parallel.layer(layer_params(params, i)), h, x_prev, x_prev, s0)
         return _logits(cfg, params, h[:, -1:, :]), cache
     lc = cache["slot_pos"].shape[0]
     m_keep = min(lc, s)
@@ -293,14 +331,15 @@ def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
     if cfg.family == "hybrid":
         for j in range(cfg.n_layers // cfg.attn_every):
             for i in range(j * cfg.attn_every, (j + 1) * cfg.attn_every):
-                h, st = _mamba_block(cfg, layer_params(params, i), h)
+                h, st = _mamba_block(cfg, parallel.layer(layer_params(params, i)), h)
                 cache["ssm"][i], cache["conv"][i] = st["ssm"], st["conv"]
-            h, k, v = _shared_attn_block(cfg, params["shared_attn"], h, positions)
+            h, k, v = _shared_attn_block(cfg, parallel.tree(params["shared_attn"], "shared_attn"),
+                                         h, positions)
             cache["k"][j][:, slots] = k[:, s - m_keep:]
             cache["v"][j][:, slots] = v[:, s - m_keep:]
         return _logits(cfg, params, h[:, -1:, :]), cache
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = parallel.layer(layer_params(params, i))
         a, k, v = _self_attention(
             cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
             causal=True, positions=positions,

@@ -38,8 +38,19 @@ and run attention as the ring over the mesh's ``seq`` group
 the last position's logits come from the last seq rank. This needs
 ``attn_impl="flash"``, S above 2,048 and ``S % (n chunk_size) == 0`` (the
 JAX package's ring test); anything else under such a plan raises, as do
-the other families and a ``model`` axis above 1 (heads on ``model`` are
-not ported).
+the other families.
+
+Model parallelism (``dist.parallel``): under a plan with parameters placed
+as DTensors (``dist.placement``), every entry point takes the rank's local
+shards (:func:`parallel.enter`), each layer gathers its FSDP-sharded
+leaves inside its remat body (``parallel.layer``), and the dense and moe
+families run their attention heads, SwiGLU columns and experts of the
+``model`` axis locally between ``copy_to_model`` and ``reduce_from_model``
+(:func:`attention_mode`, :func:`ffn`); the vocab tables are gathered at
+use. Heads go on ``model`` where H divides it (KV too, or each rank expands
+GQA for its heads); under the ring only where both do, else the heads stay
+replicated. The other four families take FSDP only: a ``model`` axis above
+1 raises.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch import tree as tree_util
 from repro_torch.device import resolve_device
+from repro_torch.dist import collectives, parallel
 from repro_torch.dist.activations import current_activation_plan
 from repro_torch.dist.plan import mesh_coord
 from repro_torch.dist.ring import GroupRing, ring_flash_attention
@@ -119,23 +131,28 @@ def _encdec_dec_layer_params(cfg: ModelConfig, gen: torch.Generator,
 
 
 def _stack_layers(layer_fn, cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
-                  n: int) -> dict:
+                  n: int, cut=None, top: str = "layers") -> dict:
     """``n`` layers of ``layer_fn`` stacked on a leading axis, drawn one at a
     time into the stacked tensors, so a full-size model never has its fp32
-    draws all at once."""
-    layer = layer_fn(cfg, gen, dtype)
-    stacked = tree_util.map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
+    draws all at once; ``cut((top, *path), t)`` keeps a part of each
+    layer's leaf (:func:`init_params`)."""
+    stacked = None
     for i in range(n):
-        if i:
-            layer = layer_fn(cfg, gen, dtype)
-        for dst, src in zip(tree_util.leaves(stacked), tree_util.leaves(layer)):
+        layer = layer_fn(cfg, gen, dtype)
+        key_paths, parts = tree_util.paths(layer), tree_util.leaves(layer)
+        if cut is not None:
+            parts = [cut((top,) + p, t) for p, t in zip(key_paths, parts)]
+        if stacked is None:
+            stacked = [t.new_empty((n,) + tuple(t.shape)) for t in parts]
+        for dst, src in zip(stacked, parts):
             dst[i] = src
-    return stacked
+        del layer, parts
+    return tree_util.from_leaves(key_paths, stacked)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
-                param_dtype: Optional[torch.dtype] = None) -> Params:
+                param_dtype: Optional[torch.dtype] = None, cut=None) -> Params:
     """Random parameters from ``seed``, made on ``device`` (``cuda`` unless
     asked otherwise) by a generator there, in the JAX package's tree,
     shapes and scales. Matrices are drawn in fp32 and stored in
@@ -145,42 +162,55 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     vectors and group-norm affine; Mamba2's ``a_log``, ``d_skip``,
     ``dt_bias``) stay fp32.
     torch's generator cannot replay ``jax.random``: carry the JAX package's
-    weights over with :func:`params_from_numpy`."""
+    weights over with :func:`params_from_numpy`.
+    ``cut(path, t)``, when given, takes each leaf as it is drawn (a stacked
+    leaf one layer at a time, its path naming the stack) and returns the
+    part to keep: ``dist.placement.init_params_local`` keeps a rank's
+    shards, the draws unchanged."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
     dev = resolve_device(device)
     dtype = cfg.activation_dtype if param_dtype is None else param_dtype
     gen = (_MetaGenerator() if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(int(seed)))
+    def keep(top: str, sub: dict) -> dict:
+        if cut is None:
+            return sub
+        key_paths = tree_util.paths(sub)
+        return tree_util.from_leaves(key_paths, [cut((top,) + p, t) for p, t in
+                                                 zip(key_paths, tree_util.leaves(sub))])
+
     params: Params = {
-        "embed": layers.embedding_params(gen, cfg.vocab, cfg.d_model, dtype),
-        "final_norm": layers.rmsnorm_params(cfg.d_model, dev),
+        "embed": keep("embed", layers.embedding_params(gen, cfg.vocab, cfg.d_model, dtype)),
+        "final_norm": keep("final_norm", layers.rmsnorm_params(cfg.d_model, dev)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = layers.embedding_params(gen, cfg.vocab, cfg.d_model, dtype)
+        params["lm_head"] = keep("lm_head",
+                                 layers.embedding_params(gen, cfg.vocab, cfg.d_model, dtype))
     fam = cfg.family
     if fam == "encdec":
         params["enc_layers"] = _stack_layers(_dense_layer_params, cfg, gen, dtype,
-                                             cfg.n_enc_layers)
+                                             cfg.n_enc_layers, cut, "enc_layers")
         params["layers"] = _stack_layers(_encdec_dec_layer_params, cfg, gen, dtype,
-                                         cfg.n_layers)
-        params["enc_norm"] = layers.rmsnorm_params(cfg.d_model, dev)
+                                         cfg.n_layers, cut)
+        params["enc_norm"] = keep("enc_norm", layers.rmsnorm_params(cfg.d_model, dev))
     elif fam == "ssm":
-        params["layers"] = _stack_layers(_rwkv_layer_params, cfg, gen, dtype, cfg.n_layers)
+        params["layers"] = _stack_layers(_rwkv_layer_params, cfg, gen, dtype, cfg.n_layers, cut)
     elif fam == "hybrid":
-        params["layers"] = _stack_layers(_mamba_layer_params, cfg, gen, dtype, cfg.n_layers)
-        params["shared_attn"] = {
+        params["layers"] = _stack_layers(_mamba_layer_params, cfg, gen, dtype, cfg.n_layers,
+                                         cut)
+        params["shared_attn"] = keep("shared_attn", {
             "ln": layers.rmsnorm_params(cfg.d_model, dev),
             "ln2": layers.rmsnorm_params(cfg.d_model, dev),
             "attn": layers.attention_params(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                             cfg.hd, dtype),
             "mlp": layers.swiglu_params(gen, cfg.d_model, cfg.d_ff, cfg.n_layers, dtype),
-        }
+        })
     else:
-        params["layers"] = _stack_layers(_dense_layer_params, cfg, gen, dtype, cfg.n_layers)
+        params["layers"] = _stack_layers(_dense_layer_params, cfg, gen, dtype, cfg.n_layers, cut)
     if fam == "vlm":
-        params["vis_proj"] = {"w": layers.dense_init((cfg.d_model, cfg.d_model), 0.02, gen,
-                                                     dtype)}
+        params["vis_proj"] = keep("vis_proj", {
+            "w": layers.dense_init((cfg.d_model, cfg.d_model), 0.02, gen, dtype)})
     return params
 
 
@@ -269,6 +299,7 @@ def _remat(body, remat: bool, remat_policy: str = "full"):
     off (serving), runs ``body`` as it is; the numbers are the same."""
     if not remat or not torch.is_grad_enabled():
         return body
+    body = parallel.bind(body)        # the recompute sees the forward's plan
     if remat_policy == "save_moe_out":
         def named(*args):
             _MOE_OUT.naming = True
@@ -335,10 +366,6 @@ def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[SeqShard], dict]:
     if not isinstance(ent, str) or plan.axis_size(ent) == 1:
         return None, batch           # not sharded: every rank runs the whole sequence
     n = plan.axis_size(ent)
-    if plan.axis_size("model") > 1:
-        raise ValueError(
-            "a model axis above 1 under a seq plan puts heads on 'model': distribution "
-            "part B2 (tensor parallelism), not ported")
     if not (cfg.attn_impl == "flash" and s > DENSE_ATTN_MAX_SEQ
             and s % (n * cfg.chunk_size) == 0):
         raise ValueError(
@@ -370,18 +397,14 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 def gather_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
     """All shards of x (B, S_loc, ...) in sequence order, on every rank."""
-    parts = [torch.empty_like(x) for _ in range(shard.n)]
-    torch.distributed.all_gather(parts, x.contiguous(), group=shard.group)
-    return torch.cat(parts, dim=1)
+    return collectives.all_gather(x, shard.group, "seq", dim=1)
 
 
 def from_last_shard(x: torch.Tensor, shard: Optional[SeqShard]) -> torch.Tensor:
     """x as the last seq rank holds it (the sequence's last position),
     broadcast to every rank of the group."""
     if shard is not None:
-        x = x.contiguous()
-        src = torch.distributed.get_global_rank(shard.group, shard.n - 1)
-        torch.distributed.broadcast(x, src=src, group=shard.group)
+        x = collectives.broadcast(x, shard.n - 1, shard.group, "seq")
     return x
 
 
@@ -398,6 +421,33 @@ def _flash_dispatch(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch
     return layers.flash_attention(q, k, v, causal=causal, window=window)
 
 
+def attention_mode(cfg: ModelConfig, p: dict, *, ring: bool = False) -> tuple[str, dict]:
+    """The rank's attention layout (``dist.parallel.heads_mode``) and the
+    weights it computes with: under the ring with heads that stay
+    replicated, the query and output weights gathered over ``model``; in
+    ``"expand"`` mode the replicated wk/wv, whose gradient each rank holds
+    a part of (its heads'), summed over ``model`` in backward."""
+    mode = parallel.heads_mode(cfg, p["wq"].shape[1], p["wk"].shape[1], ring=ring)
+    if mode == "gather":
+        p = dict(p, wq=collectives.gather_model(p["wq"], 1),
+                 wo=collectives.gather_model(p["wo"], 0))
+        mode = "whole"
+    elif mode == "expand":         # every rank reads the whole wk/wv for its own heads
+        p = dict(p, wk=collectives.copy_to_model(p["wk"]), wv=collectives.copy_to_model(p["wv"]))
+    return mode, p
+
+
+def expand_local_kv(cfg: ModelConfig, mode: str, k: torch.Tensor, v: torch.Tensor,
+                    h_local: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``"expand"`` mode: the K/V (B, T, KV, hd) of each of the rank's
+    ``h_local`` q heads (B, T, h_local, hd), so the kernels' head map
+    ``h // g`` is the identity; else k and v as they are."""
+    if mode != "expand":
+        return k, v
+    idx = parallel.local_kv_index(cfg, h_local, k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _self_attention(
     cfg: ModelConfig, p: dict, x: torch.Tensor, *, causal: bool, positions: torch.Tensor,
     causal_skip: bool = False, window_override: Optional[int] = None,
@@ -408,20 +458,28 @@ def _self_attention(
     ``causal_skip`` goes to the chunked path. ``window_override`` replaces
     the config's window (the hybrid family's shared attention)."""
     window = cfg.sliding_window if window_override is None else window_override
+    ring = _SEQ_SHARD.get() is not None
+    mode, p = attention_mode(cfg, p, ring=ring)
+    if mode != "whole":
+        x = collectives.copy_to_model(x)
     q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, cfg.rope_theta)
     k = layers.apply_rope(_proj_heads(x, p["wk"]), positions, cfg.rope_theta)
     v = _proj_heads(x, p["wv"])
+    kq, vq = expand_local_kv(cfg, mode, k, v, q.shape[2])
     s = x.shape[1]
-    if _SEQ_SHARD.get() is not None:   # a ring shard: seq_shard gated the whole sequence
-        o = _flash_dispatch(cfg, q, k, v, causal=causal, window=window)
+    if ring:                           # a ring shard: seq_shard gated the whole sequence
+        o = _flash_dispatch(cfg, q, kq, vq, causal=causal, window=window)
     elif s <= DENSE_ATTN_MAX_SEQ or s % cfg.chunk_size != 0:
-        o = layers.dense_attention(q, k, v, causal=causal, window=window)
+        o = layers.dense_attention(q, kq, vq, causal=causal, window=window)
     elif cfg.attn_impl == "flash":
-        o = _flash_dispatch(cfg, q, k, v, causal=causal, window=window)
+        o = _flash_dispatch(cfg, q, kq, vq, causal=causal, window=window)
     else:
-        o = layers.chunked_attention(q, k, v, chunk=cfg.chunk_size, causal=causal,
+        o = layers.chunked_attention(q, kq, vq, chunk=cfg.chunk_size, causal=causal,
                                      window=window, causal_skip=causal_skip)
-    return _merge_heads(o, p["wo"]), k, v
+    out = _merge_heads(o, p["wo"])
+    if mode != "whole":
+        out = collectives.reduce_from_model(out)
+    return out, k, v
 
 
 def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
@@ -432,8 +490,20 @@ def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
     no drops at S = 1)."""
     if cfg.family == "moe":
         cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
-        return moe.moe_apply(p["moe"], y, top_k=cfg.top_k, capacity_factor=cf)
-    return layers.swiglu(p["mlp"], y), {}
+        mp = p["moe"]
+        experts = parallel.local_experts(cfg.n_experts, mp["wg"].shape[0])
+        if experts is None:
+            return moe.moe_apply(mp, y, top_k=cfg.top_k, capacity_factor=cf)
+        # expert parallelism: every rank routes every token; the router's
+        # gradient sums the ranks' experts' parts
+        mp = dict(mp, router=collectives.copy_to_model(mp["router"]))
+        out, aux = moe.moe_apply(mp, collectives.copy_to_model(y), top_k=cfg.top_k,
+                                 capacity_factor=cf, experts=experts)
+        return collectives.reduce_from_model(out), aux
+    if p["mlp"]["wg"].shape[-1] == cfg.d_ff:
+        return layers.swiglu(p["mlp"], y), {}
+    return collectives.reduce_from_model(
+        layers.swiglu(p["mlp"], collectives.copy_to_model(y))), {}
 
 
 def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
@@ -456,7 +526,7 @@ def _forward_dense(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     """The decoder stack of the dense, moe and vlm families; the aux
     values averaged over the layers (none for dense and vlm)."""
     def body(h, lp):
-        return _dense_block(cfg, lp, h, causal_skip=causal_skip)
+        return _dense_block(cfg, parallel.layer(lp), h, causal_skip=causal_skip)
 
     step = _remat(body, remat, remat_policy)
     auxs = []
@@ -505,7 +575,7 @@ def _forward_rwkv(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                   remat: bool = False) -> tuple[torch.Tensor, dict]:
     def body(h, lp):
         x_prev, s0 = rwkv_state(cfg, h.shape[0], h.device)
-        return _rwkv_block(cfg, lp, h, x_prev, x_prev, s0)[0]
+        return _rwkv_block(cfg, parallel.layer(lp), h, x_prev, x_prev, s0)[0]
 
     step = _remat(body, remat)
     for lp in unstack(params):
@@ -543,8 +613,9 @@ def _forward_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 
     def body(h, *super_layers):
         for lp in super_layers:
-            h, _ = _mamba_block(cfg, lp, h)
-        return _shared_attn_block(cfg, shared, h, positions, causal_skip=causal_skip)[0]
+            h, _ = _mamba_block(cfg, parallel.layer(lp), h)
+        return _shared_attn_block(cfg, parallel.tree(shared, "shared_attn"), h, positions,
+                                  causal_skip=causal_skip)[0]
 
     step = _remat(body, remat)
     layer_list = unstack(params)
@@ -560,6 +631,7 @@ def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
     positions = torch.arange(src.shape[1], device=src.device)
 
     def body(h, lp):
+        lp = parallel.layer(lp, "enc_layers")
         a, _, _ = _self_attention(
             cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
             causal=False, positions=positions,
@@ -571,7 +643,7 @@ def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
     h = src
     for lp in unstack(params, "enc_layers"):
         h = step(h, lp)
-    return layers.rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+    return layers.rmsnorm(parallel.tree(params["enc_norm"], "enc_norm"), h, cfg.norm_eps)
 
 
 def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, mem_k: torch.Tensor,
@@ -589,6 +661,7 @@ def _forward_encdec(cfg: ModelConfig, params: Params, src: torch.Tensor,
     positions = torch.arange(tgt.shape[1], device=tgt.device)
 
     def body(h, lp, mem):
+        lp = parallel.layer(lp)
         a, _, _ = _self_attention(
             cfg, lp["attn"], layers.rmsnorm(lp["ln1"], h, cfg.norm_eps),
             causal=True, positions=positions,
@@ -611,9 +684,10 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     embedded ``batch["tokens"]``, and for vlm the projected
     ``batch["vis_embeds"]`` (B, n_vis, D) in front of them."""
     dtype = cfg.activation_dtype
-    x = layers.embed(params["embed"], batch["tokens"], dtype)
+    x = layers.embed(embed_table(params), batch["tokens"], dtype)
     if cfg.family == "vlm":
-        vis = torch.matmul(batch["vis_embeds"].to(dtype), params["vis_proj"]["w"].to(dtype))
+        w = parallel.tree(params["vis_proj"], "vis_proj")["w"]
+        vis = torch.matmul(batch["vis_embeds"].to(dtype), w.to(dtype))
         x = torch.cat([vis, x], dim=1)
     return x
 
@@ -622,22 +696,45 @@ def lm_head(cfg: ModelConfig, params: Params) -> dict:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
+def embed_table(params: Params) -> dict:
+    """``params["embed"]`` whole, as the rank uses it (``parallel.table``)."""
+    return {"table": parallel.table(params["embed"]["table"], ("embed", "table"))}
+
+
+def head_table(cfg: ModelConfig, params: Params) -> dict:
+    """The unembedding table whole, as the rank uses it."""
+    top = "embed" if cfg.tie_embeddings else "lm_head"
+    return {"table": parallel.table(params[top]["table"], (top, "table"))}
+
+
+def final_norm(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    return layers.rmsnorm(parallel.tree(params["final_norm"], "final_norm"), h, cfg.norm_eps)
+
+
 def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     """Last-position logits (B, V) fp32 of ``batch``: ``tokens`` (B, S),
     with ``vis_embeds`` (B, n_vis, D) for vlm, or ``src_embeds``
     (B, S_src, D) and the target ``tokens`` for encdec. Sequence-parallel
     under a seq plan (module docstring): every rank passes the whole batch
-    and gets the same logits."""
+    and gets the same logits. Under a model-parallel plan (``params`` as
+    DTensors, ``dist.placement``) every rank computes with its shards and
+    gets the same logits."""
+    view, params, batch = parallel.enter(cfg, params, batch)
+    with parallel.holding(view):
+        return _forward_logits(cfg, params, batch)
+
+
+def _forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     shard, batch = seq_shard(cfg, batch)
     if shard is not None:
         with _holding(shard):
             h, _ = _forward_dense(cfg, params, embed_inputs(cfg, params, batch))
-        h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
-        return from_last_shard(layers.unembed(lm_head(cfg, params), h)[:, 0, :], shard)
+        h = final_norm(cfg, params, h[:, -1:, :])
+        return from_last_shard(layers.unembed(head_table(cfg, params), h)[:, 0, :], shard)
     fam = cfg.family
     if fam == "encdec":
         src = batch["src_embeds"].to(cfg.activation_dtype)
-        tgt = layers.embed(params["embed"], batch["tokens"], cfg.activation_dtype)
+        tgt = layers.embed(embed_table(params), batch["tokens"], cfg.activation_dtype)
         h, _ = _forward_encdec(cfg, params, src, tgt)
     elif fam == "ssm":
         h, _ = _forward_rwkv(cfg, params, embed_inputs(cfg, params, batch))
@@ -645,8 +742,8 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tenso
         h, _ = _forward_hybrid(cfg, params, embed_inputs(cfg, params, batch))
     else:
         h, _ = _forward_dense(cfg, params, embed_inputs(cfg, params, batch))
-    h = layers.rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
-    return layers.unembed(lm_head(cfg, params), h)[:, 0, :]
+    h = final_norm(cfg, params, h[:, -1:, :])
+    return layers.unembed(head_table(cfg, params), h)[:, 0, :]
 
 
 # =====================================================================
@@ -671,8 +768,10 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor, labels: torch
     positions at a time (one chunk when S does not divide), each chunk
     recomputed in backward under grad (``jax.checkpoint(body)`` in the JAX
     package), so no chunk's (B, chunk, V) logits outlive it. The sums add
-    in chunk order; the loss is their ratio, over at least 1."""
-    table = lm_head(cfg, params)["table"]
+    in chunk order; the loss is their ratio, over at least 1. Under a
+    model-parallel plan the table is gathered once, before the chunks, and
+    the two sums are summed over the batch's axes."""
+    table = head_table(cfg, params)["table"]
     s = h.shape[1]
     chunk = min(ce_chunk, s)
     if s % chunk:
@@ -685,6 +784,7 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor, labels: torch
                       mask[:, c0:c0 + chunk])
         total = total + nll
         denom = denom + m
+    total, denom = parallel.batch_sum(total), parallel.batch_sum(denom)
     return total / torch.clamp(denom, min=1.0)
 
 
@@ -698,12 +798,23 @@ def forward_train(cfg: ModelConfig, params: Params, batch: dict, *,
     loss adds ``0.01 lb_loss + 1e-3 z_loss`` and its metrics carry the aux
     values. ``remat`` recomputes each layer in backward (``remat_policy
     "save_moe_out"`` keeps the MoE output); the numbers are the same
-    without it."""
+    without it. Under a model-parallel plan (``params`` as DTensors) every
+    rank passes the global batch, keeps its rows and returns the global
+    batch's loss; the gradients of the DTensor leaves come back as DTensors
+    with their placements."""
+    view, params, batch = parallel.enter(cfg, params, batch, train=True)
+    with parallel.holding(view):
+        return _forward_train(cfg, params, batch, causal_skip=causal_skip, remat=remat,
+                              remat_policy=remat_policy)
+
+
+def _forward_train(cfg: ModelConfig, params: Params, batch: dict, *, causal_skip: bool,
+                   remat: bool, remat_policy: str) -> tuple[torch.Tensor, dict]:
     dtype = cfg.activation_dtype
     fam = cfg.family
     if fam == "encdec":
         src = batch["src_embeds"].to(dtype)
-        tgt = layers.embed(params["embed"], batch["tokens"], dtype)
+        tgt = layers.embed(embed_table(params), batch["tokens"], dtype)
         h, aux = _forward_encdec(cfg, params, src, tgt, remat=remat)
     else:
         x = embed_inputs(cfg, params, batch)
@@ -716,7 +827,7 @@ def forward_train(cfg: ModelConfig, params: Params, batch: dict, *,
                                     remat_policy=remat_policy)
         if fam == "vlm":
             h = h[:, batch["vis_embeds"].shape[1]:, :]
-    h = layers.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = final_norm(cfg, params, h)
     loss = _chunked_ce(cfg, params, h, batch["labels"], batch["mask"].to(torch.float32))
     metrics = {"loss": loss}
     if aux:

@@ -26,12 +26,24 @@ first, which is exact, so top-k sees the reference's logits.
 Aux losses: load balance (Switch eq. 4), router z-loss and the dropped
 fraction. The JAX code's ``shard_act`` and ``expert_dispatch_active`` are
 identities on one device and have no counterpart here.
+
+Expert parallelism (``experts=(lo, hi)``, the rank's experts under a
+``model`` axis): every rank routes every token alike and runs the dispatch
+slots of its experts only; the output is the rank's partial sum, which the
+caller all-reduces over ``model`` (the JAX package moves the dispatched
+tokens with an all-to-all; here they are already on every rank). Under a
+model-parallel plan the aux losses are of the global batch
+(``dist.parallel.batch_mean``) and their gradient enters on one model rank
+(``dist.parallel.aux_grad_gate``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import parallel
 from repro_torch.models import layers
 
 
@@ -47,7 +59,8 @@ def moe_params(generator: torch.Generator, d: int, f: int, n_experts: int, n_lay
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-              route_chunk: int = 512) -> tuple[torch.Tensor, dict]:
+              route_chunk: int = 512, experts: Optional[tuple] = None
+              ) -> tuple[torch.Tensor, dict]:
     """Capacity-based top-k MoE of x (B, S, D). A sequence longer than
     ``route_chunk`` and a multiple of it is routed chunk by chunk, each
     chunk with its own capacity; the aux values are averaged over the
@@ -58,14 +71,16 @@ autograd)."""
         outs, auxs = [], []
         for c0 in range(0, s, route_chunk):
             out, aux = _moe_apply_dense(
-                params, x[:, c0:c0 + route_chunk], top_k=top_k, capacity_factor=capacity_factor)
+                params, x[:, c0:c0 + route_chunk], top_k=top_k, capacity_factor=capacity_factor,
+                experts=experts)
             outs.append(out)
             auxs.append(aux)
         # concatenated, not written into slices of one buffer: under autograd
         # slice assignment would chain in-place copies
         return torch.cat(outs, dim=1), {k: torch.stack([a[k] for a in auxs]).mean()
                                         for k in auxs[0]}
-    return _moe_apply_dense(params, x, top_k=top_k, capacity_factor=capacity_factor)
+    return _moe_apply_dense(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                            experts=experts)
 
 
 def _local_top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -100,7 +115,8 @@ def _queue_positions(flat_sel: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_apply_dense(params: dict, x: torch.Tensor, *, top_k: int,
-                     capacity_factor: float = 1.25) -> tuple[torch.Tensor, dict]:
+                     capacity_factor: float = 1.25,
+                     experts: Optional[tuple] = None) -> tuple[torch.Tensor, dict]:
     b, s, d = x.shape
     e = params["router"].shape[-1]
     dtype = x.dtype
@@ -112,8 +128,8 @@ def _moe_apply_dense(params: dict, x: torch.Tensor, *, top_k: int,
 
     capacity = max(int(capacity_factor * s * top_k / e), 1)
 
-    experts = torch.arange(e, device=x.device)
-    sel = (gate_idx[..., None] == experts).float()                 # (B,S,K,E) one-hot
+    expert_ids = torch.arange(e, device=x.device)
+    sel = (gate_idx[..., None] == expert_ids).float()                 # (B,S,K,E) one-hot
     pos_in_expert = _queue_positions(sel.reshape(b, s * top_k, e))
     keep = pos_in_expert < capacity                                # drop overflow
     keepf = keep.float()
@@ -124,20 +140,25 @@ def _moe_apply_dense(params: dict, x: torch.Tensor, *, top_k: int,
     disp_tokens.scatter_(-1, slot, keepf)                          # (B,S,E*C)
     combine_tok = torch.zeros_like(disp_tokens).scatter_(-1, slot, gate_vals * keepf)
 
-    # --- expert computation --------------------------------------------
-    xe = torch.matmul(disp_tokens.to(dtype).transpose(1, 2), x).reshape(b, e, capacity, d)
+    # --- expert computation (the rank's experts' slots) -----------------
+    lo, hi = (0, e) if experts is None else experts
+    if experts is not None:
+        disp_tokens = disp_tokens[..., lo * capacity:hi * capacity]
+        combine_tok = combine_tok[..., lo * capacity:hi * capacity]
+    xe = torch.matmul(disp_tokens.to(dtype).transpose(1, 2), x).reshape(b, hi - lo, capacity, d)
     g = torch.einsum("becd,edf->becf", xe, params["wg"].to(dtype))
     u = torch.einsum("becd,edf->becf", xe, params["wu"].to(dtype))
     y = torch.einsum("becf,efd->becd", F.silu(g) * u, params["wd"].to(dtype))
-    out = torch.matmul(combine_tok.to(dtype), y.reshape(b, e * capacity, d))
+    out = torch.matmul(combine_tok.to(dtype), y.reshape(b, (hi - lo) * capacity, d))
 
     # --- aux losses ------------------------------------------------------
     # load balance: E * sum_e (fraction of tokens to e) * (mean router prob e)
-    frac = sel.sum(2).mean(dim=(0, 1))
-    mean_prob = probs.mean(dim=(0, 1))
+    logits, probs = parallel.aux_grad_gate(logits), parallel.aux_grad_gate(probs)
+    frac = parallel.batch_mean(sel.sum(2).mean(dim=(0, 1)))
+    mean_prob = parallel.batch_mean(probs.mean(dim=(0, 1)))
     lb_loss = e * torch.sum(frac / top_k * mean_prob)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    dropped = 1.0 - keepf.mean()
+    z_loss = parallel.batch_mean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
+    dropped = 1.0 - parallel.batch_mean(keepf.mean())
     return out, {"lb_loss": lb_loss, "z_loss": z_loss, "dropped_frac": dropped}
 
 

@@ -25,8 +25,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from repro_torch.dist import collectives
 from repro_torch.fl.client import _local_sgd
 from repro_torch.obs.profile import scope as _profile_scope
 
@@ -76,8 +76,8 @@ def gather_active(fleet: Fleet, slots: torch.Tensor):
     x_bits = fleet.x.view(torch.int32)[rows]
     x_bits = torch.where(own.reshape((-1,) + (1,) * (x_bits.ndim - 1)), x_bits, 0)
     y_s = torch.where(own[:, None], fleet.y[rows], 0)
-    dist.all_reduce(x_bits, group=fleet.group)
-    dist.all_reduce(y_s, group=fleet.group)
+    collectives.all_reduce(x_bits, fleet.group, "data")
+    collectives.all_reduce(y_s, fleet.group, "data")
     return x_bits.view(torch.float32), y_s, fleet.n_samples[cid]
 
 

@@ -1,0 +1,129 @@
+"""``repro_torch.launch.dryrun`` on the CPU at reduced size: rank 0 of a
+multi-rank mesh under torch's fake process group (in this process; the
+group is destroyed after each run). The collectives one train step
+issues, by axis and kind (counts and result bytes), must equal
+``analytic_collectives``, alike in every timed step; the record carries
+its fields, the fake group's note, rank 0's state bytes (its shards of the
+``param_specs``; the gradient's as the optimizer update received it) and
+no peak (not measured on the CPU); a prefill shape runs under the serve
+plan and issues two all-reduces a layer over ``model`` and the two table
+gathers. The collective term counts the bytes on the links by NCCL's ring
+factors.
+"""
+import math
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from torch_replay import one_torch_thread  # noqa: F401  (autouse)
+
+FIELDS = ("arch", "shape", "kind", "mesh", "axes", "world", "rank", "batch", "seq", "note",
+          "param_bytes", "grad_bytes", "opt_bytes", "s_per_step", "step_seconds", "peak_gb",
+          "fwd_bwd_peak_gb", "collectives",
+          "collectives_same_each_step", "compute_term_s", "memory_term_s",
+          "collective_term_s")
+
+
+def _run(*argv, shape="train_4k"):
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.main(["--arch", "llama3_8b", "--reduced", "--shape", shape, "--batch",
+                       "4", "--seq", "128", *argv], device="cpu")
+    assert not dist.is_initialized()
+    return rec
+
+
+def _rank0_bytes(mesh_shape):
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_reduced
+    from repro_torch.dist.plan import make_plan
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.models import model
+
+    sizes = dict(zip(("data", "model"), (int(x) for x in mesh_shape.split("x"))))
+    plan = make_plan(sizes)
+    params = model.abstract_params(get_reduced("llama3_8b"))
+    return sum(4 * math.prod(n // plan.axis_size(s[i] if i < len(s) else None)
+                             for i, n in enumerate(t.shape))
+               for t, s in zip(tree_util.leaves(params),
+                               tree_util.leaves(param_specs(plan, params))))
+
+
+@pytest.mark.parametrize("mesh", ("2x2", "2x1", "1x4"))
+def test_train_collectives_equal_the_analytic_count(mesh):
+    rec = _run("--mesh-shape", mesh, "--steps", "2")
+    assert rec["collectives"] == rec["analytic_collectives"]
+    assert rec["collectives_same_each_step"]
+    assert rec["param_bytes"] == rec["grad_bytes"] == _rank0_bytes(mesh)
+    assert rec["opt_bytes"] == 2 * rec["param_bytes"] + 4       # mu, nu and the int32 step
+
+
+def test_record_fields_and_note():
+    rec = _run("--mesh-shape", "2x2", "--steps", "1")
+    assert set(FIELDS) <= set(rec)
+    assert rec["peak_gb"] is None and rec["fwd_bwd_peak_gb"] is None
+    assert rec["world"] == 4 and rec["mesh"] == "2x2" and rec["kind"] == "train"
+    assert "no data moved" in rec["note"] and "not meaningful" in rec["note"]
+    assert len(rec["step_seconds"]) == 1
+    assert all(rec[k] > 0 for k in ("compute_term_s", "memory_term_s", "collective_term_s"))
+
+
+@pytest.mark.parametrize("mesh", ("1x2", "1x4"))
+def test_prefill_under_the_serve_plan(mesh):
+    rec = _run("--mesh-shape", mesh, "--steps", "1", shape="prefill_32k")
+    assert rec["kind"] == "prefill"
+    coll = rec["collectives"]
+    assert set(coll) == {"model"}
+    assert coll["model"]["all-gather"]["count"] == 2            # the two vocab tables
+    assert coll["model"]["all-reduce"]["count"] == 2 * 2        # attention + SwiGLU, 2 layers
+    assert coll["model"]["all-reduce"]["bytes"] == 4 * 4 * 128 * 256 * 4
+
+
+def test_collective_term_counts_wire_bytes():
+    from repro_torch.dist.collectives import Record
+    from repro_torch.launch.dryrun import NVLINK_BW, wire_bytes
+
+    recs = [Record("all-gather", "data", "float32", 800, 2),
+            Record("reduce-scatter", "data", "float32", 400, 2),
+            Record("all-reduce", "model", "bfloat16", 1000, 4),
+            Record("send/recv", "seq", "float32", 64, 2)]
+    assert wire_bytes(recs) == 400 + 400 + 1500 + 64
+    rec = _run("--mesh-shape", "2x2", "--steps", "1")
+    want = 0
+    for axis, kinds in rec["collectives"].items():
+        for kind, v in kinds.items():
+            want += wire_bytes([Record(kind, axis, "float32", v["bytes"], 2)])
+    assert rec["collective_term_s"] == pytest.approx(want / NVLINK_BW, rel=1e-9)
+
+
+def test_refuses_an_initialized_group(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg", rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="initialized already"):
+            _run("--mesh-shape", "2x2")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_analytic_count_refuses_other_families():
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.dryrun import analytic_collectives
+
+    with pytest.raises(ValueError, match="dense family"):
+        analytic_collectives(get_reduced("granite_moe_1b_a400m"), {"data": 2, "model": 2}, 4, 128)
+
+
+def test_full_width_count_at_the_card_cell():
+    """The count the card's dry run is held to: Llama-3-8B, data 2 x model
+    2, one 4,096-token sequence a data rank (PERF.md's analytic count)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import analytic_collectives
+
+    got = analytic_collectives(get_config("llama3_8b"), {"data": 2, "model": 2}, 2, 4096)
+    assert got == {
+        "data": {"all-gather": {"count": 450, "bytes": 30018633728},
+                 "reduce-scatter": {"count": 226, "bytes": 8029995008},
+                 "all-reduce": {"count": 68, "bytes": 1065004}},
+        "model": {"all-gather": {"count": 2, "bytes": 4202692608},
+                  "all-reduce": {"count": 161, "bytes": 5368709156}}}

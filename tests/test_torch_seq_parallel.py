@@ -5,8 +5,8 @@ plan): the reduced Llama-3-8B and StarCoder2-7B (sliding window) with
 ``forward_logits`` under ``activation_mesh`` of the same mesh shape on 4
 forced host devices (a subprocess) and against the port's unsharded
 forward; the prefill's cache and logits and the greedy tokens against the
-unsharded ones; and the refusals (other families, a model axis, a context
-off the ring path).
+unsharded ones; and the refusals (other families, a context off the ring
+path, a model axis for a family without tensor parallelism).
 """
 import dataclasses
 import os
@@ -113,11 +113,14 @@ def _seq_ranks(rank, world, out_dir):
             res["refusal", name] = None
         except ValueError as e:
             res["refusal", name] = str(e)
-    # a model axis above 1 under a seq plan: heads on model are B2
-    m22 = make_production_mesh(shape=(1, 1, 2, 2), device="cpu")
+    # a model axis above 1 for a family without tensor parallelism (the
+    # recurrent ones): distribution part B2b
+    m14 = make_production_mesh(shape=(1, 1, 1, 4), device="cpu")
+    rwkv = get_reduced("rwkv6_7b")
     try:
-        with activation_mesh(make_plan(m22, mode="serve")):
-            tmodel.forward_logits(small, params, {"tokens": torch.zeros((1, S), dtype=torch.int64)})
+        with activation_mesh(make_plan(m14, mode="serve")):
+            tmodel.forward_logits(rwkv, tmodel.init_params(rwkv, 0, device="cpu"),
+                                  {"tokens": torch.zeros((1, 64), dtype=torch.int64)})
         res["refusal", "model_axis"] = None
     except ValueError as e:
         res["refusal", "model_axis"] = str(e)

@@ -32,7 +32,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import sgd as tsgd
 from test_torch_train import (GRAD_REL, LOSS_RTOL, _assert_leaf_close, _batch, _jax, _torch,
                               _weights)
-from torch_replay import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_replay import assert_adam_step_close, one_torch_thread  # noqa: F401 (autouse)
 
 STEP_REL = 1e-5
 
@@ -77,7 +77,8 @@ def test_make_train_step_adamw_matches_jax():
     (delta); and its parameters to JAX's step within 1e-5 of each leaf's
     largest magnitude plus what a gradient difference of delta can make of
     f: lr min(2, delta eps / (max(|g| - delta, 0) + eps)^2). At least 99 %
-    of the coordinates must be within the 1e-5 alone."""
+    of the coordinates must be within the 1e-5 alone
+    (``torch_replay.assert_adam_step_close``)."""
     arch, lr, eps = "llama3_8b", 3e-3, 1e-8
     jp, _, jmet = _jax_step(arch, jadamw(lr))
     tp, state, tmet = _port_step(arch, tadamw(lr))
@@ -97,24 +98,15 @@ def test_make_train_step_adamw_matches_jax():
     ups, _ = opt.update(own, opt.init(jstart), jstart)
     composed = jax.tree_util.tree_map(lambda p, u: p + u, jstart, ups)
 
-    within, total = 0, 0
-    for g, want, same, tg, jg, jc in zip(
-            tree_util.leaves(tp), jax.tree_util.tree_leaves(jp),
-            jax.tree_util.tree_leaves(composed), tree_util.leaves(grads),
-            jax.tree_util.tree_leaves(jgrads), jax.tree_util.tree_leaves(jclipped)):
+    for g, same, tg, jg in zip(tree_util.leaves(tp), jax.tree_util.tree_leaves(composed),
+                               tree_util.leaves(grads), jax.tree_util.tree_leaves(jgrads)):
         assert g.dtype == torch.float32 and g.grad_fn is None
         np.testing.assert_allclose(g.numpy(), np.asarray(same), rtol=4e-7,
                                    atol=1e-6 * float(np.abs(np.asarray(same)).max()))
         _assert_leaf_close(tg, jg, GRAD_REL)
-        jc = np.abs(np.asarray(jc, np.float64))
-        delta = GRAD_REL * jc.max()
-        err = np.abs(g.numpy() - np.asarray(want))
-        plain = STEP_REL * np.abs(np.asarray(want)).max()
-        allowed = plain + lr * np.minimum(2.0, delta * eps / (np.maximum(jc - delta, 0) + eps) ** 2)
-        assert (err <= allowed).all(), float((err - allowed).max())
-        within += int((err <= plain).sum())
-        total += err.size
-    assert within >= 0.99 * total, within / total
+    assert_adam_step_close([g.numpy() for g in tree_util.leaves(tp)],
+                           jax.tree_util.tree_leaves(jp), jax.tree_util.tree_leaves(jclipped), lr,
+                           grad_rel=GRAD_REL, step_rel=STEP_REL, eps=eps, share=0.99)
 
 
 @pytest.mark.parametrize("arch", tconfigs.ARCH_IDS)

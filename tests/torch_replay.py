@@ -267,3 +267,29 @@ def join_all(*contexts) -> None:
     for ctx in contexts:
         while not ctx.join():
             pass
+
+
+def assert_adam_step_close(got, want, clipped, lr, *, grad_rel=1e-4, step_rel=1e-5,
+                           eps=1e-8, share=0.99):
+    """One adamw step's parameters ``got`` against ``want`` (lists of
+    arrays, leaf order), each reached from the same state by gradients that
+    agree to ``grad_rel`` of each leaf's largest magnitude (``clipped``:
+    ``want``'s clipped gradients). Adam's first update is -lr f(g) - lr wd
+    p, f(g) = g / (|g| + eps): where |g| is within a few eps of zero, f
+    turns last-digit gradient differences into updates up to 2 lr apart.
+    So each coordinate is held to ``step_rel`` of the leaf's largest
+    magnitude plus lr min(2, delta eps / (max(|g| - delta, 0) + eps)^2),
+    delta = grad_rel x the leaf's largest |g|; at least ``share`` of the
+    coordinates must be within ``step_rel`` alone."""
+    within, total = 0, 0
+    for g, w, c in zip(got, want, clipped):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        c = np.abs(np.asarray(c, np.float64))
+        delta = grad_rel * c.max()
+        err = np.abs(g - w)
+        plain = step_rel * np.abs(w).max()
+        allowed = plain + lr * np.minimum(2.0, delta * eps / (np.maximum(c - delta, 0) + eps) ** 2)
+        assert (err <= allowed).all(), float((err - allowed).max())
+        within += int((err <= plain).sum())
+        total += err.size
+    assert within >= share * total, within / total
