@@ -159,7 +159,24 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      its collective bytes by axis and kind equal to the analytic count, its
      peak below 80 GB, s/step and per-rank state; then prefills on 1x2 and
      1x4 serve meshes (B = 4, 4,096 positions): 32 wgmma launches each at
-     the local heads;
+     the local heads; then (mp e) the other four families: (e5, inside
+     (mp c)) the kernel at their TP ranks' local heads (Zamba2-7B's shared
+     attention H = KV = 16 at hd 112 with its window, InternVL2-26B's H 24
+     / KV 4, SeamlessM4T's encoder H = KV = 8 at hd 64, non-causal) against
+     plain and SDPA; (e1) the reduced RWKV6-7B, Zamba2-7B,
+     SeamlessM4T-large-v2 and InternVL2-26B on a 1x1 mesh (NCCL, one
+     rank): loss, gradients and prefill + 8 decode steps bit-equal to the
+     unplaced runs, 0 collectives; (e2) each at full width as rank 0 of a
+     1x2 serve mesh under the fake group (B = 4, 4,096 positions): time,
+     peak, per-rank parameters, collectives, and one wgmma launch a
+     (shared) attention layer a pass at the local heads (Zamba2 9,
+     InternVL2 48, Seamless's encoder 24, RWKV6 0); (e3) Zamba2-7B's
+     train_4k (global batch 2) as rank 0 of 2x2: peak under 80 GB, the
+     same collectives in the warm-up and the timed step; (e4) the dry
+     run's gates (``--require-seq-sharded --require-flash``) on Llama-3-8B's
+     prefill_32k at B = 1 as rank 0 of 1x1x4x1: both hold, the ring's
+     seq-axis send/recv counted, 32 wgmma launches a pass; each gate's
+     negative control on the reduced Llama raises;
  12. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
      checked shape's times; rows of their own for the local-heads shapes
@@ -2384,7 +2401,12 @@ def nccl_world_of_one(sim) -> dict:
 # ------------------------------------------------------- model parallelism
 
 RING_HEADS_MODEL = 2       # the model axis the heads-on-model ring emulates
-LOCAL_HEADS = ((16, 4, 2), (8, 2, 4))   # a TP rank's Llama heads: H, KV, model
+# a TP rank's heads at a serve shape (B = 4, S = T = 4,096, bf16), one row each: H, KV, hd,
+# causal, window, the model axis, whose attention
+LOCAL_HEADS = ((16, 4, 128, True, 0, 2, "Llama-3-8B"), (8, 2, 128, True, 0, 4, "Llama-3-8B"),
+               (16, 16, 112, True, 4096, 2, "Zamba2-7B's shared attention"),
+               (24, 4, 128, True, 0, 2, "InternVL2-26B"),
+               (8, 8, 64, False, 0, 2, "SeamlessM4T-large-v2's encoder"))
 DRYRUN_PREFILLS = ("1x2", "1x4")
 # the dry run's predicted forward/backward peak (PERF.md §6): 32.1 GB of fp32
 # state, the two gathered vocab tables and a gathered layer, the remat inputs
@@ -2443,37 +2465,45 @@ def _ring_heads_on_model(q, k, v, single, want, ring_ms, plain_ms, sdpa_ms,
     return {f"ring heads on model={m} S={RING_SEQ}": launches["flash_attention_wgmma"]}
 
 
-@phase("model parallelism (c): the wgmma kernel on a TP rank's local heads at Llama's serve "
-       "shape vs plain")
+@phase("model parallelism (c, e5): the wgmma kernel on a TP rank's local heads at the serve "
+       "shapes vs plain")
 def local_heads(report: dict) -> None:
-    """Llama-3-8B's attention at its serve shape (B = 4, S = T = 4,096, hd
-    128, causal, bf16) on one TP rank's heads: H 16 / KV 4 (``model`` 2)
-    and H 8 / KV 2 (``model`` 4), through the wgmma route, against the
-    plain version within FLASH_TOL; kernel time, bound and SDPA's time.
-    Adds the rows ``flash_attention_wgmma_local_heads_h{H}_kv{KV}``."""
+    """Each LOCAL_HEADS row at its serve shape (B = 4, S = T = 4,096, bf16)
+    on one TP rank's heads: Llama-3-8B's H 16 / KV 4 (``model`` 2) and H 8 /
+    KV 2 (``model`` 4), and at ``model`` 2 Zamba2-7B's shared attention (H
+    = KV = 16, hd 112, window 4096), InternVL2-26B's H 24 / KV 4 and
+    SeamlessM4T's encoder (H = KV = 8, hd 64, non-causal), through the
+    wgmma route, against the plain version within FLASH_TOL; kernel time,
+    bound and SDPA's time. Adds the rows
+    ``flash_attention_wgmma_local_heads_h{H}_kv{KV}``."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(21)
-    b, s, hd = 4, 4096, 128
-    for h, kv, m in LOCAL_HEADS:
+    b, s = 4, 4096
+    for h, kv, hd, causal, window, m, whose in LOCAL_HEADS:
         q, k, v = ((0.3 * torch.randn((b, s, heads, hd), generator=gen, device="cuda"))
                    .to(torch.bfloat16) for heads in (h, kv, kv))
+
+        def run():
+            return fa.flash_attention(q, k, v, causal=causal, window=window)
+
         fa.reset_launches()
-        out = fa.flash_attention(q, k, v, causal=True)
+        out = run()
         require(fa.launches["flash_attention_wgmma"] == 1 and fa.launches["flash_attention_simt"]
                 == 0, f"local heads H={h}/{kv}: not the wgmma route: {fa.launches}")
-        want = fa.flash_attention_plain(q, k, v, causal=True)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         err = _out_error(f"local heads H={h}/{kv}", out, want)
-        pairs = visible_pairs(s, s, True, 0)
+        pairs = visible_pairs(s, s, causal, window)
         b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * 2, 4.0 * b * h * hd * pairs,
                            BF16_FLOPS)
-        k_ms = kernel_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                         "flash_fwd_wgmma_kernel", iters=10)
-        p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), 2, warmup=1)
-        lib_ms = cuda_ms(_sdpa(q, k, v, True, 0), 20)
-        print(f"local heads of model={m}: B={b} S=T={s} H={h}/{kv} hd={hd} causal bf16 (wgmma): "
-              f"max_abs_err={err:.3e} (tol rtol {FLASH_TOL['bfloat16'][0]:g} atol "
+        k_ms = kernel_ms(run, "flash_fwd_wgmma_kernel", iters=10)
+        p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window),
+                       2, warmup=1)
+        lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 20)
+        mask = f"causal window {window}" if window else ("causal" if causal else "non-causal")
+        print(f"local heads of model={m}, {whose}: B={b} S=T={s} H={h}/{kv} hd={hd} {mask} bf16 "
+              f"(wgmma): max_abs_err={err:.3e} (tol rtol {FLASH_TOL['bfloat16'][0]:g} atol "
               f"{FLASH_TOL['bfloat16'][1]:g}); kernel {k_ms:.3f} ms (profiler), bound "
               f"{b_ms:.3f} ms ({b_by}), plain {p_ms:.3f} ms (events), "
               f"scaled_dot_product_attention {lib_ms:.3f} ms (events)", flush=True)
@@ -2595,6 +2625,14 @@ def tp_train_world_of_one(cfg, opt, params, state, batch) -> None:
           f"unplaced; group destroyed", flush=True)
 
 
+def _coll_line(rec: dict) -> str:
+    """A dry-run record's collectives a step: count and result GB by axis
+    and kind."""
+    return "; ".join(f"{axis} {kind} {v['count']} / {v['bytes'] / 1e9:.4f} GB"
+                     for axis, kinds in sorted(rec["collectives"].items())
+                     for kind, v in sorted(kinds.items()))
+
+
 @phase("model parallelism (d): rank 0 of a 4-card Llama-3-8B trainer (data 2 x model 2) "
        "under the fake process group, then TP prefills on 1x2 and 1x4 serve meshes")
 def tp_dryrun() -> dict:
@@ -2625,9 +2663,7 @@ def tp_dryrun() -> dict:
     lo, hi = DRYRUN_FWD_BWD_GB
     require(lo <= rec["fwd_bwd_peak_gb"] <= hi,
             f"forward/backward peak {rec['fwd_bwd_peak_gb']:.2f} GB outside {lo}-{hi} GB")
-    coll = "; ".join(f"{axis} {kind} {v['count']} / {v['bytes'] / 1e9:.4f} GB"
-                     for axis, kinds in sorted(rec["collectives"].items())
-                     for kind, v in sorted(kinds.items()))
+    coll = _coll_line(rec)
     print(f"dry run {SERVE_ARCH} train_4k (global batch cut to 2), rank 0 of 2x2 (data x model), "
           f"fake process group (no data moved: values not held): {rec['s_per_step']:.3f} s/step "
           f"(steps {[f'{t:.3f}' for t in rec['step_seconds']]}), peak {rec['peak_gb']:.2f} GB, "
@@ -2650,9 +2686,7 @@ def tp_dryrun() -> dict:
         require(launches["flash_attention_wgmma"] == 2 * cfg_layers
                 and launches["flash_attention_simt"] == 0,
                 f"dry-run prefill {mesh_shape}: launches {launches}, want {2 * cfg_layers} wgmma")
-        coll = "; ".join(f"{axis} {kind} {v['count']} / {v['bytes'] / 1e9:.4f} GB"
-                         for axis, kinds in sorted(rec["collectives"].items())
-                         for kind, v in sorted(kinds.items()))
+        coll = _coll_line(rec)
         print(f"dry run {SERVE_ARCH} prefill B={SERVE_BATCH} x 4096 on a {mesh_shape} serve mesh "
               f"(heads H={32 // m}/{8 // m} a rank; fake group: values not held): "
               f"{rec['s_per_step']:.4f} s, peak {rec['peak_gb']:.2f} GB, params "
@@ -2661,6 +2695,219 @@ def tp_dryrun() -> dict:
         out[f"dry-run prefill {mesh_shape} (H={32 // m}/{8 // m})"] = \
             launches["flash_attention_wgmma"]
     return out
+
+
+# ------------------------------------ model parallelism of the other families
+
+TP_FAMILIES = (RWKV6_ARCH, ZAMBA2_ARCH, SEAMLESS_ARCH, INTERNVL2_ARCH)
+# wgmma launches of one prefill pass at full size: one a (shared-)attention layer at the
+# rank's local heads (Seamless: its encoder's; its decoder's prefill is one BOS step, dense)
+TP_PASS_LAUNCHES = {RWKV6_ARCH: 0, ZAMBA2_ARCH: 9, SEAMLESS_ARCH: 24, INTERNVL2_ARCH: 48}
+TP_PREFILL_MESH, TP_TRAIN_MESH, GATE_MESH = "1x2", "2x2", "1x1x4x1"
+
+
+def _family_batch(cfg, seed: int) -> dict:
+    """A reduced family's batch on the card: B = 4, 64 tokens (their
+    labels), a mask of ones, and the encdec source frames or the vlm patch
+    embeddings."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b, s = 4, 64
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)), device="cuda")
+    batch = {"tokens": toks, "labels": toks, "mask": torch.ones((b, s), device="cuda")}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.as_tensor(
+            rng.standard_normal((b, 24, cfg.d_model), dtype=np.float32), device="cuda")
+    if cfg.family == "vlm":
+        batch["vis_embeds"] = torch.as_tensor(
+            rng.standard_normal((b, cfg.n_vis_tokens, cfg.d_model), dtype=np.float32),
+            device="cuda")
+    return batch
+
+
+def _family_greedy(cfg, params, batch, new: int = 8):
+    """The prefill's and ``new`` greedy decode steps' logits, stacked."""
+    import torch
+    from repro_torch.models import decode
+
+    inputs = {k: v for k, v in batch.items() if k not in ("labels", "mask")}
+    if cfg.family == "encdec":
+        inputs.pop("tokens")
+    ctx = batch["tokens"].shape[1] + (cfg.n_vis_tokens if cfg.family == "vlm" else 0)
+    logits, cache = decode.prefill(cfg, params, inputs, ctx + new)
+    out = [logits]
+    for _ in range(new):
+        logits, cache = decode.decode_step(cfg, params, cache, torch.argmax(out[-1], -1))
+        out.append(logits)
+    return torch.stack(out)
+
+
+@phase("model parallelism (e1): the reduced RWKV6-7B, Zamba2-7B, SeamlessM4T-large-v2 and "
+       "InternVL2-26B placed on a 1x1 mesh (NCCL, world of one)")
+def tp_families_world_of_one() -> None:
+    """Each family's reduced config (fp32), weights placed as DTensors on a
+    1x1 ``(data, model)`` mesh: ``value_and_grad`` of a B = 4 x 64 batch
+    under the train plan, prefill and 8 greedy decode steps under the serve
+    plan; loss, every gradient and every step's logits bit-equal to the
+    unplaced runs, no collective counted. At ``model`` 1 no head is split:
+    this holds the placement and the NCCL path; the split's numbers are
+    held on CPU ranks, its full-width shapes by (e2) and (e3)."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_reduced
+    from repro_torch.dist.activations import activation_mesh
+    from repro_torch.dist.collectives import CollectiveCounter
+    from repro_torch.dist.placement import full_tree, place_tree
+    from repro_torch.dist.plan import make_plan
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import model
+
+    with _nccl_world_of_one():
+        mesh = make_production_mesh(shape="1x1")
+        train, serve = make_plan(mesh), make_plan(mesh, mode="serve")
+        for arch in TP_FAMILIES:
+            cfg = get_reduced(arch)
+            params = model.init_params(cfg, 0, param_dtype=torch.float32)
+            batch = _family_batch(cfg, 4)
+            loss, _, grads = value_and_grad(cfg, params, batch)
+            logits = _family_greedy(cfg, params, batch)
+            with CollectiveCounter() as counter:
+                with activation_mesh(train):
+                    got_loss, _, got_grads = value_and_grad(cfg, place_tree(train, params), batch)
+                with activation_mesh(serve):
+                    got_logits = _family_greedy(cfg, place_tree(serve, params), batch)
+            require(not counter.log, f"{arch}: a world of one counted collectives: "
+                                     f"{counter.log[:4]}")
+            require(torch.equal(got_loss, loss), f"{arch}: placed loss differs")
+            require(all(torch.equal(a, b) for a, b in zip(
+                tree_util.leaves(full_tree(got_grads)), tree_util.leaves(grads))),
+                f"{arch}: placed gradients differ")
+            require(torch.equal(got_logits, logits), f"{arch}: placed prefill/decode logits differ")
+            print(f"reduced {arch} on a 1x1 mesh (NCCL, one rank), weights as DTensors: loss "
+                  f"{loss.item():.6f} and {len(tree_util.leaves(grads))} gradient leaves (train "
+                  f"plan), prefill + 8 decode steps' logits (serve plan) bit-equal to the "
+                  f"unplaced runs; 0 collectives", flush=True)
+
+
+@phase("model parallelism (e2): full-width TP prefills of RWKV6-7B, Zamba2-7B, "
+       "SeamlessM4T-large-v2 and InternVL2-26B, rank 0 of a 1x2 serve mesh (fake group)")
+def tp_family_prefills() -> dict:
+    """``launch.dryrun`` of each family's prefill_32k shape cut to B = 4,
+    4,096 positions (the vlm's 256 patches among them; the encdec's 4,096
+    source frames), as rank 0 of a ``1x2`` serve mesh under torch's fake
+    process group (no data moved: values not held), warm-up + 1 timed
+    pass: its time, peak, parameter bytes a rank and collectives by axis
+    and kind; TP_PASS_LAUNCHES wgmma launches a pass at the rank's local
+    heads, none through SIMT. Returns each prefill's launches, keyed by
+    the local heads."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch in TP_FAMILIES:
+        cfg = get_config(arch)
+        heads = f" (H={cfg.n_heads // 2}/{cfg.n_kv_heads // 2})" if cfg.n_heads else ""
+        _reset_all_launches()
+        rec = dryrun.main(["--arch", arch, "--shape", "prefill_32k", "--mesh-shape",
+                           TP_PREFILL_MESH, "--batch", str(SERVE_BATCH), "--seq", "4096",
+                           "--steps", "1"])
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        want = 2 * TP_PASS_LAUNCHES[arch]
+        require(launches["flash_attention_wgmma"] == want and launches["flash_attention_simt"] == 0,
+                f"{arch} TP prefill: launches {launches}, want {want} through wgmma")
+        require(rec["collectives_same_each_step"], f"{arch}: warm-up and timed collectives differ")
+        print(f"dry run {arch} prefill B={SERVE_BATCH} x 4096, rank 0 of a {TP_PREFILL_MESH} serve "
+              f"mesh{heads} (fake group: values not held): {rec['s_per_step']:.4f} s, peak "
+              f"{rec['peak_gb']:.2f} GB, params {rec['param_bytes'] / 1e9:.3f} GB a rank, "
+              f"{launches['flash_attention_wgmma']} wgmma launches (warm-up + 1), 0 SIMT; "
+              f"collectives a pass {_coll_line(rec)}", flush=True)
+        if want:
+            out[f"dry-run prefill {arch} {TP_PREFILL_MESH}{heads}"] = \
+                launches["flash_attention_wgmma"]
+        _release()
+    return out
+
+
+@phase("model parallelism (e3): rank 0 of a 4-card Zamba2-7B trainer (data 2 x model 2) "
+       "under the fake process group")
+def tp_zamba2_train() -> None:
+    """``launch.dryrun`` of Zamba2-7B's train_4k with the global batch cut
+    from 256 to 2, warm-up + 1 timed step, adamw with fp32 masters and
+    full remat (chunked attention), as rank 0 of a ``2x2`` mesh: the
+    Mamba2 in-projection's output gathered over ``model`` with a
+    reduce-scatter backward, at full width. Peak under 80 GB, the same
+    collectives in the warm-up and the timed step, no kernel launch."""
+    from repro_torch.launch import dryrun
+
+    _reset_all_launches()
+    rec = dryrun.main(["--arch", ZAMBA2_ARCH, "--shape", "train_4k", "--mesh-shape",
+                       TP_TRAIN_MESH, "--batch", "2", "--steps", "1"])
+    launches = _all_launches()
+    require(not any(launches.values()), f"the Zamba2 dry-run step launched kernels: {launches}")
+    require(rec["collectives_same_each_step"], "Zamba2: warm-up and timed collectives differ")
+    require(rec["peak_gb"] < 80.0, f"Zamba2 dry-run peak {rec['peak_gb']:.2f} GB")
+    print(f"dry run {ZAMBA2_ARCH} train_4k (global batch cut to 2), rank 0 of {TP_TRAIN_MESH} "
+          f"(data x model), fake process group (values not held): {rec['s_per_step']:.3f} s/step, "
+          f"peak {rec['peak_gb']:.2f} GB, forward/backward peak {rec['fwd_bwd_peak_gb']:.2f} GB; "
+          f"per rank: params {rec['param_bytes'] / 1e9:.3f} GB, grads "
+          f"{rec['grad_bytes'] / 1e9:.3f} GB, adamw {rec['opt_bytes'] / 1e9:.3f} GB; "
+          f"collectives a step (result bytes) {_coll_line(rec)}; no kernel launch", flush=True)
+    _release()
+
+
+@phase("model parallelism (e4): the dry run's gates, Llama-3-8B prefill_32k at B=1 on 1x1x4x1 "
+       "(fake group), and their negative controls")
+def tp_gates() -> dict:
+    """``launch.dryrun --require-seq-sharded --require-flash`` of
+    Llama-3-8B's prefill_32k cut to B = 1 as rank 0 of a ``(pod, data,
+    seq, model) = 1x1x4x1`` mesh under the fake group: both gates hold on
+    the timed pass's shape log, the ring's seq-axis send/recv are counted
+    (``ring_p2p``) and its wgmma launches (rank 0 of a causal ring: its
+    diagonal step, one a layer and a pass). Then each gate fails on
+    purpose on the reduced Llama: ``--require-seq-sharded`` on a ``1x2``
+    mesh, ``--require-flash`` at 512 positions (dense attention's
+    scores). Returns the launches."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    _reset_all_launches()
+    rec = dryrun.main(["--arch", SERVE_ARCH, "--shape", "prefill_32k", "--mesh-shape",
+                       GATE_MESH, "--batch", "1", "--steps", "1", "--require-seq-sharded",
+                       "--require-flash"])
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    n_layers = 32
+    require(rec["seq_sharded_ok"] and rec["no_s2_scores_ok"], f"gates: {rec}")
+    require(rec["ring_p2p"] > 0, "gates: no seq-axis send/recv counted")
+    require(launches["flash_attention_wgmma"] == 2 * n_layers
+            and launches["flash_attention_simt"] == 0,
+            f"gates: launches {launches}, want {2 * n_layers} through wgmma")
+    print(f"dry run {SERVE_ARCH} prefill_32k B=1, rank 0 of {GATE_MESH} (pod, data, seq, model; "
+          f"fake group: values not held) --require-seq-sharded --require-flash: seq_sharded_ok "
+          f"{rec['seq_sharded_ok']}, no_s2_scores_ok {rec['no_s2_scores_ok']}, ring_p2p "
+          f"{rec['ring_p2p']}; {rec['s_per_step']:.4f} s (shape log on), peak "
+          f"{rec['peak_gb']:.2f} GB, {launches['flash_attention_wgmma']} wgmma launches "
+          f"(warm-up + 1), 0 SIMT; collectives a pass {_coll_line(rec)}", flush=True)
+    for argv, match in ((["--mesh-shape", "1x2", "--seq", "128", "--require-seq-sharded"],
+                         "full-seq intermediates"),
+                        (["--mesh-shape", "1x2", "--seq", "512", "--require-flash"],
+                         "O(S^2) score tensors")):
+        try:
+            dryrun.main(["--arch", SERVE_ARCH, "--reduced", "--shape", "prefill_32k",
+                         "--batch", "4", "--steps", "1", *argv])
+        except AssertionError as e:
+            require(match in str(e), f"negative control {argv}: {e}")
+            print(f"negative control {' '.join(argv)} (reduced {SERVE_ARCH}): failed as it "
+                  f"should: {str(e)[:160]}", flush=True)
+        else:
+            raise SmokeFailure(f"negative control {argv}: the gate held")
+    _release()
+    return {f"dry-run gates prefill_32k {GATE_MESH} (H=32/8)": launches["flash_attention_wgmma"]}
 
 
 # ---------------------------------------------------------------- training
@@ -2997,9 +3244,14 @@ def main() -> int:
     train_refusals()
     train_fl_round()
     dry_launches = tp_dryrun()
+    tp_families_world_of_one()
+    dry_launches.update(tp_family_prefills())
+    tp_zamba2_train()
+    dry_launches.update(tp_gates())
 
     wgmma_rows = ("flash_attention_wgmma", "flash_attention_wgmma_ring_heads_on_model",
-                  *(f"flash_attention_wgmma_local_heads_h{h}_kv{kv}" for h, kv, _m in LOCAL_HEADS))
+                  *(f"flash_attention_wgmma_local_heads_h{h}_kv{kv}"
+                    for h, kv, *_ in LOCAL_HEADS))
     sources = {**{n: "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu" for n in wgmma_rows},
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     replaces = {
@@ -3031,7 +3283,7 @@ def main() -> int:
             k: n for k, n in ring_launches.items() if "heads on model" in k},
         **{f"flash_attention_wgmma_local_heads_h{h}_kv{kv}": {
             k: n for k, n in dry_launches.items() if f"(H={h}/{kv})" in k}
-           for h, kv, _m in LOCAL_HEADS}})
+           for h, kv, *_ in LOCAL_HEADS}})
     launches = {"quantize": wire_launches["quantize"],
                 "dequantize": wire_launches["dequantize"],
                 **{k: sum(v.values()) for k, v in by_path.items()}}

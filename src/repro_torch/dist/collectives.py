@@ -8,15 +8,22 @@ The model-parallel forward is explicit per-rank code on local tensors
 forward needs a backward:
 
   * :func:`gather_fsdp`: all-gather of a leaf's FSDP-sharded dim over the
-    data axes; its backward is a reduce-scatter (sum), FSDP's gradient;
+    data axes; its backward is a reduce-scatter (sum), FSDP's gradient.
+    Over ``model`` it gathers a tensor whose parts the ranks then use
+    differently (the Mamba2 in-projection's output): each rank's gradient
+    of the whole is a partial, and the reduce-scatter sums them;
   * :func:`gather_model`: all-gather over ``model`` of a leaf every model
-    rank then uses whole (the vocab tables): every rank's gradient of the
-    whole is the same, so the backward keeps the rank's own slice;
+    rank then uses whole (the vocab tables, ``vis_proj``): every rank's
+    gradient of the whole is the same, so the backward keeps the rank's
+    own slice;
   * :func:`copy_to`/:func:`copy_to_model`: the identity, with an
     all-reduce (sum) backward (Megatron's *f*; over the data axes, the
     gradient of a leaf the data ranks hold whole);
   * :func:`reduce_over`/:func:`reduce_from_model`: an all-reduce (sum),
     with an identity backward (Megatron's *g*);
+  * :func:`sum_over_model`: an all-reduce (sum) over ``model`` both ways,
+    for a sum of rank partials whose downstream is rank-local (the gated
+    RMSNorm's sum of squares);
   * :func:`all_gather_clients`: a plain all-gather over the client axis
     (the federated uplink), no gradient;
   * :func:`all_reduce`, :func:`all_gather`, :func:`broadcast` and
@@ -202,6 +209,17 @@ class _ReduceOver(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return _ar(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ar(g, ctx.group, ctx.axis), None, None
+
+
 def gather_fsdp(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     """All-gather of ``dim`` over the FSDP ``axes`` (major to minor, as a
     spec entry names them): the minor axis first, so the blocks land in
@@ -226,6 +244,15 @@ def gather_replicated(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """:func:`gather_replicated` over ``model``: the vocab tables."""
     return gather_replicated(x, "model", dim)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """All-reduce (sum) over ``model``, and all-reduce of the gradient in
+    backward: each rank's partial gradient of the sum is summed."""
+    plan = current_activation_plan()
+    if not _live(plan, "model"):
+        return x
+    return _ReduceBoth.apply(x, plan.mesh.get_group("model"), "model")
 
 
 def copy_to(x: torch.Tensor, axes) -> torch.Tensor:

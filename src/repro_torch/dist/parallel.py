@@ -12,7 +12,7 @@ leaf. A train forward keeps its rows of the global batch (the plan's
 are the batch's axes.
 
 The model code then asks for each leaf at its use (:func:`layer`,
-:func:`tree`, :func:`table`):
+:func:`tree`, :func:`whole`):
 
   * a dim sharded over a batch axis is all-gathered, and the gradient
     reduce-scattered (``collectives.gather_fsdp``): FSDP, inside each
@@ -23,10 +23,25 @@ The model code then asks for each leaf at its use (:func:`layer`,
     computes the same gradient);
   * a batch axis the leaf is whole on gets the identity with an all-reduce
     backward: the data-parallel gradient sum of a replicated leaf;
-  * a dim on ``model`` stays local: the rank's heads, SwiGLU columns or
-    experts (:func:`heads_mode`, :func:`local_experts`), which the model
-    code wraps in ``copy_to_model``/``reduce_from_model``. The vocab
-    tables are gathered over ``model`` at use (:func:`table`).
+  * a dim on ``model`` stays local: the rank's heads, SwiGLU columns,
+    experts, RWKV channels or Mamba2 heads (:func:`heads_mode`,
+    :func:`local_experts`), which the model code wraps in
+    ``copy_to_model``/``reduce_from_model``. The vocab tables and the vlm
+    projection are gathered over ``model`` at use (:func:`whole`).
+
+One rule places ``copy_to_model`` in every family. A replicated leaf or
+activation (one every model rank holds alike) whose downstream on a rank
+is that rank's part alone enters the rank-local region through
+``copy_to_model``: its gradient on a rank is a partial, summed over
+``model`` in backward. Slicing the rank's channels or heads out of a whole
+``(d,)`` or ``(H,)`` leaf is the typical case (:func:`rank_part`). One
+whose downstream is the same on every rank (RWKV's channel-mix gate) must
+not: its gradient would be counted m times. A gather whose pieces the
+ranks then use differently takes a reduce-scatter backward
+(``collectives.gather_fsdp`` over ``model``: the Mamba2 in-projection's
+output), not the rank's slice, which is right only where every rank uses
+the whole alike (``collectives.gather_model``: the vocab tables,
+``vis_proj``).
 
 Without an active plan every function hands its input back unchanged.
 """
@@ -43,9 +58,6 @@ from repro_torch import tree as tree_util
 from repro_torch.dist import collectives
 from repro_torch.dist.activations import current_activation_plan
 from repro_torch.dist.plan import MeshPlan, PartitionSpec as P, _entry_axes, mesh_coord
-
-TP_FAMILIES = ("dense", "moe")
-
 
 @dataclasses.dataclass(frozen=True)
 class RankView:
@@ -115,9 +127,8 @@ def _local_rows(plan: MeshPlan, batch: dict, axes: tuple) -> dict:
 def enter(cfg, params, batch: Optional[dict] = None, *, train: bool = False):
     """``(view, local params, local batch)`` for a forward under the active
     plan; ``(None, params, batch)`` without one; the held view and the
-    inputs as they are inside a forward that entered already. Raises for tensor
-    parallelism of a family that has none here, and for DTensor leaves
-    without a plan."""
+    inputs as they are inside a forward that entered already. Raises for
+    DTensor leaves without a plan."""
     held = _VIEW.get()
     if held is not None:               # an inner entry point: the leaves are local already
         return held, params, batch
@@ -129,10 +140,6 @@ def enter(cfg, params, batch: Optional[dict] = None, *, train: bool = False):
                              "(dist.activations.activation_mesh)")
         return None, params, batch
     m = plan.axis_size("model")
-    if m > 1 and cfg.family not in TP_FAMILIES:
-        raise ValueError(
-            f"tensor parallelism of the {cfg.family} family is distribution part B2b, not "
-            "ported: run it under a plan whose model axis is 1 (FSDP alone works)")
     key_paths = tree_util.paths(params)
     specs = {p: spec_of(t) for p, t in zip(key_paths, leaves)}
     local = tree_util.from_leaves(key_paths, [t.to_local() if _is_dtensor(t) else t
@@ -209,15 +216,19 @@ def tree(sub: dict, top: str) -> dict:
                                              for p, t in zip(key_paths, tree_util.leaves(sub))])
 
 
-def table(t: torch.Tensor, path: tuple) -> torch.Tensor:
-    """A (V, d) vocab table whole: its FSDP dim as any leaf's, and its
-    vocab rows gathered over ``model`` (every model rank uses the whole)."""
+def whole(t: torch.Tensor, path: tuple) -> torch.Tensor:
+    """A leaf every model rank uses whole (the (V, d) vocab tables, the
+    vlm projection): its FSDP dims as any leaf's, and its dims on
+    ``model`` gathered (``collectives.gather_model``: the backward keeps
+    the rank's block)."""
     view = _VIEW.get()
     if view is None:
         return t
-    t = _use(t, view.specs[path], view)
-    if "model" in _entry_axes(view.specs[path][0] if view.specs[path] else None):
-        t = collectives.gather_model(t, 0)
+    spec = view.specs[path]
+    t = _use(t, spec, view)
+    for d, ent in enumerate(spec):
+        if "model" in _entry_axes(ent):
+            t = collectives.gather_model(t, d)
     return t
 
 
@@ -244,6 +255,18 @@ def local_kv_index(cfg, h_local: int, device) -> torch.Tensor:
     g = cfg.n_heads // cfg.n_kv_heads
     lo = _VIEW.get().model_idx * h_local
     return torch.arange(lo, lo + h_local, device=device) // g
+
+
+def model_index() -> int:
+    """The rank's place on ``model`` (0 without an active view)."""
+    view = _VIEW.get()
+    return 0 if view is None else view.model_idx
+
+
+def rank_part(t: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """The rank's block of ``n`` along ``dim`` of a replicated leaf read in
+    the rank-local region, behind ``copy_to_model`` (module docstring)."""
+    return collectives.copy_to_model(t).narrow(dim, model_index() * n, n)
 
 
 def on_model(path: tuple, dim: int) -> bool:

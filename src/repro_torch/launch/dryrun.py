@@ -3,7 +3,8 @@ group: the memory and collective half of the JAX package's
 ``repro.launch.dryrun`` (which lowers a step on 512 fake host devices).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
-        --shape train_4k --mesh-shape 2x2 [--batch 2] [--steps 2] [--device cuda]
+        --shape train_4k --mesh-shape 2x2 [--batch 2] [--steps 2] \\
+        [--require-seq-sharded] [--require-flash]
 
 The fake group (``torch.testing._internal.distributed.fake_pg``) stands
 in for a world of ``prod(mesh shape)`` ranks, of which this process is
@@ -20,7 +21,9 @@ shape), then 1 warm-up and ``--steps`` timed steps of
 ``launch.steps.make_train_step(..., mesh=)`` with adamw and full remat on
 the global batch (``--batch`` cuts the shape's), or, for a prefill shape,
 ``models.decode.prefill`` under the serve plan (``--seq`` cuts the
-context; the flash kernels). Weights and tokens are drawn from seed 0.
+context; the flash kernels). Weights and inputs are drawn from seed 0:
+every family's batch as ``launch.inputs.train_batch_spec`` lays it out
+(the encdec family's source frames, the vlm family's patch embeddings).
 The record (one JSON line) holds the mesh, the per-rank parameter,
 gradient (as the optimizer update receives it) and optimizer bytes, the
 peak device memory (``torch.cuda.max_memory_allocated``, not measured on
@@ -28,13 +31,29 @@ the CPU: ``peak_gb`` over the run, ``fwd_bwd_peak_gb`` from a step's start
 to its optimizer update: forward, backward and the clip), s/step, the
 counter's bytes and counts by axis and kind for one step, the analytic
 count the port's code implies for that step (:func:`analytic_collectives`,
-dense family, train), and the three roofline terms with the H100's
+dense family, train), whether every step issued the same collectives
+(the warm-up's included), and the three roofline terms with the H100's
 constants (the collective term from :func:`wire_bytes`). Without
 ``fake_pg`` it raises: there is no other route.
+
+Two gates, with the JAX dry run's names and meanings, read the shapes the
+first timed step materializes on the rank (``dist.shape_log``):
+
+  * ``--require-seq-sharded``: no per-rank tensor of 2 B_loc S d_model
+    bytes or more still carries the full sequence length (records
+    ``seq_sharded_ok``, ``full_seq_intermediates``);
+  * ``--require-flash``: ``attn_impl="flash"``, and no per-rank tensor of
+    1 MiB or more carries O(S²) elements (``no_s2_scores_ok``,
+    ``s2_offenders``); on a mesh whose ``seq`` axis is above 1 the ring
+    must have run: seq-axis send/recv in the counter (``ring_p2p``, the
+    counterpart of JAX's collective-permute count).
+
+A gate that fails raises ``AssertionError``, as the JAX dry run's does.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -207,6 +226,57 @@ def analytic_collectives(cfg, axis_sizes: dict, batch: int, seq: int) -> dict:
     return out
 
 
+def _inputs(cfg, shape, kind: str, gen: torch.Generator, dev: torch.device) -> dict:
+    """The step's batch, drawn from ``gen`` as ``train_batch_spec`` lays it
+    out: tokens and labels in the vocab, a mask of ones, embeddings
+    standard normal; a prefill keeps the model inputs."""
+    from repro_torch.launch.inputs import train_batch_spec
+
+    out = {}
+    for name, spec in train_batch_spec(cfg, shape).items():
+        if name in ("tokens", "labels"):
+            out[name] = torch.randint(0, cfg.vocab, spec.shape, generator=gen, device=dev)
+        elif name == "mask":
+            out[name] = torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+        else:
+            out[name] = torch.randn(spec.shape, generator=gen, device=dev).to(spec.dtype)
+    if kind == "prefill":
+        out.pop("labels")
+        out.pop("mask")
+        if cfg.family == "encdec":
+            out.pop("tokens")
+    return out
+
+
+def _gates(cfg, sizes: dict, b: int, s: int, log, counter, *, seq_sharded: bool,
+           flash: bool) -> dict:
+    """The two gates on the first timed step's shape log and collectives
+    (module docstring); raises ``AssertionError`` where one fails."""
+    from repro_torch.dist.shape_log import full_length_intermediates, no_s2_scores
+
+    gates: dict = {}
+    seq_sh = sizes.get("seq", 1)
+    if seq_sharded:
+        b_loc = max(b // (sizes.get("pod", 1) * sizes.get("data", 1)), 1)
+        min_bytes = 2 * b_loc * s * cfg.d_model
+        offenders = full_length_intermediates(log.entries, s, min_bytes=min_bytes)
+        gates.update(seq_sharded_ok=not offenders, full_seq_intermediates=offenders[:10])
+        if offenders:
+            raise AssertionError(f"{len(offenders)} full-seq intermediates >= {min_bytes}B on a "
+                                 f"seq={seq_sh} mesh; top: {offenders[:3]}")
+    if flash:
+        offenders = no_s2_scores(log.entries, s, shards=seq_sh)
+        p2p = sum(1 for r in counter.log if r.kind == "send/recv" and r.axis == "seq")
+        gates.update(no_s2_scores_ok=not offenders, s2_offenders=offenders[:10], ring_p2p=p2p)
+        if offenders:
+            raise AssertionError(f"{len(offenders)} O(S^2) score tensors in the flash step "
+                                 f"(seq shards={seq_sh}); top: {offenders[:3]}")
+        if seq_sh > 1 and not p2p:
+            raise AssertionError(f"no seq-axis send/recv in the flash step on a seq={seq_sh} "
+                                 "mesh: the ring attention path was not taken")
+    return gates
+
+
 def main(argv: Optional[Sequence[str]] = None,
          device: Optional[Union[str, torch.device]] = None) -> dict:
     ap = argparse.ArgumentParser()
@@ -217,6 +287,11 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--seq", type=int, default=None, help="cut the shape's sequence length")
     ap.add_argument("--steps", type=int, default=2, help="timed steps after one warm-up")
     ap.add_argument("--reduced", action="store_true", help="the arch's reduced config")
+    ap.add_argument("--require-seq-sharded", action="store_true",
+                    help="fail if a big per-rank tensor keeps the full sequence length")
+    ap.add_argument("--require-flash", action="store_true",
+                    help="flash attention; fail if a per-rank tensor holds O(S^2) scores, or "
+                         "if a seq axis above 1 ran no ring")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -226,6 +301,7 @@ def main(argv: Optional[Sequence[str]] = None,
     from repro_torch.dist.collectives import CollectiveCounter
     from repro_torch.dist.placement import init_params_local
     from repro_torch.dist.plan import make_plan
+    from repro_torch.dist.shape_log import ShapeLog
     from repro_torch.launch.analytic import analytic_record
     from repro_torch.launch.mesh import make_production_mesh, mesh_label, parse_mesh_shape
     from repro_torch.models.config import INPUT_SHAPES
@@ -234,6 +310,8 @@ def main(argv: Optional[Sequence[str]] = None,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("dryrun: no CUDA device was found; pass device=\"cpu\"")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.require_flash:
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
     shape = INPUT_SHAPES[args.shape]
     shape = dataclasses.replace(shape, global_batch=args.batch or shape.global_batch,
                                 seq_len=args.seq or shape.seq_len)
@@ -250,7 +328,9 @@ def main(argv: Optional[Sequence[str]] = None,
         sizes = dict(zip(mesh.mesh_dim_names, mesh_shape))
         b, s = shape.global_batch, shape.seq_len
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+        batch = _inputs(cfg, shape, kind, gen, dev)
+        logging = args.require_seq_sharded or args.require_flash
+        log = ShapeLog()
         peaks = _Peaks(dev)
         record = {"arch": args.arch, "shape": args.shape, "kind": kind,
                   "mesh": mesh_label(mesh), "axes": list(mesh.mesh_dim_names),
@@ -266,16 +346,15 @@ def main(argv: Optional[Sequence[str]] = None,
             state = opt.init(params)
             probe: dict = {}
             step = make_train_step(cfg, _probed(opt, peaks, probe), mesh=mesh)
-            batch = {"tokens": toks, "labels": toks,
-                     "mask": torch.ones((b, s), dtype=torch.float32, device=dev)}
-            params, state, _ = step(params, state, batch)            # warm-up
+            with CollectiveCounter() as warm:
+                params, state, _ = step(params, state, batch)        # warm-up
             counters = []
             times = []
-            for _ in range(args.steps):
+            for i in range(args.steps):
                 _sync(dev)
                 peaks.read()
                 t0 = time.perf_counter()
-                with CollectiveCounter() as c:
+                with CollectiveCounter() as c, _logging(log, logging and i == 0):
                     params, state, metrics = step(params, state, batch)
                     _sync(dev)
                 times.append(time.perf_counter() - t0)
@@ -293,16 +372,21 @@ def main(argv: Optional[Sequence[str]] = None,
             params = init_params_local(cfg, plan, SEED, device=dev)
             times, counters = [], []
             with activation_mesh(plan):
-                decode.prefill(cfg, params, {"tokens": toks}, s)           # warm-up
-                for _ in range(args.steps):
+                with CollectiveCounter() as warm:
+                    decode.prefill(cfg, params, batch, s)                  # warm-up
+                for i in range(args.steps):
                     _sync(dev)
                     t0 = time.perf_counter()
-                    with CollectiveCounter() as c:
-                        decode.prefill(cfg, params, {"tokens": toks}, s)
+                    with CollectiveCounter() as c, _logging(log, logging and i == 0):
+                        decode.prefill(cfg, params, batch, s)
                         _sync(dev)
                     times.append(time.perf_counter() - t0)
                     counters.append(c)
             record.update(param_bytes=_nbytes(params))
+        if logging:
+            record.update(_gates(cfg, sizes, b, s, log, counters[0],
+                                 seq_sharded=args.require_seq_sharded,
+                                 flash=args.require_flash))
         ana = analytic_record(cfg, shape, kind, world,
                               dp_size=sizes.get("data", 1) * sizes.get("pod", 1))
         peaks.read()
@@ -310,7 +394,7 @@ def main(argv: Optional[Sequence[str]] = None,
             s_per_step=sum(times) / len(times), step_seconds=times,
             peak_gb=peaks.gb(peaks.all),
             collectives=counters[0].totals(),
-            collectives_same_each_step=all(c.signature() == counters[0].signature()
+            collectives_same_each_step=all(c.signature() == warm.signature()
                                            for c in counters),
             compute_term_s=ana["analytic_flops_per_device"] / PEAK_FLOPS,
             memory_term_s=ana["analytic_bytes_per_device"] / HBM_BW,
@@ -320,6 +404,11 @@ def main(argv: Optional[Sequence[str]] = None,
         dist.destroy_process_group()
     print(json.dumps(record), flush=True)
     return record
+
+
+def _logging(log, on: bool):
+    """``log`` open around a step when ``on``, else nothing."""
+    return log if on else contextlib.nullcontext()
 
 
 def _sync(dev: torch.device) -> None:

@@ -291,7 +291,7 @@ def _fl_round_ranks(plan: MeshPlan, client_axis: str, local_step, wire_packed: b
     mesh = plan.mesh
     if plan.axis_size("seq") > 1:
         raise ValueError("fl_round: a seq axis above 1 within a client (the round's "
-                         "sequence-parallel step) is distribution part B2b, not ported")
+                         "sequence-parallel step) is distribution part B2c, not ported")
     coord = mesh_coord(mesh)
     k_rank = coord[client_axis]
     intra = tuple(a for a in mesh.mesh_dim_names if a != client_axis and plan.axis_size(a) > 1)

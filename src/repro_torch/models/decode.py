@@ -28,11 +28,14 @@ the last logits from the last seq rank: every rank leaves with the whole
 cache and the same logits, and decoding runs replicated.
 
 Under a tensor-parallel serve plan (``make_plan(mesh, mode="serve")``,
-``params`` placed as DTensors) each rank runs its heads, SwiGLU columns or
-experts; its cache holds its KV/m heads where KV divides the ``model``
-axis (``_CACHE_DIMS``: ``cache_seq`` is never sharded), else every KV head;
-the vocab table is gathered at use, so every rank leaves with the same
-logits.
+``params`` placed as DTensors) each rank runs its heads, SwiGLU columns,
+experts, RWKV6 or Mamba2 heads; its cache holds its part as the JAX
+package's ``_CACHE_DIMS`` lays it out (``cache_seq`` is never sharded):
+the k/v rings (the hybrid family's shared-attention rings and encdec's
+cross k/v too) its KV/m heads where KV divides the ``model`` axis, else
+every KV head; RWKV6's ``s`` and Mamba2's ``ssm`` its heads; the shift
+carries and the conv carry whole. The vocab table is gathered at use, so
+every rank leaves with the same logits.
 
 Unlike the JAX functions, which return a new cache, :func:`decode_step`
 and :func:`encode` update the cache in place (and return the same dict):
@@ -52,12 +55,18 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     _SEQ_SHARD, Params, _cross_attention, _forward_encoder, _holding, _mamba_block,
     _merge_heads, _positions, _proj_heads, _rwkv_block, _self_attention, _shared_attn_block,
-    attention_mode, embed_inputs, embed_table, expand_local_kv, ffn, final_norm,
-    from_last_shard, gather_seq, head_table, layer_params, rwkv_state, seq_shard,
-    shared_window,
+    attention_mode, cross_memory, embed_inputs, embed_table, expand_local_kv, ffn,
+    final_norm, from_last_shard, gather_seq, head_table, layer_params, mlp, rwkv_heads,
+    rwkv_state, seq_shard, shared_window,
 )
 
 Cache = dict
+
+
+def _on_rank(n: int, path: tuple, dim: int) -> int:
+    """``n`` heads, or the rank's n/m when the leaf at ``path`` is sharded
+    on ``model`` along ``dim``."""
+    return n // parallel.current().model if parallel.on_model(path, dim) else n
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, *,
@@ -69,9 +78,9 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, *,
     b = batch_size
     if cfg.family == "ssm":
         n = cfg.d_model // cfg.rwkv_heads
+        heads = _on_rank(cfg.rwkv_heads, ("layers", "tm", "wr"), 2)
         return {
-            "s": torch.zeros((cfg.n_layers, b, cfg.rwkv_heads, n, n), dtype=torch.float32,
-                             device=dev),
+            "s": torch.zeros((cfg.n_layers, b, heads, n, n), dtype=torch.float32, device=dev),
             "x_tm": torch.zeros((cfg.n_layers, b, cfg.d_model), dtype=dt, device=dev),
             "x_cm": torch.zeros((cfg.n_layers, b, cfg.d_model), dtype=dt, device=dev),
             "pos": 0,
@@ -79,10 +88,12 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, *,
     if cfg.family == "hybrid":
         lc = min(shared_window(cfg), seq_len)
         n_super = cfg.n_layers // cfg.attn_every
-        ring = (n_super, b, lc, cfg.n_kv_heads, cfg.hd)
+        ring = (n_super, b, lc, _on_rank(cfg.n_kv_heads, ("shared_attn", "attn", "wk"), 1),
+                cfg.hd)
+        heads = _on_rank(cfg.n_ssm_heads, ("layers", "mamba", "w_out"), 1)
         return {
-            "ssm": torch.zeros((cfg.n_layers, b, cfg.n_ssm_heads, cfg.ssm_state,
-                                cfg.ssm_head_dim), dtype=torch.float32, device=dev),
+            "ssm": torch.zeros((cfg.n_layers, b, heads, cfg.ssm_state, cfg.ssm_head_dim),
+                               dtype=torch.float32, device=dev),
             "conv": torch.zeros((cfg.n_layers, b, mamba2.CONV_K - 1,
                                  cfg.d_inner + 2 * cfg.ssm_state), dtype=dt, device=dev),
             "k": torch.zeros(ring, dtype=dt, device=dev),
@@ -91,10 +102,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int, *,
             "pos": 0,
         }
     lc = cfg.effective_cache_len(seq_len)
-    kv = cfg.n_kv_heads
-    if parallel.on_model(("layers", "attn", "wk"), 2):      # the rank's KV heads
-        kv //= parallel.current().model
-    shape = (cfg.n_layers, b, lc, kv, cfg.hd)
+    shape = (cfg.n_layers, b, lc, _on_rank(cfg.n_kv_heads, ("layers", "attn", "wk"), 2), cfg.hd)
     cache = {
         "k": torch.zeros(shape, dtype=dt, device=dev),
         "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -134,15 +142,10 @@ def encode(cfg: ModelConfig, params: Params, cache: Cache, src_embeds: torch.Ten
 
 def _encode(cfg: ModelConfig, params: Params, cache: Cache, src_embeds: torch.Tensor) -> Cache:
     mem = _forward_encoder(cfg, params, src_embeds.to(cfg.activation_dtype))
-    b, s = mem.shape[:2]
-    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.hd)
-    mem_k = torch.empty(shape, dtype=mem.dtype, device=mem.device)
-    mem_v = torch.empty_like(mem_k)
-    for i in range(cfg.n_layers):
-        xp = parallel.layer(layer_params(params, i))["xattn"]
-        mem_k[i] = _proj_heads(mem, xp["wk"])
-        mem_v[i] = _proj_heads(mem, xp["wv"])
-    cache["mem_k"], cache["mem_v"] = mem_k, mem_v
+    kv = [cross_memory(cfg, parallel.layer(layer_params(params, i))["xattn"], mem)
+          for i in range(cfg.n_layers)]
+    cache["mem_k"] = torch.stack([k for k, _ in kv])
+    cache["mem_v"] = torch.stack([v for _, v in kv])
     return cache
 
 
@@ -182,7 +185,8 @@ def _rwkv_step(cfg: ModelConfig, params: Params, cache: Cache, h: torch.Tensor) 
             cache["s"][i], cfg.rwkv_heads)
         h = h + a
         c, cm_carry = rwkv6.channel_mix_apply(
-            lp["cm"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)[:, None, :], cache["x_cm"][i])
+            lp["cm"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps)[:, None, :], cache["x_cm"][i],
+            d_ff=cfg.d_ff)
         h = h + c[:, 0, :]
         cache["s"][i] = s_new
         cache["x_tm"][i] = tm_carry
@@ -210,7 +214,7 @@ def _hybrid_step(cfg: ModelConfig, params: Params, cache: Cache, h: torch.Tensor
             cfg, shared["attn"], layers.rmsnorm(shared["ln"], h, cfg.norm_eps),
             cache["k"][j], cache["v"][j], cache["slot_pos"], pos)
         y = layers.rmsnorm(shared["ln2"], h, cfg.norm_eps)
-        h = h + layers.swiglu(shared["mlp"], y[:, None, :])[:, 0, :]
+        h = h + mlp(cfg, shared["mlp"], y[:, None, :])[:, 0, :]
     return h
 
 
@@ -318,10 +322,11 @@ def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
     cache = init_cache(cfg, b, seq_len, device=dev)
     cache["pos"] = s
     if cfg.family == "ssm":
-        x_prev, s0 = rwkv_state(cfg, b, dev)
         for i in range(cfg.n_layers):
+            lp = parallel.layer(layer_params(params, i))
+            x_prev, s0 = rwkv_state(cfg, b, dev, rwkv_heads(cfg, lp))
             h, cache["x_tm"][i], cache["x_cm"][i], cache["s"][i] = _rwkv_block(
-                cfg, parallel.layer(layer_params(params, i)), h, x_prev, x_prev, s0)
+                cfg, lp, h, x_prev, x_prev, s0)
         return _logits(cfg, params, h[:, -1:, :]), cache
     lc = cache["slot_pos"].shape[0]
     m_keep = min(lc, s)

@@ -11,6 +11,20 @@ intra-chunk a masked (C x C) decay-weighted matmul, inter-chunk a scan
 over chunk states; ``ssd_sequential`` is the oracle and decode's T = 1
 path. ``a_log``, ``d_skip`` and ``dt_bias`` are fp32 in every
 configuration, as the JAX code reads them.
+
+Tensor parallelism on ``model`` (``dist.parallel``'s rule): ``w_out``'s
+rows hold the rank's heads (d_inner / m channels), followed by
+``reduce_from_model``. ``w_in``'s columns concatenate z, x, B, C and dt,
+so a contiguous block of them is not the rank's heads: the rank multiplies
+by its columns and all-gathers the projection's output over ``model``
+(``collectives.gather_fsdp``: a reduce-scatter backward, since the ranks
+use different parts of it), runs the depthwise conv over every
+channel (its replicated kernel behind ``copy_to_model``; the conv carry
+stays whole), then keeps its own heads of z, x and dt and all of B and C.
+``a_log``, ``d_skip``, ``dt_bias`` and the gated norm's scale are sliced
+to the rank's heads behind ``copy_to_model``; the gated norm's sum of
+squares over d_inner is a partial per rank, in fp32, all-reduced both
+ways (``collectives.sum_over_model``).
 """
 from __future__ import annotations
 
@@ -19,6 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives, parallel
 from repro_torch.models import layers
 
 CONV_K = 4  # depthwise causal conv width
@@ -136,31 +151,60 @@ def mamba2_apply(params: dict, x: torch.Tensor, *, d_inner: int, d_state: int, h
     """Full-sequence Mamba2 block; ``state`` carries (ssm, conv) for
     streaming. Returns (out, {"ssm": (B,H,N,P) fp32, "conv": (B,K-1,C)})."""
     bsz, t, _ = x.shape
-    h = d_inner // head_dim
     dtype = x.dtype
+    inner = params["w_out"].shape[0]         # d_inner, or the rank's heads' channels
+    tp = inner != d_inner
+    if tp != (params["w_in"].shape[-1] != 2 * d_inner + 2 * d_state + d_inner // head_dim):
+        raise ValueError("mamba2: w_in's columns and w_out's rows are not both on model")
+    if tp:
+        x = collectives.copy_to_model(x)
     proj = torch.matmul(x, params["w_in"].to(dtype))
+    if tp:
+        proj = collectives.gather_fsdp(proj, "model", proj.ndim - 1)
     z, xi, b_in, c_in, dt = _split_proj(proj, d_inner, d_state)
 
     conv_in = torch.cat([xi, b_in, c_in], dim=-1)
-    conv_out, conv_carry = causal_conv(conv_in, params["conv"],
-                                       None if state is None else state["conv"])
+    conv_out, conv_carry = causal_conv(
+        conv_in, collectives.copy_to_model(params["conv"]) if tp else params["conv"],
+        None if state is None else state["conv"])
     xi = conv_out[..., :d_inner]
     b_in = conv_out[..., d_inner:d_inner + d_state]
     c_in = conv_out[..., d_inner + d_state:]
 
-    dt = softplus(dt.float() + params["dt_bias"].float())
+    p = params
+    h = inner // head_dim
+    if tp:                                   # the rank's heads
+        lo = parallel.model_index() * inner
+        z, xi = z[..., lo:lo + inner], xi[..., lo:lo + inner]
+        dt = dt[..., lo // head_dim:lo // head_dim + h]
+        p = dict(params, norm={"scale": parallel.rank_part(params["norm"]["scale"], inner)},
+                 **{n: parallel.rank_part(params[n], h) for n in ("a_log", "d_skip", "dt_bias")})
+    dt = softplus(dt.float() + p["dt_bias"].float())
     xh = xi.reshape(bsz, t, h, head_dim)
     s0 = (x.new_zeros((bsz, h, d_state, head_dim), dtype=torch.float32) if state is None
           else state["ssm"])
-    a_log = params["a_log"].float()
+    a_log = p["a_log"].float()
     if chunked and t % chunk == 0 and t > 1:
         y, s_final = ssd_chunked(xh, dt, a_log, b_in, c_in, s0, chunk)
     else:
         y, s_final = ssd_sequential(xh, dt, a_log, b_in, c_in, s0)
-    y = y + params["d_skip"].to(dtype)[:, None] * xh
+    y = y + p["d_skip"].to(dtype)[:, None] * xh
     # the gated norm at rmsnorm's default eps, as in the JAX code (not cfg.norm_eps)
-    y = layers.rmsnorm(params["norm"], y.reshape(bsz, t, d_inner) * F.silu(z))
-    return torch.matmul(y, params["w_out"].to(dtype)), {"ssm": s_final, "conv": conv_carry}
+    gated = y.reshape(bsz, t, inner) * F.silu(z)
+    y = _split_rmsnorm(p["norm"], gated, d_inner) if tp else layers.rmsnorm(p["norm"], gated)
+    out = torch.matmul(y, p["w_out"].to(dtype))
+    if tp:
+        out = collectives.reduce_from_model(out)
+    return out, {"ssm": s_final, "conv": conv_carry}
+
+
+def _split_rmsnorm(params: dict, x: torch.Tensor, d: int, eps: float = 1e-5) -> torch.Tensor:
+    """``layers.rmsnorm`` over ``d`` channels of which x holds the rank's:
+    the fp32 sum of squares summed over ``model`` both ways."""
+    xf = x.float()
+    ss = collectives.sum_over_model(torch.sum(xf * xf, dim=-1, keepdim=True))
+    out = xf * torch.rsqrt(ss / d + eps) * params["scale"]
+    return out.to(x.dtype)
 
 
 def mamba2_step(params: dict, x: torch.Tensor, state: dict, *, d_inner: int, d_state: int,

@@ -43,14 +43,16 @@ the other families.
 Model parallelism (``dist.parallel``): under a plan with parameters placed
 as DTensors (``dist.placement``), every entry point takes the rank's local
 shards (:func:`parallel.enter`), each layer gathers its FSDP-sharded
-leaves inside its remat body (``parallel.layer``), and the dense and moe
-families run their attention heads, SwiGLU columns and experts of the
-``model`` axis locally between ``copy_to_model`` and ``reduce_from_model``
-(:func:`attention_mode`, :func:`ffn`); the vocab tables are gathered at
-use. Heads go on ``model`` where H divides it (KV too, or each rank expands
-GQA for its heads); under the ring only where both do, else the heads stay
-replicated. The other four families take FSDP only: a ``model`` axis above
-1 raises.
+leaves inside its remat body (``parallel.layer``), and every family runs
+its part of the ``model`` axis locally between ``copy_to_model`` and
+``reduce_from_model``: attention heads (self- and cross-attention,
+:func:`attention_mode`), SwiGLU columns (:func:`mlp`, every SwiGLU of
+every family), experts (:func:`ffn`), RWKV6's heads and channel-mix
+columns (``models/rwkv6.py``) and Mamba2's heads (``models/mamba2.py``);
+the vocab tables and the vlm projection are gathered at use. Heads go on
+``model`` where H divides it (KV too, or each rank expands GQA for its
+heads); under the ring only where both do, else the heads stay
+replicated.
 """
 from __future__ import annotations
 
@@ -359,7 +361,8 @@ def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[SeqShard], dict]:
     if cfg.family != "dense":
         raise ValueError(
             f"the {cfg.family} family has no sequence-parallel path (its scans or routing "
-            "carry state across the sequence); run it under a plan without a seq axis")
+            "carry state across the sequence; distribution part B2c); run it under a plan "
+            "without a seq axis")
     tokens = batch["tokens"]
     s = tokens.shape[1]
     ent = plan.resolve(s, "seq")
@@ -500,10 +503,16 @@ def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
         out, aux = moe.moe_apply(mp, collectives.copy_to_model(y), top_k=cfg.top_k,
                                  capacity_factor=cf, experts=experts)
         return collectives.reduce_from_model(out), aux
-    if p["mlp"]["wg"].shape[-1] == cfg.d_ff:
-        return layers.swiglu(p["mlp"], y), {}
-    return collectives.reduce_from_model(
-        layers.swiglu(p["mlp"], collectives.copy_to_model(y))), {}
+    return mlp(cfg, p["mlp"], y), {}
+
+
+def mlp(cfg: ModelConfig, p: dict, y: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU of y (B, S, D) with ``p``'s ``wg``/``wu``/``wd``: whole,
+    or the rank's columns between ``copy_to_model`` and
+    ``reduce_from_model`` when they are sharded on ``model``."""
+    if p["wg"].shape[-1] == cfg.d_ff:
+        return layers.swiglu(p, y)
+    return collectives.reduce_from_model(layers.swiglu(p, collectives.copy_to_model(y)))
 
 
 def _dense_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
@@ -548,7 +557,7 @@ def _rwkv_block(cfg: ModelConfig, p: dict, x: torch.Tensor, x_tm: torch.Tensor,
     )
     x = x + h
     c, cm_carry = rwkv6.channel_mix_apply(p["cm"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                                          x_cm)
+                                          x_cm, d_ff=cfg.d_ff)
     return x + c, tm_carry, cm_carry, s_new
 
 
@@ -564,18 +573,28 @@ def _mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + h, new_state
 
 
-def rwkv_state(cfg: ModelConfig, b: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """A layer's zero token-shift carry (B, D) and WKV state (B, H, N, N) fp32."""
+def rwkv_heads(cfg: ModelConfig, lp: dict) -> int:
+    """The WKV heads a rank runs with layer ``lp``'s time mix as it holds
+    it: all of them, or its own under tensor parallelism."""
+    return lp["tm"]["wr"].shape[-1] * cfg.rwkv_heads // cfg.d_model
+
+
+def rwkv_state(cfg: ModelConfig, b: int, device,
+               heads: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer's zero token-shift carry (B, D) and WKV state (B, H, N, N)
+    fp32, of ``heads`` heads (default all)."""
     n = cfg.d_model // cfg.rwkv_heads
+    heads = cfg.rwkv_heads if heads is None else heads
     return (torch.zeros((b, cfg.d_model), dtype=cfg.activation_dtype, device=device),
-            torch.zeros((b, cfg.rwkv_heads, n, n), dtype=torch.float32, device=device))
+            torch.zeros((b, heads, n, n), dtype=torch.float32, device=device))
 
 
 def _forward_rwkv(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
                   remat: bool = False) -> tuple[torch.Tensor, dict]:
     def body(h, lp):
-        x_prev, s0 = rwkv_state(cfg, h.shape[0], h.device)
-        return _rwkv_block(cfg, parallel.layer(lp), h, x_prev, x_prev, s0)[0]
+        lp = parallel.layer(lp)
+        x_prev, s0 = rwkv_state(cfg, h.shape[0], h.device, rwkv_heads(cfg, lp))
+        return _rwkv_block(cfg, lp, h, x_prev, x_prev, s0)[0]
 
     step = _remat(body, remat)
     for lp in unstack(params):
@@ -600,7 +619,7 @@ def _shared_attn_block(cfg: ModelConfig, shared: dict, h: torch.Tensor,
         window_override=shared_window(cfg),
     )
     h = h + a
-    return h + layers.swiglu(shared["mlp"], layers.rmsnorm(shared["ln2"], h, cfg.norm_eps)), k, v
+    return h + mlp(cfg, shared["mlp"], layers.rmsnorm(shared["ln2"], h, cfg.norm_eps)), k, v
 
 
 def _forward_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
@@ -637,7 +656,7 @@ def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
             causal=False, positions=positions,
         )
         h = h + a
-        return h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+        return h + mlp(cfg, lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
 
     step = _remat(body, remat)
     h = src
@@ -646,13 +665,31 @@ def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
     return layers.rmsnorm(parallel.tree(params["enc_norm"], "enc_norm"), h, cfg.norm_eps)
 
 
+def cross_memory(cfg: ModelConfig, p: dict, mem: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross-attention k/v (B, S_src, KV, hd) of the
+    encoder output ``mem``; under tensor parallelism the rank's KV heads
+    (the memory enters through ``copy_to_model``: every layer reads it
+    for its own heads), or every head for ``"expand"`` mode."""
+    mode, p = attention_mode(cfg, p)
+    if mode != "whole":
+        mem = collectives.copy_to_model(mem)
+    return _proj_heads(mem, p["wk"]), _proj_heads(mem, p["wv"])
+
+
 def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, mem_k: torch.Tensor,
                      mem_v: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) attends, without a mask or RoPE, to the encoder's k/v
-    (B, S_src, KV, hd); dense attention, as in the JAX package."""
+    (B, S_src, KV, hd) of :func:`cross_memory`; dense attention, as in the
+    JAX package. Under tensor parallelism the rank's q heads, then
+    ``wo``'s rows and ``reduce_from_model``."""
+    mode = parallel.heads_mode(cfg, p["wq"].shape[1], mem_k.shape[2])
+    if mode != "whole":
+        x = collectives.copy_to_model(x)
     q = _proj_heads(x, p["wq"])
-    o = layers.dense_attention(q, mem_k, mem_v, causal=False)
-    return _merge_heads(o, p["wo"])
+    o = layers.dense_attention(q, *expand_local_kv(cfg, mode, mem_k, mem_v, q.shape[2]),
+                               causal=False)
+    out = _merge_heads(o, p["wo"])
+    return out if mode == "whole" else collectives.reduce_from_model(out)
 
 
 def _forward_encdec(cfg: ModelConfig, params: Params, src: torch.Tensor,
@@ -669,8 +706,8 @@ def _forward_encdec(cfg: ModelConfig, params: Params, src: torch.Tensor,
         h = h + a
         xp = lp["xattn"]
         h = h + _cross_attention(cfg, xp, layers.rmsnorm(lp["ln_x"], h, cfg.norm_eps),
-                                 _proj_heads(mem, xp["wk"]), _proj_heads(mem, xp["wv"]))
-        return h + layers.swiglu(lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
+                                 *cross_memory(cfg, xp, mem))
+        return h + mlp(cfg, lp["mlp"], layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
 
     step = _remat(body, remat)
     h = tgt
@@ -686,7 +723,7 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     dtype = cfg.activation_dtype
     x = layers.embed(embed_table(params), batch["tokens"], dtype)
     if cfg.family == "vlm":
-        w = parallel.tree(params["vis_proj"], "vis_proj")["w"]
+        w = parallel.whole(params["vis_proj"]["w"], ("vis_proj", "w"))
         vis = torch.matmul(batch["vis_embeds"].to(dtype), w.to(dtype))
         x = torch.cat([vis, x], dim=1)
     return x
@@ -697,14 +734,14 @@ def lm_head(cfg: ModelConfig, params: Params) -> dict:
 
 
 def embed_table(params: Params) -> dict:
-    """``params["embed"]`` whole, as the rank uses it (``parallel.table``)."""
-    return {"table": parallel.table(params["embed"]["table"], ("embed", "table"))}
+    """``params["embed"]`` whole, as the rank uses it (``parallel.whole``)."""
+    return {"table": parallel.whole(params["embed"]["table"], ("embed", "table"))}
 
 
 def head_table(cfg: ModelConfig, params: Params) -> dict:
     """The unembedding table whole, as the rank uses it."""
     top = "embed" if cfg.tie_embeddings else "lm_head"
-    return {"table": parallel.table(params[top]["table"], (top, "table"))}
+    return {"table": parallel.whole(params[top]["table"], (top, "table"))}
 
 
 def final_norm(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:

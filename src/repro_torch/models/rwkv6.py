@@ -22,12 +22,25 @@ vectors and the group norm's affine are fp32 in every configuration: the
 JAX code reads them fp32 (the double exponential of the decay would move
 with a bf16 rounding of its inputs). The five projections are matrices in
 the activation dtype.
+
+Tensor parallelism on ``model`` (``dist.parallel``'s rule): the time
+mix's ``wr``/``wk``/``wv``/``wg`` columns and ``u`` hold the rank's heads
+(columns are H x hd, head-major) and ``wo`` their rows, followed by
+``reduce_from_model``. The region's inputs (x, the shift carry) and the
+replicated leaves it reads (the mixing vectors and ``wa`` whole; ``wb``'s
+columns, ``w0`` and the group norm's affine at the rank's channels) enter
+through ``copy_to_model``. The channel mix's ``wk`` columns and ``wv``
+rows are the rank's; ``v`` is summed over ``model`` before it meets the
+gate, whose ``wr`` branch is the same on every rank and takes no copy.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives, parallel
 from repro_torch.models import layers
 
 
@@ -100,7 +113,7 @@ def _rkvwg(params: dict, x: torch.Tensor, x_prev: torch.Tensor, n_heads: int):
     lora = torch.matmul(xw.float(), params["wa"].float())
     dd = torch.matmul(torch.tanh(lora), params["wb"].float())
     w = torch.exp(-torch.exp(params["w0"].float() + dd))   # (B,T,D) in (0,1), fp32
-    hsplit = lambda z: z.reshape(b, t, n_heads, d // n_heads)  # noqa: E731
+    hsplit = lambda z: z.reshape(b, t, n_heads, -1)  # noqa: E731
     return hsplit(r), hsplit(k), hsplit(v), hsplit(w), g, x[:, -1, :]
 
 
@@ -173,19 +186,45 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tens
     return (y_intra + y_state).reshape(b, t, h, n).to(r.dtype), s
 
 
+def _rank_region(params: dict, x: torch.Tensor, x_prev: torch.Tensor, n_heads: int):
+    """The time mix as the rank runs it: ``(params, x, x_prev, heads)``,
+    unchanged when ``wr`` holds every column, else the rank's heads with
+    the region's inputs and replicated leaves behind ``copy_to_model``
+    (module docstring)."""
+    d = x.shape[-1]
+    cols = params["wr"].shape[-1]
+    if cols == d:
+        return params, x, x_prev, n_heads
+    heads = params["u"].shape[0]
+    if heads * (d // n_heads) != cols:
+        raise ValueError(f"time mix: {cols} of {d} columns on this rank do not hold whole "
+                         f"heads ({n_heads} heads; u holds {heads})")
+    copy = collectives.copy_to_model
+    p = dict(params, wa=copy(params["wa"]), wb=parallel.rank_part(params["wb"], cols),
+             w0=parallel.rank_part(params["w0"], cols),
+             ln={n: parallel.rank_part(v, cols) for n, v in params["ln"].items()},
+             **{f"mu_{c}": copy(params[f"mu_{c}"]) for c in "rkvwg"})
+    return p, copy(x), copy(x_prev), heads
+
+
 def time_mix_apply(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s0: torch.Tensor,
                    n_heads: int, *, chunked: bool = True,
                    chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence time mix. Returns (out, new x_prev, new state)."""
-    b, t, d = x.shape
-    r, k, v, w, g, carry = _rkvwg(params, x, x_prev, n_heads)
-    u = params["u"].float()
+    """Full-sequence time mix. Returns (out, new x_prev, new state); under
+    tensor parallelism ``s0`` and the state hold the rank's heads."""
+    b, t, _ = x.shape
+    p, xl, x_prev, heads = _rank_region(params, x, x_prev, n_heads)
+    r, k, v, w, g, _ = _rkvwg(p, xl, x_prev, heads)
+    u = p["u"].float()
     if chunked and t % chunk == 0 and t > 1:
         y, s_final = wkv_chunked(r, k, v, w, u, s0, chunk=chunk)
     else:
         y, s_final = wkv_sequential(r, k, v, w, u, s0)
-    y = groupnorm_heads(params["ln"], y).reshape(b, t, d)     # head-local norm
-    return torch.matmul(y * g, params["wo"].to(x.dtype)), carry, s_final
+    y = groupnorm_heads(p["ln"], y).reshape(b, t, -1)        # head-local norm
+    out = torch.matmul(y * g, p["wo"].to(x.dtype))
+    if heads != n_heads:
+        out = collectives.reduce_from_model(out)
+    return out, x[:, -1, :], s_final
 
 
 def time_mix_step(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s: torch.Tensor,
@@ -196,13 +235,20 @@ def time_mix_step(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s: torch.
     return out[:, 0, :], carry, s_new
 
 
-def channel_mix_apply(params: dict, x: torch.Tensor,
-                      x_prev: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def channel_mix_apply(params: dict, x: torch.Tensor, x_prev: torch.Tensor,
+                      d_ff: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The channel mix; when ``wk`` holds fewer than ``d_ff`` columns, the
+    rank's (module docstring)."""
     dtype = x.dtype
     xs = _shift(x, x_prev)
     xk = _mix(x, xs, params["mu_k"])
     xr = _mix(x, xs, params["mu_r"])
+    split = d_ff is not None and params["wk"].shape[-1] != d_ff
+    if split:
+        xk = collectives.copy_to_model(xk)
     k = torch.square(torch.relu(torch.matmul(xk, params["wk"].to(dtype))))
     v = torch.matmul(k, params["wv"].to(dtype))
+    if split:
+        v = collectives.reduce_from_model(v)
     r = torch.sigmoid(torch.matmul(xr, params["wr"].to(dtype)))
     return r * v, x[:, -1, :]

@@ -7,8 +7,13 @@ its fields, the fake group's note, rank 0's state bytes (its shards of the
 ``param_specs``; the gradient's as the optimizer update received it) and
 no peak (not measured on the CPU); a prefill shape runs under the serve
 plan and issues two all-reduces a layer over ``model`` and the two table
-gathers. The collective term counts the bytes on the links by NCCL's ring
-factors.
+gathers; the four other families' prefills under the serve plan issue
+their tensor-parallel collectives, counted layer by layer. The collective
+term counts the bytes on the links by NCCL's ring factors. The gates
+(``--require-seq-sharded``, ``--require-flash``) hold on a reduced Llama
+prefill on ``1x1x4x1`` (the ring, its seq-axis send/recv counted) and each
+fails on purpose where it should: the sequence whole on a ``1x2`` mesh,
+and dense attention's S² scores at S <= 2048.
 """
 import math
 
@@ -25,11 +30,11 @@ FIELDS = ("arch", "shape", "kind", "mesh", "axes", "world", "rank", "batch", "se
           "collective_term_s")
 
 
-def _run(*argv, shape="train_4k"):
+def _run(*argv, shape="train_4k", arch="llama3_8b", batch=4, seq=128):
     from repro_torch.launch import dryrun
 
-    rec = dryrun.main(["--arch", "llama3_8b", "--reduced", "--shape", shape, "--batch",
-                       "4", "--seq", "128", *argv], device="cpu")
+    rec = dryrun.main(["--arch", arch, "--reduced", "--shape", shape, "--batch", str(batch),
+                       "--seq", str(seq), *argv], device="cpu")
     assert not dist.is_initialized()
     return rec
 
@@ -78,6 +83,48 @@ def test_prefill_under_the_serve_plan(mesh):
     assert coll["model"]["all-gather"]["count"] == 2            # the two vocab tables
     assert coll["model"]["all-reduce"]["count"] == 2 * 2        # attention + SwiGLU, 2 layers
     assert coll["model"]["all-reduce"]["bytes"] == 4 * 4 * 128 * 256 * 4
+
+
+# (model all-gathers, model all-reduces) of a reduced prefill, 2 layers, B 4, S 128:
+# the two vocab tables (+ vis_proj; + each Mamba2 in-projection's output);
+# RWKV6: each layer's time-mix output and channel-mix v; Zamba2: each Mamba2
+# layer's norm statistics and output, each shared block's attention and SwiGLU;
+# Seamless: each encoder layer's attention and SwiGLU, the BOS decode step's
+# self-attention, cross-attention and SwiGLU a layer.
+FAMILY_PREFILL = {"rwkv6_7b": (2, 4), "zamba2_7b": (4, 8), "seamless_m4t_large_v2": (2, 10),
+                  "internvl2_26b": (3, 4)}
+
+
+@pytest.mark.parametrize("arch", FAMILY_PREFILL)
+def test_family_prefill_under_the_serve_plan(arch):
+    rec = _run("--mesh-shape", "1x2", "--steps", "1", shape="prefill_32k", arch=arch)
+    coll = rec["collectives"]
+    assert rec["kind"] == "prefill" and set(coll) == {"model"}
+    gathers, reduces = FAMILY_PREFILL[arch]
+    assert coll["model"]["all-gather"]["count"] == gathers
+    assert coll["model"]["all-reduce"]["count"] == reduces
+
+
+def test_gates_hold_on_a_seq_sharded_prefill():
+    rec = _run("--mesh-shape", "1x1x4x1", "--steps", "1", "--require-seq-sharded",
+               "--require-flash", shape="prefill_32k", batch=1, seq=2560)
+    assert rec["seq_sharded_ok"] and rec["full_seq_intermediates"] == []
+    assert rec["no_s2_scores_ok"] and rec["s2_offenders"] == []
+    assert rec["ring_p2p"] == 2 * 3 * 2        # rank 0: 2 layers x 3 rotations x (k, v)
+
+
+def test_seq_gate_fails_without_a_seq_axis():
+    with pytest.raises(AssertionError, match="full-seq intermediates"):
+        _run("--mesh-shape", "1x2", "--steps", "1", "--require-seq-sharded",
+             shape="prefill_32k")
+    assert not dist.is_initialized()
+
+
+def test_flash_gate_fails_on_dense_scores():
+    with pytest.raises(AssertionError, match=r"O\(S\^2\) score tensors"):
+        _run("--mesh-shape", "1x2", "--steps", "1", "--require-flash", shape="prefill_32k",
+             seq=512)
+    assert not dist.is_initialized()
 
 
 def test_collective_term_counts_wire_bytes():

@@ -113,12 +113,13 @@ def _seq_ranks(rank, world, out_dir):
             res["refusal", name] = None
         except ValueError as e:
             res["refusal", name] = str(e)
-    # a model axis above 1 for a family without tensor parallelism (the
-    # recurrent ones): distribution part B2b
-    m14 = make_production_mesh(shape=(1, 1, 1, 4), device="cpu")
+    # a model axis above 1 for a recurrent family takes tensor parallelism;
+    # beside a seq axis above 1 its sequence-parallel path is distribution
+    # part B2c, not ported
+    m22 = make_production_mesh(shape=(1, 1, 2, 2), device="cpu")
     rwkv = get_reduced("rwkv6_7b")
     try:
-        with activation_mesh(make_plan(m14, mode="serve")):
+        with activation_mesh(make_plan(m22, mode="serve")):
             tmodel.forward_logits(rwkv, tmodel.init_params(rwkv, 0, device="cpu"),
                                   {"tokens": torch.zeros((1, 64), dtype=torch.int64)})
         res["refusal", "model_axis"] = None

@@ -3,12 +3,18 @@ greedy ``decode_step``s under ``make_plan(mesh, mode="serve")`` on ``1x2``
 and ``1x4`` meshes, the parameters placed as DTensors, for the reduced
 Llama-3-8B (KV whole on every rank, GQA expanded per rank), Phi-3-medium's
 head counts (H 40 / KV 10: at ``model`` 2 the KV heads split, at 4 they do
-not) and the reduced Granite-3.0 1B-A400M (experts on ``model``); and
-``serve.main --mesh-shape``.
+not), the reduced Granite-3.0 1B-A400M (experts on ``model``), RWKV6-7B
+(WKV heads and channel-mix columns), Zamba2-7B (Mamba2 heads, the
+in-projection's output gathered; the shared attention's heads),
+SeamlessM4T-large-v2 (self- and cross-attention heads, every SwiGLU) and
+InternVL2-26B (KV 1: GQA expanded per rank; ``vis_proj`` gathered); and
+``serve.main --mesh-shape``. The recurrent families take a context of 64,
+their chunked scans' length.
 
 fp32: every step's logits within rtol 1e-5 of the unsharded ones, the
-greedy tokens identical, every rank alike; the cache holds the rank's
-KV/m heads where KV divides ``model``, else every head.
+greedy tokens identical, every rank alike; the cache holds the rank's part
+(:func:`_cache_heads`): KV/m heads where KV divides ``model``, else every
+head; the rank's WKV or SSM heads; the carries whole.
 """
 import dataclasses
 import os
@@ -21,8 +27,9 @@ import torch
 from torch_replay import one_torch_thread, spawn_gloo  # noqa: F401  (autouse)
 
 MESHES = {"1x2": 2, "1x4": 4}
-CASES = ("llama3_8b", "phi3_h40_kv10", "granite_moe_1b_a400m")
-B, CTX, NEW = 2, 40, 8
+CASES = ("llama3_8b", "phi3_h40_kv10", "granite_moe_1b_a400m", "rwkv6_7b", "zamba2_7b",
+         "seamless_m4t_large_v2", "internvl2_26b")
+B, CTX, NEW, SRC = 2, 40, 8, 24
 
 
 def _cfg(name):
@@ -38,8 +45,17 @@ def _greedy(cfg, params):
     """The prefill's and each decode step's logits, the tokens, the cache."""
     from repro_torch.models import decode
 
-    toks = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab, (B, CTX)))
-    logits, cache = decode.prefill(cfg, params, {"tokens": toks}, CTX + NEW)
+    rng = np.random.default_rng(6)
+    ctx = 64 if cfg.family in ("ssm", "hybrid") else CTX
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, ctx)))}
+    if cfg.family == "vlm":
+        batch["vis_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.n_vis_tokens, cfg.d_model), dtype=np.float32))
+        ctx += cfg.n_vis_tokens
+    if cfg.family == "encdec":
+        batch = {"src_embeds": torch.as_tensor(
+            rng.standard_normal((B, SRC, cfg.d_model), dtype=np.float32))}
+    logits, cache = decode.prefill(cfg, params, batch, ctx + NEW)
     steps, out = [logits], [torch.argmax(logits, -1)]
     for _ in range(NEW):
         logits, cache = decode.decode_step(cfg, params, cache, out[-1])
@@ -92,6 +108,23 @@ def runs(tmp_path_factory):
     return ranks, refs
 
 
+def _cache_heads(cfg, m):
+    """The head counts a rank's cache holds, by key and dim: KV heads where
+    they divide ``model``, the recurrent states' heads (every reduced count
+    divides 2 and 4), the carries whole."""
+    kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else cfg.n_kv_heads
+    if cfg.family == "ssm":
+        return {("s", 2): cfg.rwkv_heads // m, ("x_tm", 2): cfg.d_model,
+                ("x_cm", 2): cfg.d_model}
+    if cfg.family == "hybrid":
+        return {("k", 3): kv, ("v", 3): kv, ("ssm", 2): cfg.n_ssm_heads // m,
+                ("conv", 3): cfg.d_inner + 2 * cfg.ssm_state}
+    out = {("k", 3): kv, ("v", 3): kv}
+    if cfg.family == "encdec":
+        out.update({("mem_k", 3): kv, ("mem_v", 3): kv})
+    return out
+
+
 @pytest.mark.parametrize("mesh", MESHES)
 @pytest.mark.parametrize("case", CASES)
 def test_prefill_and_decode_match_unsharded(runs, mesh, case):
@@ -99,13 +132,14 @@ def test_prefill_and_decode_match_unsharded(runs, mesh, case):
     want_steps, want_tokens, want_cache = refs[case]
     cfg = _cfg(case)
     m = MESHES[mesh]
-    kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else cfg.n_kv_heads
     for r in range(m):
         steps, tokens, cache = ranks[mesh, r][case]
         assert torch.equal(tokens, want_tokens)
         for got, want in zip(steps, want_steps):
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
-        assert cache["k"].shape[3] == kv and cache["pos"] == want_cache["pos"]
+        assert cache["pos"] == want_cache["pos"]
+        for (key, dim), n in _cache_heads(cfg, m).items():
+            assert cache[key].shape[dim] == n, (key, cache[key].shape, n)
     for r in range(1, m):
         assert all(torch.equal(a, b) for a, b in zip(ranks[mesh, r][case][0],
                                                      ranks[mesh, 0][case][0]))
