@@ -2910,6 +2910,223 @@ def tp_gates() -> dict:
     return {f"dry-run gates prefill_32k {GATE_MESH} (H=32/8)": launches["flash_attention_wgmma"]}
 
 
+# ------------------------------------------------- sequence parallelism, part 2
+
+SEQ_MESH = "1x1x4x1"          # (pod, data, seq, model): rank 0 of 4 seq ranks
+SEQ_ZAMBA2_TRAIN_MESH = "1x4x2x1"   # FSDP over 4 data ranks: Zamba2's fp32 state fits a card
+# each ring shape's diagonal step at rank 0 of SEQ_MESH for prefill_32k, B = 1:
+# name, arch, (H, KV, hd, window), wgmma launches a pass (one a layer's attention)
+SEQ_RINGS = (("flash_attention_wgmma_ring_hd112_window", ZAMBA2_ARCH, (32, 32, 112, 4096), 9),
+             ("flash_attention_wgmma_ring_hd64", GRANITE_ARCH, (16, 8, 64, 0), 24))
+SEQ_RECURRENT_TOL = 1e-5      # of the largest magnitude: the fold against one scan, fp32
+
+
+def _log_on_off(rec: dict) -> str:
+    """A two-step dry run's timed steps: the first with the gates' shape
+    log on, the second without."""
+    on, off = rec["step_seconds"]
+    return f"{on:.4f} (shape log on) / {off:.4f} (off)"
+
+
+def _seq_line(rec: dict) -> str:
+    """A dry-run record's seq-axis collectives a step, by kind."""
+    return ", ".join(f"{kind} {v['count']} / {v['bytes'] / 1e9:.4f} GB"
+                     for kind, v in sorted(rec["collectives"].get("seq", {}).items())) or "none"
+
+
+@phase("sequence parallelism (f1): Granite-3.0 1B-A400M train_4k (batch 4) as rank 0 of "
+       "1x1x4x1 under the fake group, --require-seq-sharded; Zamba2-7B's train gate on 1x4x2x1")
+def seq_train_gates() -> None:
+    """``launch.dryrun`` of Granite's train step on a ``seq`` axis of 4:
+    rank 0 keeps 1,024 of the 4,096 positions (two 512-token routing
+    groups), K and V gathered over ``seq``; the gate holds, and the seq
+    collectives are counted by kind. Then Zamba2-7B's train_4k (batch 4)
+    on ``1x4x2x1`` with the gate on: its K and V carry KV x hd = d_model
+    channels, so their gather over ``seq`` is a full-length tensor of 2 B
+    S d_model bytes; the gate's report is printed, not loosened."""
+    from repro_torch.launch import dryrun
+
+    _reset_all_launches()
+    rec = dryrun.main(["--arch", GRANITE_ARCH, "--shape", "train_4k", "--mesh-shape", SEQ_MESH,
+                       "--batch", "4", "--steps", "2", "--require-seq-sharded"])
+    launches = _all_launches()
+    require(rec["seq_sharded_ok"], f"Granite train gate: {rec.get('full_seq_intermediates')}")
+    seq = rec["collectives"].get("seq", {})
+    require(seq.get("all-gather", {}).get("count", 0) > 0
+            and seq.get("reduce-scatter", {}).get("count", 0) > 0,
+            f"Granite seq-parallel step: seq collectives {seq}")
+    require(rec["collectives_same_each_step"], "Granite: warm-up and timed collectives differ")
+    require(not any(launches.values()), f"the Granite train step launched kernels: {launches}")
+    print(f"dry run {GRANITE_ARCH} train_4k (global batch cut to 4), rank 0 of {SEQ_MESH} (fake "
+          f"group: values not held) --require-seq-sharded: seq_sharded_ok {rec['seq_sharded_ok']}; "
+          f"{_log_on_off(rec)} s/step, peak {rec['peak_gb']:.2f} GB, "
+          f"forward/backward peak {rec['fwd_bwd_peak_gb']:.2f} GB; seq collectives a step: "
+          f"{_seq_line(rec)}; all {_coll_line(rec)}", flush=True)
+    _release()
+    try:
+        dryrun.main(["--arch", ZAMBA2_ARCH, "--shape", "train_4k", "--mesh-shape",
+                     SEQ_ZAMBA2_TRAIN_MESH, "--batch", "4", "--steps", "1",
+                     "--require-seq-sharded"])
+    except AssertionError as e:
+        print(f"dry run {ZAMBA2_ARCH} train_4k (global batch 4), rank 0 of "
+              f"{SEQ_ZAMBA2_TRAIN_MESH} --require-seq-sharded: the gate reports {str(e)[:600]}",
+              flush=True)
+    else:
+        print(f"dry run {ZAMBA2_ARCH} train_4k on {SEQ_ZAMBA2_TRAIN_MESH}: the gate held",
+              flush=True)
+    _release()
+
+
+@phase("sequence parallelism (f2)-(f4): RWKV6-7B, Zamba2-7B and Granite-3.0 1B-A400M "
+       "prefill_32k at B=1 as rank 0 of 1x1x4x1 under the fake group, with the gates")
+def seq_family_prefills() -> dict:
+    """``launch.dryrun`` of each prefill_32k at B = 1 as rank 0 of
+    SEQ_MESH, warm-up + 2 timed passes (the first with the shape log): RWKV6-7B with
+    ``--require-seq-sharded`` (no attention: its halos and state pairs are
+    the seq all-gathers); Zamba2-7B and Granite with both gates, the ring
+    (``ring_p2p`` > 0) through wgmma at hd 112 with window 4,096 and at hd
+    64, rank 0's diagonal step one launch a layer, none through SIMT.
+    Returns each ring's launches."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, flash in ((RWKV6_ARCH, False), (ZAMBA2_ARCH, True), (GRANITE_ARCH, True)):
+        _reset_all_launches()
+        rec = dryrun.main(["--arch", arch, "--shape", "prefill_32k", "--mesh-shape", SEQ_MESH,
+                           "--batch", "1", "--steps", "2", "--require-seq-sharded",
+                           *(["--require-flash"] if flash else [])])
+        torch.cuda.synchronize()
+        launches = _all_launches()
+        want = 3 * next((n for _r, a, _s, n in SEQ_RINGS if a == arch), 0)
+        require(rec["seq_sharded_ok"], f"{arch} prefill: {rec.get('full_seq_intermediates')}")
+        require(launches["flash_attention_wgmma"] == want and launches["flash_attention_simt"] == 0,
+                f"{arch} seq prefill: launches {launches}, want {want} through wgmma")
+        if flash:
+            require(rec["no_s2_scores_ok"] and rec["ring_p2p"] > 0,
+                    f"{arch} seq prefill: flash gate {rec.get('s2_offenders')}, ring_p2p "
+                    f"{rec.get('ring_p2p')}")
+        require(rec["collectives"].get("seq", {}).get("all-gather", {}).get("count", 0) > 0,
+                f"{arch}: no seq all-gather (halos, states or cache rows)")
+        print(f"dry run {arch} prefill_32k B=1, rank 0 of {SEQ_MESH} (fake group: values not "
+              f"held) --require-seq-sharded{' --require-flash' if flash else ''}: "
+              f"seq_sharded_ok {rec['seq_sharded_ok']}"
+              + (f", no_s2_scores_ok {rec['no_s2_scores_ok']}, ring_p2p {rec['ring_p2p']}"
+                 if flash else "")
+              + f"; {_log_on_off(rec)} s a pass, peak {rec['peak_gb']:.2f} "
+              f"GB, {launches['flash_attention_wgmma']} wgmma launches (warm-up + 2), 0 SIMT; "
+              f"seq collectives a pass: {_seq_line(rec)}", flush=True)
+        if want:
+            out[f"seq-parallel prefill_32k {arch} {SEQ_MESH}"] = launches["flash_attention_wgmma"]
+        _release()
+    return out
+
+
+@phase("sequence parallelism (f3, f4 kernels): the wgmma kernel at the seq rings' diagonal "
+       "step shapes vs plain")
+def seq_ring_kernels(report: dict) -> None:
+    """Each SEQ_RINGS shape: rank 0's diagonal ring step of the 32k
+    prefill (B = 1, 8,192 queries and keys, both at offset 0, bf16, the
+    fp32 partial with its lse), through the wgmma route, against the plain
+    version within FLASH_TOL; kernel time, bound and SDPA's time. Adds the
+    rows SEQ_RINGS names; their launches come from (f3) and (f4). Timed
+    beside the local-heads rows, early in the run: a profiler trace late
+    in the full run has come back without the kernel's device activity."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    b, s = 1, 8192
+    for name, arch, (h, kv, hd, window), _n in SEQ_RINGS:
+        q, k, v = ((0.3 * torch.randn((b, s, heads, hd), generator=gen, device="cuda"))
+                   .to(torch.bfloat16) for heads in (h, kv, kv))
+        kw = dict(causal=True, window=window, with_lse=True, out_fp32=True, q_offset=0,
+                  k_offset=0)
+
+        def run():
+            return fa.flash_attention(q, k, v, **kw)
+
+        fa.reset_launches()
+        out, lse = run()
+        require(fa.launches["flash_attention_wgmma"] == 1 and fa.launches["flash_attention_simt"]
+                == 0, f"{name}: not the wgmma route: {fa.launches}")
+        want, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+        err = _out_error(name, out, want)
+        require(bool(torch.isfinite(lse).all()), f"{name}: non-finite lse")
+        pairs = visible_pairs(s, s, True, window)
+        b_ms, b_by = bound((q.numel() + 2 * k.numel()) * 2 + out.numel() * 4 + lse.numel() * 4,
+                           4.0 * b * h * hd * pairs, BF16_FLOPS)
+        k_ms = kernel_ms(run, "flash_fwd_wgmma_kernel", iters=10)
+        p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2, warmup=1)
+        lib_ms = cuda_ms(_sdpa(q, k, v, True, window), 20)
+        print(f"{name} ({arch}'s ring, rank 0's diagonal step): B={b} S=T={s} H={h}/{kv} "
+              f"hd={hd} causal{f' window {window}' if window else ''} bf16, fp32 partial "
+              f"(wgmma): max_abs_err={err:.3e}; kernel {k_ms:.3f} ms (profiler), bound "
+              f"{b_ms:.3f} ms ({b_by}), plain {p_ms:.3f} ms (events), "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms (events)", flush=True)
+        report[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms)
+        del q, k, v, out, lse, want, want_lse
+    torch.cuda.empty_cache()
+
+
+@phase("sequence parallelism (f5): one full-width RWKV6-7B layer and one Zamba2-7B Mamba2 "
+       "block at B=1 x 32768 in fp32, 4 shards through LocalSeq(4) vs the unsharded layer")
+def seq_local_fold() -> None:
+    """Real values on the card: the layer of each recurrent family at full
+    width (fp32 weights from seed 0, fp32 activations: the fold's
+    association order against one scan is what is measured, not bf16
+    rounding), run whole and as four 8,192-position shards through
+    ``dist.seq.LocalSeq(4)``: the halos and the state fold. Output, final
+    state and carries within SEQ_RECURRENT_TOL of the largest magnitude of
+    the unsharded layer's; both timed with CUDA events."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.seq import LocalSeq
+    from repro_torch.models import model
+
+    b, s, n = 1, 32768, 4
+    for arch in (RWKV6_ARCH, ZAMBA2_ARCH):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", n_layers=1)
+        params = model.init_params(cfg, 0, device="cuda", param_dtype=torch.float32)
+        lp = model.layer_params(params, 0)
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda")
+        with torch.no_grad():
+            if arch == RWKV6_ARCH:
+                x_prev, s0 = model.rwkv_state(cfg, b, "cuda")
+
+                def layer(seq=None):
+                    out = model._rwkv_block(cfg, lp, x, x_prev, x_prev, s0, seq=seq)
+                    return dict(zip(("out", "x_tm", "x_cm", "s"), out))
+            else:
+                def layer(seq=None):
+                    out, st = model._mamba_block(cfg, lp, x, seq=seq)
+                    return {"out": out, **st}
+
+            want = layer()
+            got = layer(LocalSeq(n))
+            errs = {}
+            for key, w in want.items():
+                err = float((got[key] - w).abs().max())
+                scale = float(w.abs().max())
+                errs[key] = err / scale if scale else err
+                require(bool(torch.isfinite(got[key]).all()), f"{arch} {key}: non-finite")
+                require(err <= SEQ_RECURRENT_TOL * scale,
+                        f"{arch} LocalSeq({n}) {key}: max abs err {err:.3e} over "
+                        f"{SEQ_RECURRENT_TOL:g} x {scale:.3e}")
+            whole_ms = cuda_ms(layer, 2, warmup=1)
+            sharded_ms = cuda_ms(lambda: layer(LocalSeq(n)), 2, warmup=1)
+        print(f"{arch} one layer, B={b} x {s}, fp32, LocalSeq({n}) vs unsharded: max abs err / "
+              f"largest magnitude " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (bound {SEQ_RECURRENT_TOL:g}); whole {whole_ms:.2f} ms, 4 shards with halos and "
+              f"fold {sharded_ms:.2f} ms (events)", flush=True)
+        del params, lp, x, want, got
+        _release()
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_REDUCED_ARCHS = (SERVE_ARCH, GRANITE_ARCH, INTERNVL2_ARCH, SEAMLESS_ARCH, RWKV6_ARCH,
@@ -3196,6 +3413,7 @@ def main() -> int:
     report = kernels_vs_plain(zpad, wire_m)
     report.update(flash_vs_plain())
     local_heads(report)
+    seq_ring_kernels(report)
     flash_offsets(report)
     ring_launches = ring_32k(report)
     sim, main_launches = main_path()
@@ -3248,10 +3466,14 @@ def main() -> int:
     dry_launches.update(tp_family_prefills())
     tp_zamba2_train()
     dry_launches.update(tp_gates())
+    seq_train_gates()
+    seq_launches = seq_family_prefills()
+    seq_local_fold()
 
     wgmma_rows = ("flash_attention_wgmma", "flash_attention_wgmma_ring_heads_on_model",
                   *(f"flash_attention_wgmma_local_heads_h{h}_kv{kv}"
-                    for h, kv, *_ in LOCAL_HEADS))
+                    for h, kv, *_ in LOCAL_HEADS),
+                  *(name for name, *_ in SEQ_RINGS))
     sources = {**{n: "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu" for n in wgmma_rows},
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     replaces = {
@@ -3275,7 +3497,7 @@ def main() -> int:
                                          **ring_launches, **serve32_launches,
                                          "GroupRing n=1 (nccl)": nccl_launches["ring"],
                                          "placed serve, 1x1 (nccl)": tp_serve_launches,
-                                         **dry_launches},
+                                         **dry_launches, **seq_launches},
                "flash_attention_simt": fp32_launches}
     # the model-parallel rows: the launches of the paths that take each shape
     by_path.update({
@@ -3283,7 +3505,9 @@ def main() -> int:
             k: n for k, n in ring_launches.items() if "heads on model" in k},
         **{f"flash_attention_wgmma_local_heads_h{h}_kv{kv}": {
             k: n for k, n in dry_launches.items() if f"(H={h}/{kv})" in k}
-           for h, kv, *_ in LOCAL_HEADS}})
+           for h, kv, *_ in LOCAL_HEADS},
+        **{name: {k: n for k, n in seq_launches.items() if arch in k}
+           for name, arch, *_ in SEQ_RINGS}})
     launches = {"quantize": wire_launches["quantize"],
                 "dequantize": wire_launches["dequantize"],
                 **{k: sum(v.values()) for k, v in by_path.items()}}

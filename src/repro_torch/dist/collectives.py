@@ -9,6 +9,7 @@ forward needs a backward:
 
   * :func:`gather_fsdp`: all-gather of a leaf's FSDP-sharded dim over the
     data axes; its backward is a reduce-scatter (sum), FSDP's gradient.
+    Over ``seq`` it gathers a sequence shard's K and V;
     Over ``model`` it gathers a tensor whose parts the ranks then use
     differently (the Mamba2 in-projection's output): each rank's gradient
     of the whole is a partial, and the reduce-scatter sums them;
@@ -26,6 +27,9 @@ forward needs a backward:
     RMSNorm's sum of squares);
   * :func:`all_gather_clients`: a plain all-gather over the client axis
     (the federated uplink), no gradient;
+  * :func:`gather_raw` and :func:`reduce_scatter_raw`, the two raw ops
+    over an explicit process group, for ``dist.seq``'s halo and state
+    exchange;
   * :func:`all_reduce`, :func:`all_gather`, :func:`broadcast` and
     :func:`send_recv` over an explicit process group, for the ring
     (``dist.ring.GroupRing``), the sequence-parallel prefill and the
@@ -229,6 +233,17 @@ def gather_fsdp(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     for a in reversed(_live(plan, axes)):
         x = _Gather.apply(x, plan.mesh.get_group(a), a, dim, "reduce-scatter")
     return x
+
+
+def gather_raw(x: torch.Tensor, group, axis: str) -> torch.Tensor:
+    """All-gather of dim 0 over ``group``, no gradient."""
+    return _ag(x, group, axis, 0)
+
+
+def reduce_scatter_raw(g: torch.Tensor, group, axis: str) -> torch.Tensor:
+    """Reduce-scatter (sum) of dim 0 over ``group``: the rank's block, no
+    gradient."""
+    return _rs(g, group, axis, 0)
 
 
 def gather_replicated(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:

@@ -9,7 +9,12 @@ its gradient comes back as a DTensor with the leaf's placements) and its
 spec is read off its placements; a plain tensor is a whole, replicated
 leaf. A train forward keeps its rows of the global batch (the plan's
 ``batch`` rule; the rows must divide over those axes), so its FSDP axes
-are the batch's axes.
+are the batch's axes. A forward that cuts the sequence over ``seq``
+(``models.model.seq_shard``) holds the view with ``seq_axes = ("seq",)``
+(:func:`holding_seq`): ``seq`` is not a batch-rows axis and shards no
+leaf, but every rank computes with a part of the tokens, so the gradient
+of every leaf is summed over it as over a batch axis, and the loss's sums
+(:func:`batch_sum`) add over it too.
 
 The model code then asks for each leaf at its use (:func:`layer`,
 :func:`tree`, :func:`whole`):
@@ -21,8 +26,9 @@ The model code then asks for each leaf at its use (:func:`layer`,
   * a dim sharded over a data axis the batch is not split over is
     gathered with the rank's slice as its backward (every such rank
     computes the same gradient);
-  * a batch axis the leaf is whole on gets the identity with an all-reduce
-    backward: the data-parallel gradient sum of a replicated leaf;
+  * a batch axis the leaf is whole on, and ``seq`` when the sequence is
+    cut, gets the identity with an all-reduce backward: the data-parallel
+    gradient sum of a replicated leaf;
   * a dim on ``model`` stays local: the rank's heads, SwiGLU columns,
     experts, RWKV channels or Mamba2 heads (:func:`heads_mode`,
     :func:`local_experts`), which the model code wraps in
@@ -62,13 +68,15 @@ from repro_torch.dist.plan import MeshPlan, PartitionSpec as P, _entry_axes, mes
 @dataclasses.dataclass(frozen=True)
 class RankView:
     """One rank's part of a forward: the plan, each leaf's spec by key
-    path, the mesh axes the batch rows are split over, and the rank's
-    place on ``model``."""
+    path, the mesh axes the batch rows are split over, the rank's place on
+    ``model``, and the axes the sequence is cut over (empty, or
+    ``("seq",)``)."""
     plan: MeshPlan
     specs: dict
     batch_axes: tuple
     model: int
     model_idx: int
+    seq_axes: tuple = ()
 
 
 _VIEW: contextvars.ContextVar[Optional[RankView]] = contextvars.ContextVar(
@@ -162,6 +170,21 @@ def holding(view: Optional[RankView]):
         _VIEW.reset(token)
 
 
+@contextlib.contextmanager
+def holding_seq(axis: Optional[str]):
+    """The held view with the sequence cut over ``axis`` (module
+    docstring); nothing changes for ``None`` or without a view."""
+    view = _VIEW.get()
+    if axis is None or view is None:
+        yield
+        return
+    token = _VIEW.set(dataclasses.replace(view, seq_axes=(axis,)))
+    try:
+        yield
+    finally:
+        _VIEW.reset(token)
+
+
 def bind(fn):
     """``fn`` run, wherever and whenever it is called (a remat body's
     recompute runs on autograd's thread on the card), inside the context
@@ -181,7 +204,8 @@ def _use(t: torch.Tensor, spec: P, view: RankView) -> torch.Tensor:
     """The leaf as the rank computes with it: FSDP dims gathered, model
     dims local (module docstring)."""
     used = {a for ent in spec for a in _entry_axes(ent)}
-    t = collectives.copy_to(t, tuple(a for a in view.batch_axes if a not in used))
+    t = collectives.copy_to(t, tuple(a for a in view.batch_axes + view.seq_axes
+                                     if a not in used))
     for d, ent in enumerate(spec):
         for a in reversed(_entry_axes(ent)):
             if a == "model":
@@ -310,20 +334,31 @@ def aux_grad_gate(x: torch.Tensor) -> torch.Tensor:
     return _GradOnFirst.apply(x, view.model_idx == 0)
 
 
-def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of a per-rank batch mean over the batch axes (equal rows
-    a rank): the global batch's mean. All-reduce forward, identity
-    backward, then the division."""
-    view = _VIEW.get()
-    if view is None or not view.batch_axes:
+def _mean_over(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    if not axes:
         return x
-    n = view.plan.axis_size(view.batch_axes)
-    return collectives.reduce_over(x, view.batch_axes) / n
+    return collectives.reduce_over(x, axes) / _VIEW.get().plan.axis_size(axes)
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a per-rank batch mean over the batch-rows axes (equal
+    rows a rank): the global batch's mean over the rank's positions.
+    All-reduce forward, identity backward, then the division."""
+    view = _VIEW.get()
+    return x if view is None else _mean_over(x, view.batch_axes)
+
+
+def seq_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the sequence's shards of a per-shard mean (equal
+    positions a shard; the MoE's aux values, a mean over routing groups)."""
+    view = _VIEW.get()
+    return x if view is None else _mean_over(x, view.seq_axes)
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
-    """A per-rank batch sum summed over the batch axes (identity backward)."""
+    """A per-rank sum over its rows and positions, summed over the batch
+    axes and the sequence's shards (identity backward)."""
     view = _VIEW.get()
-    if view is None or not view.batch_axes:
+    if view is None or not (view.batch_axes or view.seq_axes):
         return x
-    return collectives.reduce_over(x, view.batch_axes)
+    return collectives.reduce_over(x, view.batch_axes + view.seq_axes)

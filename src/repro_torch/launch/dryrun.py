@@ -19,7 +19,8 @@ The step goes through the normal entry points: ``dist.placement.
 init_params_local`` places rank 0's shards (fp32 masters for a train
 shape), then 1 warm-up and ``--steps`` timed steps of
 ``launch.steps.make_train_step(..., mesh=)`` with adamw and full remat on
-the global batch (``--batch`` cuts the shape's), or, for a prefill shape,
+the global batch (``--batch`` cuts the shape's; on a ``seq`` axis above 1
+each rank keeps S / n positions), or, for a prefill shape,
 ``models.decode.prefill`` under the serve plan (``--seq`` cuts the
 context; the flash kernels). Weights and inputs are drawn from seed 0:
 every family's batch as ``launch.inputs.train_batch_spec`` lays it out
@@ -33,7 +34,12 @@ counter's bytes and counts by axis and kind for one step, the analytic
 count the port's code implies for that step (:func:`analytic_collectives`,
 dense family, train), whether every step issued the same collectives
 (the warm-up's included), and the three roofline terms with the H100's
-constants (the collective term from :func:`wire_bytes`). Without
+constants (the collective term from :func:`wire_bytes`). On a ``seq`` axis
+the counts hold its all-gathers (K and V in training, the recurrent
+families' halos and state pairs), reduce-scatters (their backward),
+all-reduces (the gradient sums, the loss's), broadcasts and the ring's
+send/recv by kind; the analytic count stays the dense family's on
+``{data, model}``. Without
 ``fake_pg`` it raises: there is no other route.
 
 Two gates, with the JAX dry run's names and meanings, read the shapes the

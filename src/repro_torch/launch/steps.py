@@ -26,9 +26,11 @@ before downlink, a gate that is off drawing nothing.
 With a mesh, the round puts one client on each rank of ``client_axis``,
 as the JAX package's ``lower_fl_round`` lays it out: the client stack is
 a DTensor sharded on the client axis (:func:`place_clients`), and the
-mesh's other axes shard each client's model: ``data`` is FSDP and data
-parallelism within the client, ``model`` its TP (a ``seq`` axis above 1
-raises). A rank takes its client's local step as a train step does
+mesh's other axes shard each client's model: ``data`` and ``seq`` are FSDP
+and data parallelism within the client (``seq`` as the JAX round makes it,
+an intra-client data axis: each rank takes its rows of the client's batch,
+and the activations are not cut on the sequence, whose axis the rows
+already use), ``model`` its TP. A rank takes its client's local step as a train step does
 (``dist.parallel``: its rows of the client's batch, each layer gathered
 inside its remat body, the gradient reduce-scattered), so it holds only
 its shard of the model and the step's gradient. It quantizes its shard
@@ -102,8 +104,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, *, mesh=None,
     With a ``DeviceMesh``, every rank calls the step with its DTensor
     params and optimizer state (``dist.placement``) and the global batch;
     the forward and backward run under ``activation_mesh(make_plan(mesh))``
-    (``dist.parallel``: FSDP on the data axes, TP/EP on ``model``), and the
-    step returns DTensors with unchanged placements."""
+    (``dist.parallel``: FSDP on the data axes, TP/EP on ``model``; on a
+    ``seq`` axis above 1 each rank keeps its S / n positions,
+    ``models.model.seq_shard``), and the step returns DTensors with
+    unchanged placements."""
     plan = None if mesh is None else make_plan(mesh)
 
     def train_step(params, opt_state, batch):
@@ -289,9 +293,6 @@ def _fl_round_ranks(plan: MeshPlan, client_axis: str, local_step, wire_packed: b
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = plan.mesh
-    if plan.axis_size("seq") > 1:
-        raise ValueError("fl_round: a seq axis above 1 within a client (the round's "
-                         "sequence-parallel step) is distribution part B2c, not ported")
     coord = mesh_coord(mesh)
     k_rank = coord[client_axis]
     intra = tuple(a for a in mesh.mesh_dim_names if a != client_axis and plan.axis_size(a) > 1)

@@ -20,12 +20,14 @@ sliding window when the config sets one. RoPE is applied to keys at write
 time with absolute positions, so ring overwrites need no re-rotation. The
 vlm family's positions count its patch tokens first.
 
-Under a sequence-parallel plan (``models.model``'s docstring) the dense
-family's :func:`prefill` runs each rank's shard of the context, gathers
-each layer's k/v over the seq group into the cache (the cache's positions
-are never sharded, as the JAX package's ``cache_seq`` rule says), and takes
-the last logits from the last seq rank: every rank leaves with the whole
-cache and the same logits, and decoding runs replicated.
+Under a sequence-parallel plan (``models.model``'s docstring) the
+:func:`prefill` of every family but encdec runs each rank's shard of the
+context and leaves every rank with the whole cache (its positions are
+never sharded, as the JAX package's ``cache_seq`` rule says): each
+layer's k/v ring takes the context's last positions from the seq group
+(broadcast from the last rank where its shard holds them all, else
+gathered), the recurrent states and carries and the last logits come
+from the last seq rank, and decoding runs replicated.
 
 Under a tensor-parallel serve plan (``make_plan(mesh, mode="serve")``,
 ``params`` placed as DTensors) each rank runs its heads, SwiGLU columns,
@@ -56,8 +58,8 @@ from repro_torch.models.model import (
     _SEQ_SHARD, Params, _cross_attention, _forward_encoder, _holding, _mamba_block,
     _merge_heads, _positions, _proj_heads, _rwkv_block, _self_attention, _shared_attn_block,
     attention_mode, cross_memory, embed_inputs, embed_table, expand_local_kv, ffn,
-    final_norm, from_last_shard, gather_seq, head_table, layer_params, mlp, rwkv_heads,
-    rwkv_state, seq_shard, shared_window,
+    final_norm, from_last_shard, head_table, layer_params, mlp, rwkv_heads, rwkv_state,
+    seq_shard, shared_window, tail_of_sequence,
 )
 
 Cache = dict
@@ -310,8 +312,11 @@ def _prefill(cfg: ModelConfig, params: Params, batch: dict,
 def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
                      seq_len: int) -> tuple[torch.Tensor, Cache]:
     """:func:`prefill` of every family but encdec. In a sequence-parallel
-    prefill (dense only) ``batch`` holds this rank's shard of the tokens
-    and the active ``_SEQ_SHARD`` says which."""
+    prefill ``batch`` holds this rank's shard of the context and the
+    active ``_SEQ_SHARD`` says which: the k/v rings take the context's
+    last positions from the shards that hold them, the recurrent states
+    and carries come from the last shard, and every rank leaves with the
+    whole cache."""
     shard = _SEQ_SHARD.get()
     h = embed_inputs(cfg, params, batch)
     b, s = h.shape[:2]
@@ -327,7 +332,8 @@ def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
             x_prev, s0 = rwkv_state(cfg, b, dev, rwkv_heads(cfg, lp))
             h, cache["x_tm"][i], cache["x_cm"][i], cache["s"][i] = _rwkv_block(
                 cfg, lp, h, x_prev, x_prev, s0)
-        return _logits(cfg, params, h[:, -1:, :]), cache
+        _states_from_last(cache, ("s", "x_tm", "x_cm"), shard)
+        return from_last_shard(_logits(cfg, params, h[:, -1:, :]), shard), cache
     lc = cache["slot_pos"].shape[0]
     m_keep = min(lc, s)
     kept = torch.arange(s - m_keep, s, device=dev)
@@ -340,9 +346,10 @@ def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
                 cache["ssm"][i], cache["conv"][i] = st["ssm"], st["conv"]
             h, k, v = _shared_attn_block(cfg, parallel.tree(params["shared_attn"], "shared_attn"),
                                          h, positions)
-            cache["k"][j][:, slots] = k[:, s - m_keep:]
-            cache["v"][j][:, slots] = v[:, s - m_keep:]
-        return _logits(cfg, params, h[:, -1:, :]), cache
+            cache["k"][j][:, slots] = tail_of_sequence(k, m_keep, shard)
+            cache["v"][j][:, slots] = tail_of_sequence(v, m_keep, shard)
+        _states_from_last(cache, ("ssm", "conv"), shard)
+        return from_last_shard(_logits(cfg, params, h[:, -1:, :]), shard), cache
     for i in range(cfg.n_layers):
         lp = parallel.layer(layer_params(params, i))
         a, k, v = _self_attention(
@@ -352,9 +359,14 @@ def _prefill_decoder(cfg: ModelConfig, params: Params, batch: dict,
         h = h + a
         m, _ = ffn(cfg, lp, layers.rmsnorm(lp["ln2"], h, cfg.norm_eps))
         h = h + m
-        if shard is not None:
-            k, v = gather_seq(k, shard), gather_seq(v, shard)
-        cache["k"][i][:, slots] = k[:, s - m_keep:]
-        cache["v"][i][:, slots] = v[:, s - m_keep:]
+        cache["k"][i][:, slots] = tail_of_sequence(k, m_keep, shard)
+        cache["v"][i][:, slots] = tail_of_sequence(v, m_keep, shard)
     return from_last_shard(_logits(cfg, params, h[:, -1:, :]), shard), cache
 
+
+def _states_from_last(cache: Cache, names: tuple, shard) -> None:
+    """The recurrent states and carries a sequence-parallel prefill leaves:
+    the last shard's (the sequence's end), broadcast once a cache leaf."""
+    if shard is not None:
+        for name in names:
+            cache[name] = from_last_shard(cache[name], shard)

@@ -13,10 +13,15 @@ The port of ``repro.models.layers``, with its conventions and layouts:
     scores), ``chunked_attention`` (online softmax over KV chunks),
     ``flash_attention`` (the blockwise kernel of
     ``repro_torch.kernels.flash_attention``) and ``decode_attention`` (one
-    query against a ring-buffer KV cache).
+    query against a ring-buffer KV cache). ``q_offset`` places the
+    queries at global positions against the keys of a whole sequence (a
+    sequence shard's queries against K and V gathered over ``seq``);
+    ``head_map`` gives each query head's K/V head where it is not ``h //
+    (H // KV)`` (a tensor-parallel rank's heads over whole K/V).
 
-There is no activation mesh in the port yet, so the JAX code's
-``shard_act`` annotations are the identity and are left out.
+The JAX code's ``shard_act`` annotations have no counterpart: the port's
+sequence and model parallelism is explicit per-rank code
+(``models.model``, ``dist.parallel``).
 """
 from __future__ import annotations
 
@@ -116,8 +121,12 @@ def attention_params(generator: torch.Generator, d: int, n_heads: int, n_kv: int
     }
 
 
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, KV, hd) -> (B, S, H, hd) by repeating each KV head G times."""
+def _expand_kv(k: torch.Tensor, n_heads: int,
+               head_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd) by repeating each KV head G times,
+    or by ``head_map`` (H,), each query head's K/V head."""
+    if head_map is not None:
+        return k.index_select(2, head_map)
     g = n_heads // k.shape[2]
     if g == 1:
         return k
@@ -136,14 +145,17 @@ def dense_attention(
     causal: bool = True, window: int = 0,
     q_positions: Optional[torch.Tensor] = None,
     k_positions: Optional[torch.Tensor] = None,
+    q_offset: int = 0, head_map: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full-materialization attention. q: (B,S,H,hd), k/v: (B,T,KV,hd)."""
+    """Full-materialization attention. q: (B,S,H,hd), k/v: (B,T,KV,hd);
+    query i at ``q_offset + i`` unless ``q_positions`` says otherwise."""
     s, h, hd = q.shape[1], q.shape[2], q.shape[3]
     t = k.shape[1]
-    k = _expand_kv(k, h)
-    v = _expand_kv(v, h)
+    k = _expand_kv(k, h, head_map)
+    v = _expand_kv(v, h, head_map)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * hd ** -0.5
-    qp = q_positions if q_positions is not None else torch.arange(s, device=q.device)
+    qp = (q_positions if q_positions is not None
+          else torch.arange(q_offset, q_offset + s, device=q.device))
     kp = k_positions if k_positions is not None else torch.arange(t, device=q.device)
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
     if causal:
@@ -158,39 +170,45 @@ def dense_attention(
 def chunked_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk: int, causal: bool = True, window: int = 0,
-    causal_skip: bool = False,
+    causal_skip: bool = False, q_offset: int = 0,
+    head_map: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Online-softmax attention over KV chunks, O(S * chunk) live memory.
 
     ``causal_skip`` visits each query chunk's ``kv_block_range`` only;
     without it every chunk scans all KV chunks (masked ones included), as
     the JAX package's rectangular baseline does. K/V stay in their KV heads
-    and each chunk is expanded to H heads at its step.
+    and each chunk is expanded to H heads at its step. The T keys must
+    divide into chunks; the S queries (at ``q_offset + i``) go in blocks
+    of ``chunk``, or of ``gcd(S, chunk)`` where S does not divide (each
+    query row's sums are the same in any block).
     """
     b, s, h, hd = q.shape
-    if s % chunk:
-        raise ValueError(f"chunked_attention: S={s} is not a multiple of chunk={chunk}")
-    nq = s // chunk
+    t = k.shape[1]
+    if t % chunk:
+        raise ValueError(f"chunked_attention: T={t} is not a multiple of chunk={chunk}")
+    nk = t // chunk
+    qc = chunk if s % chunk == 0 else math.gcd(s, chunk)
     scale = hd ** -0.5
     dev = q.device
     outs = []
-    for qi in range(nq):
+    for qi in range(s // qc):
         if causal_skip and (causal or window):
-            lo, hi = kv_block_range(qi, block_q=chunk, block_k=chunk, nk=nq,
-                                    causal=causal, window=window)
+            lo, hi = kv_block_range(qi, block_q=qc, block_k=chunk, nk=nk,
+                                    causal=causal, window=window, q_offset=q_offset)
         else:
-            lo, hi = 0, nq
-        q_blk = q[:, qi * chunk:(qi + 1) * chunk].float()
-        q_pos = qi * chunk + torch.arange(chunk, device=dev)
-        m = torch.full((b, h, chunk), NEG_INF, device=dev)
-        l = torch.zeros((b, h, chunk), device=dev)
-        acc = torch.zeros((b, h, chunk, hd), device=dev)
+            lo, hi = 0, nk
+        q_blk = q[:, qi * qc:(qi + 1) * qc].float()
+        q_pos = q_offset + qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((b, h, qc), NEG_INF, device=dev)
+        l = torch.zeros((b, h, qc), device=dev)
+        acc = torch.zeros((b, h, qc, hd), device=dev)
         for kj in range(lo, hi):
-            k_blk = _expand_kv(k[:, kj * chunk:(kj + 1) * chunk], h).float()
-            v_blk = _expand_kv(v[:, kj * chunk:(kj + 1) * chunk], h).float()
+            k_blk = _expand_kv(k[:, kj * chunk:(kj + 1) * chunk], h, head_map).float()
+            v_blk = _expand_kv(v[:, kj * chunk:(kj + 1) * chunk], h, head_map).float()
             k_pos = kj * chunk + torch.arange(chunk, device=dev)
             sc = torch.einsum("bshd,bthd->bhst", q_blk, k_blk) * scale
-            mask = torch.ones((chunk, chunk), dtype=torch.bool, device=dev)
+            mask = torch.ones((qc, chunk), dtype=torch.bool, device=dev)
             if causal:
                 mask = mask & (k_pos[None, :] <= q_pos[:, None])
             if window:
@@ -209,12 +227,12 @@ def chunked_attention(
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool = True, window: int = 0,
+    causal: bool = True, window: int = 0, q_offset: int = 0,
 ) -> torch.Tensor:
     """Blockwise flash attention (``repro_torch.kernels.flash_attention``):
     the CUDA kernel for tensors on the card, its plain version on the CPU.
     Never builds an (S x T) score tensor and never expands K/V to H heads."""
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def decode_attention(

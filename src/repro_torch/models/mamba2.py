@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives, parallel
+from repro_torch.dist import seq as dseq
 from repro_torch.models import layers
 
 CONV_K = 4  # depthwise causal conv width
@@ -93,6 +94,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b_in: to
                 chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B,T,H,P); dt: (B,T,H) softplus'd fp32; a_log: (H,); b_in, c_in:
     (B,T,N); s0: (B,H,N,P) fp32. Returns y (B,T,H,P) in x's dtype, S_T."""
+    return ssd_finish(ssd_parts(x, dt, a_log, b_in, c_in, chunk), s0, x.dtype)
+
+
+def ssd_parts(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b_in: torch.Tensor,
+              c_in: torch.Tensor, chunk: int = 128) -> dict:
+    """What :func:`ssd_chunked` computes before its state scan, none of it
+    depending on the start state: the intra-chunk output, the state read
+    factors, each chunk's state write and log decay."""
     bsz, t, h, p = x.shape
     n = b_in.shape[-1]
     if t % chunk:
@@ -121,14 +130,35 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b_in: to
     # chunk state writes: S_out = e^{cum_last} S_in + sum_j e^{cum_last-cum_j} dt_j B_j x_j
     dec_k = torch.exp(cum[..., -1:] - cum).transpose(2, 3)          # (B,NC,C,H)
     kv = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, dec_k * dtc, xc)
-    full = torch.exp(cum[..., -1])                                   # (B,NC,H)
+    return {"y_intra": y_intra, "cc": cc, "cum": cum, "kv": kv, "log_dec": cum[..., -1]}
+
+
+def ssd_scan(parts: dict, s0: torch.Tensor) -> tuple[list, torch.Tensor]:
+    """The state entering each chunk from ``s0``, and the final state."""
+    full = torch.exp(parts["log_dec"])                               # (B,NC,H)
+    kv = parts["kv"]
     s, s_in = s0, []
-    for c in range(nc):
+    for c in range(kv.shape[1]):
         s_in.append(s)
         s = full[:, c, :, None, None] * s + kv[:, c]
-    y_state = torch.einsum("bctn,bcth,bchnp->bcthp", cc, torch.exp(cum).transpose(2, 3),
-                           torch.stack(s_in, dim=1))
-    return (y_intra + y_state).reshape(bsz, t, h, p).to(x.dtype), s
+    return s_in, s
+
+
+def ssd_finish(parts: dict, s0: torch.Tensor,
+               dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_chunked`'s output from its parts and the start state."""
+    s_in, s = ssd_scan(parts, s0)
+    y_state = torch.einsum("bctn,bcth,bchnp->bcthp", parts["cc"],
+                           torch.exp(parts["cum"]).transpose(2, 3), torch.stack(s_in, dim=1))
+    bsz, nc, c, h, p = parts["y_intra"].shape
+    return (parts["y_intra"] + y_state).reshape(bsz, nc * c, h, p).to(dtype), s
+
+
+def ssd_pair(parts: dict, s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A shard's state map S -> A ⊙ S + B (``dist.seq``): A (B, H) the
+    product of its chunks' decays (a sum in log space), B the final state
+    from zeros."""
+    return torch.exp(parts["log_dec"].sum(1)), ssd_scan(parts, torch.zeros_like(s0))[1]
 
 
 def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b_in: torch.Tensor,
@@ -146,31 +176,63 @@ def ssd_sequential(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b_in:
 
 
 def mamba2_apply(params: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_dim: int,
-                 state: Optional[dict] = None, chunk: int = 128,
-                 chunked: bool = True) -> tuple[torch.Tensor, dict]:
+                 state: Optional[dict] = None, chunk: int = 128, chunked: bool = True,
+                 seq=None) -> tuple[torch.Tensor, dict]:
     """Full-sequence Mamba2 block; ``state`` carries (ssm, conv) for
-    streaming. Returns (out, {"ssm": (B,H,N,P) fp32, "conv": (B,K-1,C)})."""
-    bsz, t, _ = x.shape
-    dtype = x.dtype
+    streaming. Returns (out, {"ssm": (B,H,N,P) fp32, "conv": (B,K-1,C)}).
+
+    ``seq`` (a ``dist.seq`` transport) runs x as sequence shards: each
+    shard's conv takes the previous shard's last K - 1 rows of its input
+    (``state["conv"]`` the first's), its chunked scan starts from the fold
+    of the earlier shards' state maps; the states returned are the last
+    held shard's (as ``rwkv6.time_mix_apply``'s)."""
+    dims = dict(d_inner=d_inner, d_state=d_state, head_dim=head_dim)
+    if seq is not None:
+        return _mamba2_seq(params, x, state, chunk, seq, **dims)
+    t = x.shape[1]
+    tp, z, conv_in, dt = _in_proj(params, x, **dims)
+    conv_out, conv_carry = causal_conv(conv_in, _conv_kernel(params, tp),
+                                       None if state is None else state["conv"])
+    p, z, xh, b_in, c_in, dt = _heads(params, tp, z, conv_out, dt, **dims)
+    s0 = (x.new_zeros(xh.shape[:1] + (xh.shape[2], d_state, head_dim), dtype=torch.float32)
+          if state is None else state["ssm"])
+    a_log = p["a_log"].float()
+    if chunked and t % chunk == 0 and t > 1:
+        y, s_final = ssd_chunked(xh, dt, a_log, b_in, c_in, s0, chunk)
+    else:
+        y, s_final = ssd_sequential(xh, dt, a_log, b_in, c_in, s0)
+    return _out(p, tp, y, xh, z, d_inner), {"ssm": s_final, "conv": conv_carry}
+
+
+def _in_proj(params: dict, x: torch.Tensor, *, d_inner: int, d_state: int, head_dim: int):
+    """(tp, z, the conv's input x|B|C, dt) of x's in-projection; under
+    tensor parallelism gathered over ``model`` (module docstring)."""
     inner = params["w_out"].shape[0]         # d_inner, or the rank's heads' channels
     tp = inner != d_inner
     if tp != (params["w_in"].shape[-1] != 2 * d_inner + 2 * d_state + d_inner // head_dim):
         raise ValueError("mamba2: w_in's columns and w_out's rows are not both on model")
     if tp:
         x = collectives.copy_to_model(x)
-    proj = torch.matmul(x, params["w_in"].to(dtype))
+    proj = torch.matmul(x, params["w_in"].to(x.dtype))
     if tp:
         proj = collectives.gather_fsdp(proj, "model", proj.ndim - 1)
     z, xi, b_in, c_in, dt = _split_proj(proj, d_inner, d_state)
+    return tp, z, torch.cat([xi, b_in, c_in], dim=-1), dt
 
-    conv_in = torch.cat([xi, b_in, c_in], dim=-1)
-    conv_out, conv_carry = causal_conv(
-        conv_in, collectives.copy_to_model(params["conv"]) if tp else params["conv"],
-        None if state is None else state["conv"])
+
+def _conv_kernel(params: dict, tp: bool) -> torch.Tensor:
+    return collectives.copy_to_model(params["conv"]) if tp else params["conv"]
+
+
+def _heads(params: dict, tp: bool, z, conv_out, dt, *, d_inner: int, d_state: int,
+           head_dim: int):
+    """The rank's heads of the conv's output: (params as the rank reads
+    them, z, x (B,T,H,P), B, C, softplus'd dt fp32)."""
+    bsz, t = conv_out.shape[:2]
+    inner = params["w_out"].shape[0]
     xi = conv_out[..., :d_inner]
     b_in = conv_out[..., d_inner:d_inner + d_state]
     c_in = conv_out[..., d_inner + d_state:]
-
     p = params
     h = inner // head_dim
     if tp:                                   # the rank's heads
@@ -180,22 +242,52 @@ def mamba2_apply(params: dict, x: torch.Tensor, *, d_inner: int, d_state: int, h
         p = dict(params, norm={"scale": parallel.rank_part(params["norm"]["scale"], inner)},
                  **{n: parallel.rank_part(params[n], h) for n in ("a_log", "d_skip", "dt_bias")})
     dt = softplus(dt.float() + p["dt_bias"].float())
-    xh = xi.reshape(bsz, t, h, head_dim)
-    s0 = (x.new_zeros((bsz, h, d_state, head_dim), dtype=torch.float32) if state is None
-          else state["ssm"])
-    a_log = p["a_log"].float()
-    if chunked and t % chunk == 0 and t > 1:
-        y, s_final = ssd_chunked(xh, dt, a_log, b_in, c_in, s0, chunk)
-    else:
-        y, s_final = ssd_sequential(xh, dt, a_log, b_in, c_in, s0)
+    return p, z, xi.reshape(bsz, t, h, head_dim), b_in, c_in, dt
+
+
+def _out(p: dict, tp: bool, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
+         d_inner: int) -> torch.Tensor:
+    """The skip, the gated norm and the out-projection of the scan's y."""
+    bsz, t = y.shape[:2]
+    dtype = xh.dtype
     y = y + p["d_skip"].to(dtype)[:, None] * xh
     # the gated norm at rmsnorm's default eps, as in the JAX code (not cfg.norm_eps)
-    gated = y.reshape(bsz, t, inner) * F.silu(z)
+    gated = y.reshape(bsz, t, z.shape[-1]) * F.silu(z)
     y = _split_rmsnorm(p["norm"], gated, d_inner) if tp else layers.rmsnorm(p["norm"], gated)
     out = torch.matmul(y, p["w_out"].to(dtype))
     if tp:
         out = collectives.reduce_from_model(out)
-    return out, {"ssm": s_final, "conv": conv_carry}
+    return out
+
+
+def _mamba2_seq(params: dict, x: torch.Tensor, state: Optional[dict], chunk: int, seq, *,
+                d_inner: int, d_state: int, head_dim: int) -> tuple[torch.Tensor, dict]:
+    """:func:`mamba2_apply` over sequence shards (its docstring)."""
+    dims = dict(d_inner=d_inner, d_state=d_state, head_dim=head_dim)
+    xs = seq.split(x)
+    projs = [_in_proj(params, xj, **dims) for xj in xs]
+    k = params["conv"].shape[0]
+    b = x.shape[0]
+    first = (projs[0][2].new_zeros((b, k - 1, projs[0][2].shape[-1])) if state is None
+             else state["conv"])
+    carries = dseq.halo(seq, [conv_in for _, _, conv_in, _ in projs], k - 1, first)
+    shards, convs = [], []
+    for (tp, z, conv_in, dt), carry in zip(projs, carries):
+        conv_out, conv_carry = causal_conv(conv_in, _conv_kernel(params, tp), carry)
+        p, z, xh, b_in, c_in, dt = _heads(params, tp, z, conv_out, dt, **dims)
+        shards.append((p, tp, z, xh, ssd_parts(xh, dt, p["a_log"].float(), b_in, c_in, chunk)))
+        convs.append(conv_carry)
+    h = shards[0][3].shape[2]
+    s0 = (x.new_zeros((b, h, d_state, head_dim), dtype=torch.float32) if state is None
+          else state["ssm"])
+    s_ins = seq.exchange([ssd_pair(parts, s0) for *_, parts in shards],
+                         dseq.fold(s0, lambda a: a[..., None, None]))
+    outs, finals = [], []
+    for (p, tp, z, xh, parts), s_in in zip(shards, s_ins):
+        y, s_final = ssd_finish(parts, s_in, xh.dtype)
+        outs.append(_out(p, tp, y, xh, z, d_inner))
+        finals.append(s_final)
+    return seq.join(outs), {"ssm": finals[-1], "conv": convs[-1]}
 
 
 def _split_rmsnorm(params: dict, x: torch.Tensor, d: int, eps: float = 1e-5) -> torch.Tensor:

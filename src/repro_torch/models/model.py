@@ -30,15 +30,24 @@ backward and refuse a call under grad.
 
 Sequence parallelism: under ``dist.activations.activation_mesh(plan)``
 whose ``seq`` axis resolves to n > 1 ranks for the context's length S,
-:func:`forward_logits` and ``decode.prefill`` of the dense family take the
-whole batch on every rank, keep this rank's shard of S / n positions
-(``plan.local_slice``), run the layers on it with global RoPE positions,
-and run attention as the ring over the mesh's ``seq`` group
-(``dist.ring.ring_flash_attention``, each step through the flash kernels);
-the last position's logits come from the last seq rank. This needs
-``attn_impl="flash"``, S above 2,048 and ``S % (n chunk_size) == 0`` (the
-JAX package's ring test); anything else under such a plan raises, as do
-the other families.
+:func:`forward_logits`, ``decode.prefill`` and :func:`forward_train` of
+every family but encdec take the whole batch on every rank and keep this
+rank's shard of S / n positions (:func:`seq_shard`; the vlm family's patch
+prefix counts in S and lands on the first ranks), with global RoPE
+positions. Attention runs as the ring over the mesh's ``seq`` group
+(``dist.ring.ring_flash_attention``, each step through the flash kernels)
+where the JAX package's ring test holds (``attn_impl="flash"``, S above
+2,048, ``S % (n chunk_size) == 0``) outside autograd; otherwise K and V
+are all-gathered over ``seq`` with a reduce-scatter backward and the
+rank's queries attend at their global positions. The moe family's shards
+hold whole 512-token routing groups (its aux values are averaged over the
+shards); RWKV6's token shifts and Mamba2's conv take the previous shard's
+last rows, and their chunked scans start from the fold of the earlier
+shards' state maps (``dist.seq``). In training the sequence's shards sum
+every replicated leaf's gradient and the loss's two sums
+(``parallel.holding_seq``). The last position's logits, a prefill's
+recurrent states and its cache rows come from the shards that hold them:
+every rank leaves with the same. The encdec family raises.
 
 Model parallelism (``dist.parallel``): under a plan with parameters placed
 as DTensors (``dist.placement``), every entry point takes the rank's local
@@ -59,7 +68,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import threading
-from typing import Any, NamedTuple, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -71,6 +80,7 @@ from repro_torch.dist import collectives, parallel
 from repro_torch.dist.activations import current_activation_plan
 from repro_torch.dist.plan import mesh_coord
 from repro_torch.dist.ring import GroupRing, ring_flash_attention
+from repro_torch.dist.seq import GroupSeq
 from repro_torch.models import layers, mamba2, moe, rwkv6
 from repro_torch.models.config import ModelConfig
 
@@ -338,54 +348,74 @@ def _merge_heads(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # sequence parallelism
 # =====================================================================
 
-class SeqShard(NamedTuple):
-    """This rank's part of a sequence-parallel forward: shard ``idx`` of
-    ``n`` over the process group ``group``."""
-    n: int
-    idx: int
-    group: Any
-
-
-_SEQ_SHARD: contextvars.ContextVar[Optional[SeqShard]] = contextvars.ContextVar(
+# this rank's shard of a sequence-parallel forward (``dist.seq.GroupSeq``)
+_SEQ_SHARD: contextvars.ContextVar[Optional[GroupSeq]] = contextvars.ContextVar(
     "repro_torch_seq_shard", default=None)
 
 
-def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[SeqShard], dict]:
+def _seq_chunk(cfg: ModelConfig) -> int:
+    """The positions a shard must hold whole multiples of: the recurrent
+    scans' chunk, the MoE's routing groups; 1 elsewhere."""
+    return {"ssm": RWKV_CHUNK, "hybrid": ssd_chunk(cfg)}.get(cfg.family, 1)
+
+
+def ssd_chunk(cfg: ModelConfig) -> int:
+    """The hybrid family's SSD scan chunk."""
+    return min(cfg.chunk_size, 128)
+
+
+def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[GroupSeq], dict]:
     """Under an active plan whose ``seq`` axis resolves to n > 1 ranks for
-    the batch's S positions: this rank's :class:`SeqShard` and its slice of
-    ``batch["tokens"]``; else ``(None, batch)``. Raises where the port has
-    no sequence-parallel path (module docstring)."""
+    the batch's S positions (the vlm family's patch prefix counted in):
+    this rank's ``GroupSeq`` and its slice of the batch's ``tokens``,
+    ``labels`` and ``mask`` (and of ``vis_embeds``: the prefix lands on
+    the first ranks); else ``(None, batch)``. Where the plan's batch rows
+    run over ``seq`` (the federated round's intra-client data axis), the
+    sequence stays whole. Raises where the port has no path: the encdec
+    family, a MoE shard that splits a routing group, a recurrent shard off
+    its scan's chunk (module docstring)."""
     plan = current_activation_plan()
     if plan is None or plan.axis_size("seq") == 1:
         return None, batch
-    if cfg.family != "dense":
+    view = parallel.current()
+    if view is not None and "seq" in view.batch_axes:
+        return None, batch
+    if cfg.family == "encdec":
         raise ValueError(
-            f"the {cfg.family} family has no sequence-parallel path (its scans or routing "
-            "carry state across the sequence; distribution part B2c); run it under a plan "
-            "without a seq axis")
+            "the encdec family has no sequence-parallel path yet (its encoder's ring and its "
+            "cross-attention over a memory gathered on seq: the next distribution step, B2c); "
+            "run it under a plan without a seq axis")
     tokens = batch["tokens"]
-    s = tokens.shape[1]
+    n_vis = batch["vis_embeds"].shape[1] if cfg.family == "vlm" else 0
+    s = n_vis + tokens.shape[1]
     ent = plan.resolve(s, "seq")
     if not isinstance(ent, str) or plan.axis_size(ent) == 1:
         return None, batch           # not sharded: every rank runs the whole sequence
     n = plan.axis_size(ent)
-    if not (cfg.attn_impl == "flash" and s > DENSE_ATTN_MAX_SEQ
-            and s % (n * cfg.chunk_size) == 0):
+    if cfg.family == "moe" and s % (n * moe.ROUTE_CHUNK):
         raise ValueError(
-            f"a sequence-parallel forward over {n} ranks takes the ring: it needs "
-            f'attn_impl="flash", S > {DENSE_ATTN_MAX_SEQ} and S % (n * chunk_size) == 0, '
-            f"got attn_impl={cfg.attn_impl!r}, S={s}, chunk_size={cfg.chunk_size}")
-    spec = plan.spec(tokens.shape, ("act_batch", "seq"), align="left")
-    local = tokens[plan.local_slice(spec, tokens.shape, mesh_coord(plan.mesh))]
-    shard = SeqShard(n, plan.mesh.get_local_rank(ent), plan.mesh.get_group(ent))
-    return shard, {**batch, "tokens": local}
+            f"a sequence-parallel MoE over {n} ranks needs S % (n * {moe.ROUTE_CHUNK}) == 0, "
+            f"so that each shard holds whole routing groups; got S={s}")
+    if (s // n) % _seq_chunk(cfg):
+        raise ValueError(
+            f"a sequence-parallel {cfg.family} forward over {n} ranks needs each shard's "
+            f"{s // n} positions to be a multiple of its scan's chunk {_seq_chunk(cfg)}; "
+            f"got S={s}")
+    sl = plan.local_slice(plan.spec((tokens.shape[0], s), ("act_batch", "seq"), align="left"),
+                          (tokens.shape[0], s), mesh_coord(plan.mesh))[1]
+    text = slice(min(max(sl.start - n_vis, 0), s - n_vis), max(sl.stop - n_vis, 0))
+    out = {**batch, **{k: batch[k][:, text] for k in ("tokens", "labels", "mask") if k in batch}}
+    if n_vis:
+        out["vis_embeds"] = batch["vis_embeds"][:, min(sl.start, n_vis):min(sl.stop, n_vis)]
+    return GroupSeq(n, plan.mesh.get_local_rank(ent), plan.mesh.get_group(ent), ent), out
 
 
 @contextlib.contextmanager
-def _holding(shard: Optional[SeqShard]):
+def _holding(shard: Optional[GroupSeq]):
     token = _SEQ_SHARD.set(shard)
     try:
-        yield
+        with parallel.holding_seq(None if shard is None else shard.axis):
+            yield
     finally:
         _SEQ_SHARD.reset(token)
 
@@ -398,30 +428,59 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(start, start + x.shape[1], device=x.device)
 
 
-def gather_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+def gather_seq(x: torch.Tensor, shard: GroupSeq) -> torch.Tensor:
     """All shards of x (B, S_loc, ...) in sequence order, on every rank."""
-    return collectives.all_gather(x, shard.group, "seq", dim=1)
+    return collectives.all_gather(x, shard.group, shard.axis, dim=1)
 
 
-def from_last_shard(x: torch.Tensor, shard: Optional[SeqShard]) -> torch.Tensor:
+def from_last_shard(x: torch.Tensor, shard: Optional[GroupSeq]) -> torch.Tensor:
     """x as the last seq rank holds it (the sequence's last position),
     broadcast to every rank of the group."""
     if shard is not None:
-        x = collectives.broadcast(x, shard.n - 1, shard.group, "seq")
+        x = collectives.broadcast(x, shard.n - 1, shard.group, shard.axis)
     return x
 
 
-def _flash_dispatch(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, window: int) -> torch.Tensor:
-    """``attn_impl="flash"``: single-device blockwise flash attention, or
-    the ring over the seq group in a sequence-parallel forward (each rank
-    holds its q/k/v shard). The kernel picks its own tiles, so the
-    config's chunk size only gates the dispatch."""
-    shard = _SEQ_SHARD.get()
-    if shard is not None:
-        return ring_flash_attention(q, k, v, ring=GroupRing(shard.group), causal=causal,
-                                    window=window)
-    return layers.flash_attention(q, k, v, causal=causal, window=window)
+def tail_of_sequence(x: torch.Tensor, m: int, shard: Optional[GroupSeq]) -> torch.Tensor:
+    """The sequence's last ``m`` positions of x (B, S_loc, ...) on every
+    rank (a prefill's cache rows): broadcast from the last rank where its
+    shard holds them all, else every shard gathered."""
+    if shard is None:
+        return x[:, x.shape[1] - m:]
+    if m <= x.shape[1]:
+        return from_last_shard(x[:, x.shape[1] - m:], shard)
+    x = gather_seq(x, shard)
+    return x[:, x.shape[1] - m:]
+
+
+def _ring_path(cfg: ModelConfig, x: torch.Tensor, n: int) -> bool:
+    """Whether a sequence-parallel attention of the shard x over S = n
+    S_loc positions takes the ring: flash, S above 2,048 and S % (n chunk)
+    == 0 (the JAX package's ring test), and x outside autograd (the ring
+    has no backward)."""
+    s = x.shape[1] * n
+    return (cfg.attn_impl == "flash" and s > DENSE_ATTN_MAX_SEQ
+            and s % (n * cfg.chunk_size) == 0
+            and not (torch.is_grad_enabled() and x.requires_grad))
+
+
+def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int, causal_skip: bool, q_offset: int = 0,
+            head_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's dispatch by the keys' length T: dense at T <=
+    2,048 or T off the chunk, else flash (``attn_impl="flash"``) or
+    chunked attention; queries at ``q_offset`` onwards."""
+    t = k.shape[1]
+    if t <= DENSE_ATTN_MAX_SEQ or t % cfg.chunk_size != 0:
+        return layers.dense_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                      head_map=head_map)
+    if cfg.attn_impl == "flash":
+        if head_map is not None:
+            k, v = k.index_select(2, head_map), v.index_select(2, head_map)
+        return layers.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return layers.chunked_attention(q, k, v, chunk=cfg.chunk_size, causal=causal, window=window,
+                                    causal_skip=causal_skip, q_offset=q_offset,
+                                    head_map=head_map)
 
 
 def attention_mode(cfg: ModelConfig, p: dict, *, ring: bool = False) -> tuple[str, dict]:
@@ -459,26 +518,36 @@ def _self_attention(
     Short or non-divisible sequences take dense attention, long ones flash
     (``attn_impl="flash"``) or chunked attention, as in the JAX package;
     ``causal_skip`` goes to the chunked path. ``window_override`` replaces
-    the config's window (the hybrid family's shared attention)."""
+    the config's window (the hybrid family's shared attention).
+
+    In a sequence-parallel forward x is the rank's shard and the returned
+    k/v are too. Attention takes the ring (:func:`_ring_path`), or gathers
+    K and V over ``seq`` (a reduce-scatter backward) and runs the rank's
+    queries at their global positions against the whole sequence, by the
+    dispatch of the whole length."""
     window = cfg.sliding_window if window_override is None else window_override
-    ring = _SEQ_SHARD.get() is not None
+    shard = _SEQ_SHARD.get()
+    ring = shard is not None and _ring_path(cfg, x, shard.n)
     mode, p = attention_mode(cfg, p, ring=ring)
     if mode != "whole":
         x = collectives.copy_to_model(x)
     q = layers.apply_rope(_proj_heads(x, p["wq"]), positions, cfg.rope_theta)
     k = layers.apply_rope(_proj_heads(x, p["wk"]), positions, cfg.rope_theta)
     v = _proj_heads(x, p["wv"])
-    kq, vq = expand_local_kv(cfg, mode, k, v, q.shape[2])
-    s = x.shape[1]
-    if ring:                           # a ring shard: seq_shard gated the whole sequence
-        o = _flash_dispatch(cfg, q, kq, vq, causal=causal, window=window)
-    elif s <= DENSE_ATTN_MAX_SEQ or s % cfg.chunk_size != 0:
-        o = layers.dense_attention(q, kq, vq, causal=causal, window=window)
-    elif cfg.attn_impl == "flash":
-        o = _flash_dispatch(cfg, q, kq, vq, causal=causal, window=window)
+    if ring:
+        kq, vq = expand_local_kv(cfg, mode, k, v, q.shape[2])
+        o = ring_flash_attention(q, kq, vq, ring=GroupRing(shard.group, shard.axis),
+                                 causal=causal, window=window)
+    elif shard is not None:            # K/V gathered over seq, then expanded per chunk
+        head_map = (parallel.local_kv_index(cfg, q.shape[2], q.device) if mode == "expand"
+                    else None)
+        kg = collectives.gather_fsdp(k, shard.axis, 1)
+        vg = collectives.gather_fsdp(v, shard.axis, 1)
+        o = _attend(cfg, q, kg, vg, causal=causal, window=window, causal_skip=causal_skip,
+                    q_offset=shard.idx * x.shape[1], head_map=head_map)
     else:
-        o = layers.chunked_attention(q, kq, vq, chunk=cfg.chunk_size, causal=causal,
-                                     window=window, causal_skip=causal_skip)
+        o = _attend(cfg, q, *expand_local_kv(cfg, mode, k, v, q.shape[2]), causal=causal,
+                    window=window, causal_skip=causal_skip)
     out = _merge_heads(o, p["wo"])
     if mode != "whole":
         out = collectives.reduce_from_model(out)
@@ -546,29 +615,34 @@ def _forward_dense(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 
 
 def _rwkv_block(cfg: ModelConfig, p: dict, x: torch.Tensor, x_tm: torch.Tensor,
-                x_cm: torch.Tensor, s0: torch.Tensor):
+                x_cm: torch.Tensor, s0: torch.Tensor, seq=None):
     """One RWKV6 layer over x (B, T, D) from the carries ``x_tm``, ``x_cm``
     (B, D) and the WKV state ``s0``; the chunked WKV when T is a multiple
-    of 64 above 1. Returns (x, tm carry, cm carry, state)."""
+    of 64 above 1. Returns (x, tm carry, cm carry, state). ``seq`` (a
+    ``dist.seq`` transport: the active shard's, or ``LocalSeq(n)``) runs x
+    as sequence shards, each on the chunked WKV."""
     t = x.shape[1]
+    seq = _SEQ_SHARD.get() if seq is None else seq
     h, tm_carry, s_new = rwkv6.time_mix_apply(
         p["tm"], layers.rmsnorm(p["ln1"], x, cfg.norm_eps), x_tm, s0, cfg.rwkv_heads,
-        chunked=t % RWKV_CHUNK == 0 and t > 1, chunk=RWKV_CHUNK,
+        chunked=t % RWKV_CHUNK == 0 and t > 1, chunk=RWKV_CHUNK, seq=seq,
     )
     x = x + h
     c, cm_carry = rwkv6.channel_mix_apply(p["cm"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                                          x_cm, d_ff=cfg.d_ff)
+                                          x_cm, d_ff=cfg.d_ff, seq=seq)
     return x + c, tm_carry, cm_carry, s_new
 
 
 def _mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                 state: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
+                 state: Optional[dict] = None, seq=None) -> tuple[torch.Tensor, dict]:
+    """One Mamba2 layer (``seq`` as in :func:`_rwkv_block`)."""
     t = x.shape[1]
-    chunk = min(cfg.chunk_size, 128)       # the SSD scan's chunk
+    chunk = ssd_chunk(cfg)
     h, new_state = mamba2.mamba2_apply(
         p["mamba"], layers.rmsnorm(p["ln"], x, cfg.norm_eps),
         d_inner=cfg.d_inner, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
         state=state, chunk=chunk, chunked=t % chunk == 0 and t > 1,
+        seq=_SEQ_SHARD.get() if seq is None else seq,
     )
     return x + h, new_state
 
@@ -627,7 +701,7 @@ def _forward_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     """``n_layers // attn_every`` super-blocks: ``attn_every`` Mamba2
     layers, then the shared attention block; with ``remat`` each
     super-block is recomputed in backward, as the JAX package's scan body."""
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = _positions(x)
     shared = params["shared_attn"]
 
     def body(h, *super_layers):
@@ -763,24 +837,27 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tenso
 
 def _forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     shard, batch = seq_shard(cfg, batch)
-    if shard is not None:
-        with _holding(shard):
-            h, _ = _forward_dense(cfg, params, embed_inputs(cfg, params, batch))
-        h = final_norm(cfg, params, h[:, -1:, :])
-        return from_last_shard(layers.unembed(head_table(cfg, params), h)[:, 0, :], shard)
     fam = cfg.family
-    if fam == "encdec":
-        src = batch["src_embeds"].to(cfg.activation_dtype)
-        tgt = layers.embed(embed_table(params), batch["tokens"], cfg.activation_dtype)
-        h, _ = _forward_encdec(cfg, params, src, tgt)
-    elif fam == "ssm":
-        h, _ = _forward_rwkv(cfg, params, embed_inputs(cfg, params, batch))
-    elif fam == "hybrid":
-        h, _ = _forward_hybrid(cfg, params, embed_inputs(cfg, params, batch))
-    else:
-        h, _ = _forward_dense(cfg, params, embed_inputs(cfg, params, batch))
+    with _holding(shard):
+        if fam == "encdec":
+            src = batch["src_embeds"].to(cfg.activation_dtype)
+            tgt = layers.embed(embed_table(params), batch["tokens"], cfg.activation_dtype)
+            h, _ = _forward_encdec(cfg, params, src, tgt)
+        else:
+            h, _ = _decoder_stack(cfg, params, embed_inputs(cfg, params, batch))
     h = final_norm(cfg, params, h[:, -1:, :])
-    return layers.unembed(head_table(cfg, params), h)[:, 0, :]
+    return from_last_shard(layers.unembed(head_table(cfg, params), h)[:, 0, :], shard)
+
+
+def _decoder_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                   **kw) -> tuple[torch.Tensor, dict]:
+    """The layers of every family but encdec over the embedded x."""
+    if cfg.family == "ssm":
+        return _forward_rwkv(cfg, params, x, remat=kw.get("remat", False))
+    if cfg.family == "hybrid":
+        kw.pop("remat_policy", None)
+        return _forward_hybrid(cfg, params, x, **kw)
+    return _forward_dense(cfg, params, x, **kw)
 
 
 # =====================================================================
@@ -791,7 +868,7 @@ def _ce_chunk(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
               mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One chunk's masked NLL sum and mask sum, fp32: the chunk's logits
     (``layers.unembed``), logsumexp minus the gold logit."""
-    logits = layers.unembed({"table": table}, h)                  # (B, chunk, V) fp32
+    logits = layers.unembed({"table": table}, h)                  # (chunk, V) fp32
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold) * mask
@@ -804,23 +881,30 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor, labels: torch
     fp32 ``mask``, without a (B, S, V) logits tensor: ``ce_chunk``
     positions at a time (one chunk when S does not divide), each chunk
     recomputed in backward under grad (``jax.checkpoint(body)`` in the JAX
-    package), so no chunk's (B, chunk, V) logits outlive it. The sums add
-    in chunk order; the loss is their ratio, over at least 1. Under a
-    model-parallel plan the table is gathered once, before the chunks, and
-    the two sums are summed over the batch's axes."""
+    package), so no chunk's logits outlive it. A chunk runs one batch row
+    at a time: its logits are (chunk, V), where one product over the
+    chunk's rows would fold B x chunk positions into one dim (at B x chunk
+    = S the dry run's gate reads that dim as the whole sequence). The sums
+    add in chunk order, rows within; the loss is their ratio, over at
+    least 1. Under a model-parallel plan the table is gathered once, before
+    the chunks, and the two sums are summed over the batch's axes and the
+    sequence's shards."""
     table = head_table(cfg, params)["table"]
     s = h.shape[1]
     chunk = min(ce_chunk, s)
-    if s % chunk:
+    if s % max(chunk, 1):
         chunk = s
     step = _remat(_ce_chunk, True)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     denom = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c0 in range(0, s, chunk):
-        nll, m = step(table, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
-                      mask[:, c0:c0 + chunk])
-        total = total + nll
-        denom = denom + m
+    # a shard with no text positions (the vlm prefix's) runs one empty chunk:
+    # the table's gradient, and the collectives in its backward, on every rank
+    for c0 in range(0, s, chunk) if s else (0,):
+        for r in range(h.shape[0]):
+            nll, m = step(table, h[r, c0:c0 + chunk], labels[r, c0:c0 + chunk],
+                          mask[r, c0:c0 + chunk])
+            total = total + nll
+            denom = denom + m
     total, denom = parallel.batch_sum(total), parallel.batch_sum(denom)
     return total / torch.clamp(denom, min=1.0)
 
@@ -849,23 +933,22 @@ def _forward_train(cfg: ModelConfig, params: Params, batch: dict, *, causal_skip
                    remat: bool, remat_policy: str) -> tuple[torch.Tensor, dict]:
     dtype = cfg.activation_dtype
     fam = cfg.family
-    if fam == "encdec":
-        src = batch["src_embeds"].to(dtype)
-        tgt = layers.embed(embed_table(params), batch["tokens"], dtype)
-        h, aux = _forward_encdec(cfg, params, src, tgt, remat=remat)
-    else:
-        x = embed_inputs(cfg, params, batch)
-        if fam == "ssm":
-            h, aux = _forward_rwkv(cfg, params, x, remat=remat)
-        elif fam == "hybrid":
-            h, aux = _forward_hybrid(cfg, params, x, causal_skip=causal_skip, remat=remat)
+    shard, batch = seq_shard(cfg, batch)
+    with _holding(shard):
+        if fam == "encdec":
+            src = batch["src_embeds"].to(dtype)
+            tgt = layers.embed(embed_table(params), batch["tokens"], dtype)
+            h, aux = _forward_encdec(cfg, params, src, tgt, remat=remat)
         else:
-            h, aux = _forward_dense(cfg, params, x, causal_skip=causal_skip, remat=remat,
+            h, aux = _decoder_stack(cfg, params, embed_inputs(cfg, params, batch),
+                                    causal_skip=causal_skip, remat=remat,
                                     remat_policy=remat_policy)
-        if fam == "vlm":
-            h = h[:, batch["vis_embeds"].shape[1]:, :]
-    h = final_norm(cfg, params, h)
-    loss = _chunked_ce(cfg, params, h, batch["labels"], batch["mask"].to(torch.float32))
+            if fam == "vlm":               # the patch positions this rank holds
+                h = h[:, batch["vis_embeds"].shape[1]:, :]
+        h = final_norm(cfg, params, h)
+        loss = _chunked_ce(cfg, params, h, batch["labels"], batch["mask"].to(torch.float32))
+        # each shard's aux values are a mean over its routing groups
+        aux = {k: parallel.seq_mean(v) for k, v in aux.items()}
     metrics = {"loss": loss}
     if aux:
         loss = loss + 0.01 * aux.get("lb_loss", 0.0) + 1e-3 * aux.get("z_loss", 0.0)

@@ -47,6 +47,9 @@ from repro_torch.dist import parallel
 from repro_torch.models import layers
 
 
+ROUTE_CHUNK = 512   # tokens a routing group holds, each with its own capacity
+
+
 def moe_params(generator: torch.Generator, d: int, f: int, n_experts: int, n_layers: int = 1,
                dtype: torch.dtype = torch.float32) -> dict:
     return {
@@ -59,7 +62,7 @@ def moe_params(generator: torch.Generator, d: int, f: int, n_experts: int, n_lay
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-              route_chunk: int = 512, experts: Optional[tuple] = None
+              route_chunk: int = ROUTE_CHUNK, experts: Optional[tuple] = None
               ) -> tuple[torch.Tensor, dict]:
     """Capacity-based top-k MoE of x (B, S, D). A sequence longer than
     ``route_chunk`` and a multiple of it is routed chunk by chunk, each

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.dist import collectives, parallel
+from repro_torch.dist import seq as dseq
 from repro_torch.models import layers
 
 
@@ -151,6 +152,15 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tens
     diagonal, added on its own. The carry between chunks is the state
     recurrence at chunk granularity. fp32 throughout.
     """
+    parts = wkv_parts(r, k, v, w, u, chunk)
+    return wkv_finish(parts, s0, r.dtype)
+
+
+def wkv_parts(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              u: torch.Tensor, chunk: int = 64) -> dict:
+    """What :func:`wkv_chunked` computes before its state scan, none of it
+    depending on the start state: the intra-chunk output, the queries'
+    state read factors, each chunk's state write and decay."""
     b, t, h, n = r.shape
     if t % chunk:
         raise ValueError(f"wkv_chunked: T={t} is not a multiple of chunk={chunk}")
@@ -175,15 +185,36 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tens
     diag = torch.einsum("bcthn,bcthn->bcth", rc * u, kc)
     y_intra = torch.einsum("bchtj,bcjhn->bcthn", scores, vc) + diag[..., None] * vc
 
-    # between chunks: the state entering each chunk
+    # between chunks: each chunk's state write and decay
     kv_chunk = torch.einsum("bcjhk,bcjhv->bchkv", k_out, vc)        # (B,NC,H,N,N)
-    full_dec = torch.exp(cum[:, :, -1])                             # (B,NC,H,N)
+    return {"y_intra": y_intra, "r_in": r_in, "kv": kv_chunk, "log_dec": cum[:, :, -1]}
+
+
+def wkv_scan(parts: dict, s0: torch.Tensor) -> tuple[list, torch.Tensor]:
+    """The state entering each chunk from ``s0``, and the final state."""
+    full_dec = torch.exp(parts["log_dec"])                          # (B,NC,H,N)
+    kv_chunk = parts["kv"]
     s, s_in = s0, []
-    for c in range(nc):
+    for c in range(kv_chunk.shape[1]):
         s_in.append(s)
         s = full_dec[:, c, ..., None] * s + kv_chunk[:, c]
-    y_state = torch.einsum("bcthk,bchkv->bcthv", r_in, torch.stack(s_in, dim=1))
-    return (y_intra + y_state).reshape(b, t, h, n).to(r.dtype), s
+    return s_in, s
+
+
+def wkv_finish(parts: dict, s0: torch.Tensor,
+               dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`wkv_chunked`'s output from its parts and the start state."""
+    s_in, s = wkv_scan(parts, s0)
+    y_state = torch.einsum("bcthk,bchkv->bcthv", parts["r_in"], torch.stack(s_in, dim=1))
+    b, nc, c, h, n = parts["r_in"].shape
+    return (parts["y_intra"] + y_state).reshape(b, nc * c, h, n).to(dtype), s
+
+
+def wkv_pair(parts: dict, s0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A shard's state map S -> A ⊙ S + B (``dist.seq``): A (B, H, N) the
+    product of its chunks' decays (a sum in log space), B the final state
+    from ``s0`` = zeros."""
+    return torch.exp(parts["log_dec"].sum(1)), wkv_scan(parts, torch.zeros_like(s0))[1]
 
 
 def _rank_region(params: dict, x: torch.Tensor, x_prev: torch.Tensor, n_heads: int):
@@ -208,10 +239,20 @@ def _rank_region(params: dict, x: torch.Tensor, x_prev: torch.Tensor, n_heads: i
 
 
 def time_mix_apply(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s0: torch.Tensor,
-                   n_heads: int, *, chunked: bool = True,
-                   chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   n_heads: int, *, chunked: bool = True, chunk: int = 64,
+                   seq=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence time mix. Returns (out, new x_prev, new state); under
-    tensor parallelism ``s0`` and the state hold the rank's heads."""
+    tensor parallelism ``s0`` and the state hold the rank's heads.
+
+    ``seq`` (a ``dist.seq`` transport) runs x as sequence shards: each
+    shard's token shift takes the previous shard's last row (``x_prev``
+    is the first shard's), its chunked WKV starts from the fold of the
+    earlier shards' state maps (``s0`` the first's); the carry and state
+    returned are the last held shard's: the sequence's under ``LocalSeq``,
+    this rank's own under ``GroupSeq`` (a prefill takes the last rank's,
+    ``models.model.from_last_shard``)."""
+    if seq is not None:
+        return _time_mix_seq(params, x, x_prev, s0, n_heads, chunk, seq)
     b, t, _ = x.shape
     p, xl, x_prev, heads = _rank_region(params, x, x_prev, n_heads)
     r, k, v, w, g, _ = _rkvwg(p, xl, x_prev, heads)
@@ -220,11 +261,36 @@ def time_mix_apply(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s0: torc
         y, s_final = wkv_chunked(r, k, v, w, u, s0, chunk=chunk)
     else:
         y, s_final = wkv_sequential(r, k, v, w, u, s0)
+    return _time_mix_out(p, y, g, heads, n_heads), x[:, -1, :], s_final
+
+
+def _time_mix_out(p: dict, y: torch.Tensor, g: torch.Tensor, heads: int,
+                  n_heads: int) -> torch.Tensor:
+    b, t = y.shape[:2]
     y = groupnorm_heads(p["ln"], y).reshape(b, t, -1)        # head-local norm
-    out = torch.matmul(y * g, p["wo"].to(x.dtype))
+    out = torch.matmul(y * g, p["wo"].to(g.dtype))
     if heads != n_heads:
         out = collectives.reduce_from_model(out)
-    return out, x[:, -1, :], s_final
+    return out
+
+
+def _time_mix_seq(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s0: torch.Tensor,
+                  n_heads: int, chunk: int, seq):
+    """:func:`time_mix_apply` over sequence shards (its docstring)."""
+    xs = seq.split(x)
+    shards = []
+    for xj, pj in zip(xs, dseq.halo(seq, xs, 1, x_prev)):
+        p, xl, xp, heads = _rank_region(params, xj, pj, n_heads)
+        r, k, v, w, g, _ = _rkvwg(p, xl, xp, heads)
+        shards.append((p, heads, g, r.dtype, wkv_parts(r, k, v, w, p["u"].float(), chunk)))
+    s_ins = seq.exchange([wkv_pair(parts, s0) for *_, parts in shards],
+                         dseq.fold(s0, lambda a: a[..., None]))
+    outs, finals = [], []
+    for (p, heads, g, dtype, parts), s_in in zip(shards, s_ins):
+        y, s_final = wkv_finish(parts, s_in, dtype)
+        outs.append(_time_mix_out(p, y, g, heads, n_heads))
+        finals.append(s_final)
+    return seq.join(outs), xs[-1][:, -1, :], finals[-1]
 
 
 def time_mix_step(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s: torch.Tensor,
@@ -236,9 +302,15 @@ def time_mix_step(params: dict, x: torch.Tensor, x_prev: torch.Tensor, s: torch.
 
 
 def channel_mix_apply(params: dict, x: torch.Tensor, x_prev: torch.Tensor,
-                      d_ff: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+                      d_ff: Optional[int] = None, seq=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The channel mix; when ``wk`` holds fewer than ``d_ff`` columns, the
-    rank's (module docstring)."""
+    rank's (module docstring). ``seq`` runs x as sequence shards, each
+    shift taking the previous shard's last row (:func:`time_mix_apply`)."""
+    if seq is not None:
+        xs = seq.split(x)
+        outs = [channel_mix_apply(params, xj, pj, d_ff)[0]
+                for xj, pj in zip(xs, dseq.halo(seq, xs, 1, x_prev))]
+        return seq.join(outs), xs[-1][:, -1, :]
     dtype = x.dtype
     xs = _shift(x, x_prev)
     xk = _mix(x, xs, params["mu_k"])

@@ -13,9 +13,18 @@ term counts the bytes on the links by NCCL's ring factors. The gates
 (``--require-seq-sharded``, ``--require-flash``) hold on a reduced Llama
 prefill on ``1x1x4x1`` (the ring, its seq-axis send/recv counted) and each
 fails on purpose where it should: the sequence whole on a ``1x2`` mesh,
-and dense attention's S² scores at S <= 2048.
+and dense attention's S² scores at S <= 2048. The JAX package's train
+counterpart (``tests/test_sharding_dryrun.py``'s ``lower_train_step`` on
+``(1, 2, 2, 2)``): the reduced Llama's train step at B = 8, S = 2,304 on
+``1x2x2x2`` passes ``--require-seq-sharded``, its seq-axis collectives
+counted by kind, and the same run on ``1x2x1x2`` fails it (two
+subprocesses side by side, one torch thread each).
 """
+import json
 import math
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -174,3 +183,62 @@ def test_full_width_count_at_the_card_cell():
                  "all-reduce": {"count": 68, "bytes": 1065004}},
         "model": {"all-gather": {"count": 2, "bytes": 4202692608},
                   "all-reduce": {"count": 161, "bytes": 5368709156}}}
+
+
+TRAIN_GATE = ["--arch", "llama3_8b", "--reduced", "--shape", "train_4k", "--batch", "8",
+              "--seq", "2304", "--steps", "1", "--require-seq-sharded"]
+_GATE_RUN = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+try:
+    rec = dryrun.main(sys.argv[1:], device="cpu")
+    print("GATE-RECORD " + json.dumps(rec))
+except AssertionError as e:
+    print("GATE-FAILED " + str(e))
+"""
+
+
+@pytest.fixture(scope="module")
+def train_gates():
+    """The train gate on ``1x2x2x2`` and on ``1x2x1x2``, each in its own
+    subprocess, both at once: ``{mesh: record or the gate's message}``."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = {mesh: subprocess.Popen([sys.executable, "-c", _GATE_RUN, *TRAIN_GATE,
+                                     "--mesh-shape", mesh], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+             for mesh in ("1x2x2x2", "1x2x1x2")}
+    out = {}
+    try:
+        for mesh, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, stdout[-2000:] + stderr[-2000:]
+            line = [ln for ln in stdout.splitlines() if ln.startswith("GATE-")][-1]
+            out[mesh] = (json.loads(line[len("GATE-RECORD "):]) if line.startswith("GATE-RECORD")
+                         else line[len("GATE-FAILED "):])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def test_train_gate_holds_on_a_seq_axis(train_gates):
+    rec = train_gates["1x2x2x2"]
+    assert isinstance(rec, dict), rec
+    assert rec["kind"] == "train" and rec["seq_sharded_ok"] and rec["full_seq_intermediates"] == []
+    seq = rec["collectives"]["seq"]
+    # 2 layers: K and V gathered in the forward and again in the recompute,
+    # reduce-scattered in the backward; the gradient sums and the loss's
+    assert seq["all-gather"]["count"] == 2 * 2 * 2
+    assert seq["reduce-scatter"]["count"] == 2 * 2
+    assert seq["all-reduce"]["count"] > 0
+    assert rec["collectives_same_each_step"]
+
+
+def test_train_gate_fails_without_a_seq_axis(train_gates):
+    msg = train_gates["1x2x1x2"]
+    assert isinstance(msg, str) and "full-seq intermediates" in msg and "seq=1" in msg, msg

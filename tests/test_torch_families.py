@@ -306,7 +306,7 @@ def test_flash_dispatch_per_family(family):
         return
     assert spy.call_count == 1
     assert spy.call_args.kwargs == dict(causal=family != "encdec",
-                                        window=4096 if family == "hybrid" else 0)
+                                        window=4096 if family == "hybrid" else 0, q_offset=0)
     assert tuple(spy.call_args.args[0].shape) == (1, 2560, 4, 16)
 
 

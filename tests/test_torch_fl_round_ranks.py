@@ -1,8 +1,10 @@
 """``launch.steps.make_fl_round`` with one client a rank on CPU ranks of a
 gloo group: the client axis ``pod`` of 2 and of 4 ranks; ``pod`` 2 x
 ``data`` 2 (each client's model sharded over its two ranks, each rank
-stepping on its row of the client's batch); and ``pod`` 2 x ``model`` 2
-(TP within a client; three modes). The reduced Llama-3-8B, clients
+stepping on its row of the client's batch); ``pod`` 2 x ``model`` 2
+(TP within a client; three modes); and ``pod`` 2 x ``seq`` 2 (the JAX
+round's intra-client data axis: FSDP and rows over ``seq``, the sequence
+whole; three modes). The reduced Llama-3-8B, clients
 starting from different models, each with its own batch slice and uplink
 uniforms.
 
@@ -17,8 +19,8 @@ one quantization level away (a stochastic rounding whose input moved
 across its uniform by fp32 rounding): every element within one uplink
 level plus two downlink levels (and 1e-5 of itself), and at most 1 % of
 them off by more than 1e-5 of itself. Those runs must have issued the
-FSDP gathers and gradient reduce-scatters over ``data``, or the TP
-all-reduces over ``model``. The counter's bytes across the client axis
+FSDP gathers and gradient reduce-scatters over ``data`` (or ``seq``), or
+the TP all-reduces over ``model``. The counter's bytes across the client axis
 (tag ``"uplink"``) equal the formula: a client's fp32 payload is 4 Z
 bytes and its range 4; the wire's u8 indexes Z, its sign planes the rows
 x (last dim padded to 128) / 8 and its range 4 (Z: the elements of the
@@ -34,14 +36,21 @@ import torch
 
 from torch_replay import one_torch_thread, spawn_gloo  # noqa: F401  (autouse)
 
-MESHES = {"pod2": (2, 1, 1), "pod4": (4, 1, 1), "pod2_data2": (2, 2, 1), "pod2_model2": (2, 1, 2)}
+MESHES = {"pod2": (2, 1, 1), "pod4": (4, 1, 1), "pod2_data2": (2, 2, 1), "pod2_model2": (2, 1, 2),
+          "pod2_seq2": (2, 1, 2, 1)}       # (pod, data, model) or (pod, data, seq, model)
 MODES = [(wire, down, screen) for wire in (False, True) for down in ("off", "quant", "delta")
          for screen in (False, True)]
 TP_MODES = [(False, "off", False), (True, "off", False), (True, "quant", True)]
 
 
 def _modes(name):
-    return TP_MODES if name == "pod2_model2" else MODES
+    return TP_MODES if name in ("pod2_model2", "pod2_seq2") else MODES
+
+
+def _axes(shape) -> dict:
+    """The mesh's axis sizes by name."""
+    names = ("pod", "data", "model") if len(shape) == 3 else ("pod", "data", "seq", "model")
+    return dict(zip(names, shape))
 Q_BITS = {2: [4, 6], 4: [3, 5, 8, 12]}
 WEIGHTS = {2: [0.25, 0.75], 4: [0.1, 0.2, 0.3, 0.4]}
 
@@ -164,12 +173,13 @@ def _steps(mode, k, theta_max, want, start):
 
 
 @pytest.mark.parametrize("name,mode", [("pod2_data2", m) for m in MODES]
-                         + [("pod2_model2", m) for m in TP_MODES],
+                         + [("pod2_model2", m) for m in TP_MODES]
+                         + [("pod2_seq2", m) for m in TP_MODES],
                          ids=lambda v: v if isinstance(v, str) else _mode_id(v))
 def test_sharded_clients_within_one_level(runs, name, mode):
-    """``pod`` 2 x ``data`` 2 (FSDP within a client) and ``pod`` 2 x
-    ``model`` 2 (TP within a client) against the stacked round (module
-    docstring)."""
+    """``pod`` 2 x ``data`` 2 (FSDP within a client), ``pod`` 2 x ``model``
+    2 (TP within a client) and ``pod`` 2 x ``seq`` 2 (FSDP over ``seq``)
+    against the stacked round (module docstring)."""
     from repro_torch import tree as tree_util
 
     ranks, refs = runs
@@ -178,8 +188,8 @@ def test_sharded_clients_within_one_level(runs, name, mode):
     up, dl = _steps(mode, 2, want[2], tree_util.leaves(want[0]), tree_util.leaves(start))
     for r in range(4):
         got, _, coll = ranks[name, r][mode]
-        if name == "pod2_data2":
-            data = coll["data"]
+        if name in ("pod2_data2", "pod2_seq2"):
+            data = coll["data" if name == "pod2_data2" else "seq"]
             assert data["all-gather"]["count"] > 0 and data["reduce-scatter"]["count"] > 0, coll
         else:
             assert coll["model"]["all-reduce"]["count"] > 0, coll
@@ -216,15 +226,16 @@ def test_client_axis_bytes_and_wire_ratio(runs, name):
     from repro_torch.dist.sharding import param_specs
 
     ranks, _ = runs
-    k, n_data, n_model = MESHES[name]
+    sizes = _axes(MESHES[name])
+    k = sizes["pod"]
     _cfg, stacked, *_ = _inputs(k, corrupt=False)
     one = tree_util.map(lambda t: t[0], stacked)
-    plan = make_plan({"pod": k, "data": n_data, "model": n_model}, dp_override=("data",))
+    plan = make_plan(sizes, dp_override=tuple(a for a in ("data", "seq") if a in sizes))
     shards = []
     for t, spec in zip(tree_util.leaves(one), tree_util.leaves(param_specs(plan, one))):
         shards.append(tuple(n // plan.axis_size(spec[i] if i < len(spec) else None)
                             for i, n in enumerate(t.shape)))
-    for r in range(k * n_data * n_model):
+    for r in range(int(np.prod(MESHES[name]))):
         for mode in _modes(name):
             _got, nbytes, _ = ranks[name, r][mode]
             assert nbytes == k * _payload(shards, mode[0]), (mode, nbytes)

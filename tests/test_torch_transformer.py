@@ -301,7 +301,7 @@ def test_flash_dispatch_matches(window):
             tcfg, tmodel.params_from_numpy(lp["attn"], "cpu"), torch.from_numpy(x),
             causal=True, positions=torch.arange(2560))
     assert spy.call_count == 1
-    assert spy.call_args.kwargs == dict(causal=True, window=window)
+    assert spy.call_args.kwargs == dict(causal=True, window=window, q_offset=0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
