@@ -176,7 +176,21 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      run's gates (``--require-seq-sharded --require-flash``) on Llama-3-8B's
      prefill_32k at B = 1 as rank 0 of 1x1x4x1: both hold, the ring's
      seq-axis send/recv counted, 32 wgmma launches a pass; each gate's
-     negative control on the reduced Llama raises;
+     negative control on the reduced Llama raises; then sequence
+     parallelism on 1x1x4x1 under the fake group, every gated dry run
+     timed without its shape log (the gates' logged step apart): (f1)
+     Granite-3.0 1B-A400M's train_4k step with the seq gate, Zamba2-7B's
+     gate report; (f2)-(f4) the RWKV6-7B, Zamba2-7B and Granite
+     prefill_32k at B = 1 with the gates, the rings through wgmma; (f6)
+     SeamlessM4T-large-v2's prefill_32k: its encoder's non-causal ring
+     (144 send/recv, 96 wgmma launches a pass), the flash gate at 30,720
+     positions (32,768 / 4 = its d_ff, which the gate's rule would read as
+     a sequence dim) and the seq gate's report;
+     (f7) its train_4k step (batch 4) and the gate's report; (f5) one
+     full-width RWKV6-7B layer and Mamba2 block through ``LocalSeq(4)``
+     against one scan; the rings' step kernels (and the Seamless 32k
+     non-causal ring against one pass) timed early, beside the
+     local-heads rows;
  12. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
      checked shape's times; rows of their own for the local-heads shapes
@@ -2866,9 +2880,10 @@ def tp_gates() -> dict:
     """``launch.dryrun --require-seq-sharded --require-flash`` of
     Llama-3-8B's prefill_32k cut to B = 1 as rank 0 of a ``(pod, data,
     seq, model) = 1x1x4x1`` mesh under the fake group: both gates hold on
-    the timed pass's shape log, the ring's seq-axis send/recv are counted
-    (``ring_p2p``) and its wgmma launches (rank 0 of a causal ring: its
-    diagonal step, one a layer and a pass). Then each gate fails on
+    the gates' untimed pass under the shape log, the ring's seq-axis
+    send/recv are counted (``ring_p2p``) and its wgmma launches (rank 0 of
+    a causal ring: its diagonal step, one a layer and a pass; the warm-up,
+    the logged pass and one timed pass). Then each gate fails on
     purpose on the reduced Llama: ``--require-seq-sharded`` on a ``1x2``
     mesh, ``--require-flash`` at 512 positions (dense attention's
     scores). Returns the launches."""
@@ -2884,15 +2899,15 @@ def tp_gates() -> dict:
     n_layers = 32
     require(rec["seq_sharded_ok"] and rec["no_s2_scores_ok"], f"gates: {rec}")
     require(rec["ring_p2p"] > 0, "gates: no seq-axis send/recv counted")
-    require(launches["flash_attention_wgmma"] == 2 * n_layers
+    require(launches["flash_attention_wgmma"] == 3 * n_layers
             and launches["flash_attention_simt"] == 0,
-            f"gates: launches {launches}, want {2 * n_layers} through wgmma")
+            f"gates: launches {launches}, want {3 * n_layers} through wgmma")
     print(f"dry run {SERVE_ARCH} prefill_32k B=1, rank 0 of {GATE_MESH} (pod, data, seq, model; "
           f"fake group: values not held) --require-seq-sharded --require-flash: seq_sharded_ok "
           f"{rec['seq_sharded_ok']}, no_s2_scores_ok {rec['no_s2_scores_ok']}, ring_p2p "
-          f"{rec['ring_p2p']}; {rec['s_per_step']:.4f} s (shape log on), peak "
-          f"{rec['peak_gb']:.2f} GB, {launches['flash_attention_wgmma']} wgmma launches "
-          f"(warm-up + 1), 0 SIMT; collectives a pass {_coll_line(rec)}", flush=True)
+          f"{rec['ring_p2p']}; {_log_on_off(rec)} s a pass, peak {rec['peak_gb']:.2f} GB, "
+          f"{launches['flash_attention_wgmma']} wgmma launches (warm-up, logged, 1 timed), "
+          f"0 SIMT; collectives a pass {_coll_line(rec)}", flush=True)
     for argv, match in ((["--mesh-shape", "1x2", "--seq", "128", "--require-seq-sharded"],
                          "full-seq intermediates"),
                         (["--mesh-shape", "1x2", "--seq", "512", "--require-flash"],
@@ -2914,18 +2929,24 @@ def tp_gates() -> dict:
 
 SEQ_MESH = "1x1x4x1"          # (pod, data, seq, model): rank 0 of 4 seq ranks
 SEQ_ZAMBA2_TRAIN_MESH = "1x4x2x1"   # FSDP over 4 data ranks: Zamba2's fp32 state fits a card
-# each ring shape's diagonal step at rank 0 of SEQ_MESH for prefill_32k, B = 1:
-# name, arch, (H, KV, hd, window), wgmma launches a pass (one a layer's attention)
-SEQ_RINGS = (("flash_attention_wgmma_ring_hd112_window", ZAMBA2_ARCH, (32, 32, 112, 4096), 9),
-             ("flash_attention_wgmma_ring_hd64", GRANITE_ARCH, (16, 8, 64, 0), 24))
+# a ring step of each seq prefill_32k at rank 0 of SEQ_MESH, B = 1, 8,192
+# queries and keys: the causal rings' diagonal step (offsets 0), the
+# Seamless encoder's non-causal step from the shard before it (q_offset -
+# k_offset = 8,192; every step of its ring is visible). name, arch, (H, KV,
+# hd, window, causal, q_offset - k_offset), wgmma launches a pass on rank 0
+SEQ_RINGS = (("flash_attention_wgmma_ring_hd112_window", ZAMBA2_ARCH,
+              (32, 32, 112, 4096, True, 0), 9),
+             ("flash_attention_wgmma_ring_hd64", GRANITE_ARCH, (16, 8, 64, 0, True, 0), 24),
+             ("flash_attention_wgmma_ring_hd64_noncausal", SEAMLESS_ARCH,
+              (16, 16, 64, 0, False, 8192), 24 * RING_N))
 SEQ_RECURRENT_TOL = 1e-5      # of the largest magnitude: the fold against one scan, fp32
 
 
 def _log_on_off(rec: dict) -> str:
-    """A two-step dry run's timed steps: the first with the gates' shape
-    log on, the second without."""
-    on, off = rec["step_seconds"]
-    return f"{on:.4f} (shape log on) / {off:.4f} (off)"
+    """A gated dry run's time a step: the timed steps (no shape log), and
+    the gates' untimed step under the log, apart."""
+    return (f"{rec['s_per_step']:.4f} (no shape log; the gates' logged step "
+            f"{rec['shape_log_step_s']:.4f})")
 
 
 def _seq_line(rec: dict) -> str:
@@ -2948,7 +2969,7 @@ def seq_train_gates() -> None:
 
     _reset_all_launches()
     rec = dryrun.main(["--arch", GRANITE_ARCH, "--shape", "train_4k", "--mesh-shape", SEQ_MESH,
-                       "--batch", "4", "--steps", "2", "--require-seq-sharded"])
+                       "--batch", "4", "--steps", "1", "--require-seq-sharded"])
     launches = _all_launches()
     require(rec["seq_sharded_ok"], f"Granite train gate: {rec.get('full_seq_intermediates')}")
     seq = rec["collectives"].get("seq", {})
@@ -2981,7 +3002,7 @@ def seq_train_gates() -> None:
        "prefill_32k at B=1 as rank 0 of 1x1x4x1 under the fake group, with the gates")
 def seq_family_prefills() -> dict:
     """``launch.dryrun`` of each prefill_32k at B = 1 as rank 0 of
-    SEQ_MESH, warm-up + 2 timed passes (the first with the shape log): RWKV6-7B with
+    SEQ_MESH, warm-up, the gates' pass under the shape log and 1 timed pass: RWKV6-7B with
     ``--require-seq-sharded`` (no attention: its halos and state pairs are
     the seq all-gathers); Zamba2-7B and Granite with both gates, the ring
     (``ring_p2p`` > 0) through wgmma at hd 112 with window 4,096 and at hd
@@ -2994,11 +3015,11 @@ def seq_family_prefills() -> dict:
     for arch, flash in ((RWKV6_ARCH, False), (ZAMBA2_ARCH, True), (GRANITE_ARCH, True)):
         _reset_all_launches()
         rec = dryrun.main(["--arch", arch, "--shape", "prefill_32k", "--mesh-shape", SEQ_MESH,
-                           "--batch", "1", "--steps", "2", "--require-seq-sharded",
+                           "--batch", "1", "--steps", "1", "--require-seq-sharded",
                            *(["--require-flash"] if flash else [])])
         torch.cuda.synchronize()
         launches = _all_launches()
-        want = 3 * next((n for _r, a, _s, n in SEQ_RINGS if a == arch), 0)
+        want = 3 * next((n for _r, a, _s, n in SEQ_RINGS if a == arch), 0)   # 3 passes
         require(rec["seq_sharded_ok"], f"{arch} prefill: {rec.get('full_seq_intermediates')}")
         require(launches["flash_attention_wgmma"] == want and launches["flash_attention_simt"] == 0,
                 f"{arch} seq prefill: launches {launches}, want {want} through wgmma")
@@ -3014,7 +3035,8 @@ def seq_family_prefills() -> dict:
               + (f", no_s2_scores_ok {rec['no_s2_scores_ok']}, ring_p2p {rec['ring_p2p']}"
                  if flash else "")
               + f"; {_log_on_off(rec)} s a pass, peak {rec['peak_gb']:.2f} "
-              f"GB, {launches['flash_attention_wgmma']} wgmma launches (warm-up + 2), 0 SIMT; "
+              f"GB, {launches['flash_attention_wgmma']} wgmma launches (warm-up, logged, 1 "
+              f"timed), 0 SIMT; "
               f"seq collectives a pass: {_seq_line(rec)}", flush=True)
         if want:
             out[f"seq-parallel prefill_32k {arch} {SEQ_MESH}"] = launches["flash_attention_wgmma"]
@@ -3022,25 +3044,157 @@ def seq_family_prefills() -> dict:
     return out
 
 
-@phase("sequence parallelism (f3, f4 kernels): the wgmma kernel at the seq rings' diagonal "
-       "step shapes vs plain")
+SEAMLESS_LAYERS = 24           # encoder and decoder layers of SeamlessM4T-large-v2
+
+
+def _seq_gate_report(label: str, argv: list, tensor: str) -> None:
+    """``launch.dryrun`` with ``--require-seq-sharded`` where the JAX
+    package's step fails the gate too: the gate must fail (the port's
+    verdict equal to JAX's), among its offenders ``tensor`` (the shape
+    label of what both packages hold whole; other offenders may be
+    flattened dims that merely equal S, the rule's numeric caveat). Its
+    report is printed."""
+    from repro_torch.launch import dryrun
+
+    try:
+        dryrun.main([*argv, "--require-seq-sharded"])
+    except AssertionError as e:
+        shapes = [o["shape"] for o in e.offenders]
+        require(tensor in shapes, f"{label}: no {tensor} among the offenders: {e}")
+        print(f"{label} --require-seq-sharded: fails, as the JAX package's step does, "
+              f"{shapes.count(tensor)} of its {len(shapes)} offenders {tensor}: "
+              f"{str(e)[:600]}", flush=True)
+        return
+    raise SmokeFailure(f"{label}: the seq gate held where the JAX package's step fails it")
+
+
+# the flash gate's rule (the JAX package's) counts a dim as carrying the
+# sequence when it is a multiple of the per-rank length: at 32,768 / 4 =
+# 8,192 = Seamless's d_ff it reads the SwiGLU hidden (8192, 8192) as scores.
+# The gate runs where no such collision is, 7,680 positions a rank (15 of
+# its 512-position chunks); the path and its kernels run at 32,768
+SEAMLESS_GATE_SEQ = 30_720
+
+
+@phase("sequence parallelism (f6): SeamlessM4T-large-v2 prefill_32k at B=1 as rank 0 of "
+       "1x1x4x1 under the fake group: the encoder's non-causal ring; the gates")
+def seq_seamless_prefill() -> dict:
+    """``launch.dryrun`` of Seamless's prefill_32k at B = 1 as rank 0 of
+    SEQ_MESH: the encoder runs its 8,192 source positions through the
+    non-causal ring (every step visible: 4 wgmma launches a layer on rank
+    0, none through SIMT; 24 layers x 3 rotations x (k, v) send/recv); the
+    encoder memory is all-gathered over ``seq`` once a pass, so every rank
+    builds the whole cross k/v, and the BOS step runs whole. Then
+    ``--require-flash`` at SEAMLESS_GATE_SEQ positions (no O(S²) scores,
+    ``ring_p2p`` the same), and the seq gate at 32,768, which the JAX
+    package's prefill fails too (``tests/test_torch_dryrun.py``): its
+    report. Returns the ring's launches in the first run."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    argv = ["--arch", SEAMLESS_ARCH, "--shape", "prefill_32k", "--mesh-shape", SEQ_MESH,
+            "--batch", "1", "--steps", "1"]
+    p2p = SEAMLESS_LAYERS * (RING_N - 1) * 2
+    per_pass = next(n for _r, a, _s, n in SEQ_RINGS if a == SEAMLESS_ARCH)
+    _reset_all_launches()
+    rec = dryrun.main(argv)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    seq = rec["collectives"].get("seq", {})
+    require(launches["flash_attention_wgmma"] == 2 * per_pass
+            and launches["flash_attention_simt"] == 0,
+            f"Seamless seq prefill: launches {launches}, want {per_pass} a pass (warm-up and 1 "
+            "timed) through wgmma")
+    require(seq.get("send/recv", {}).get("count") == p2p,
+            f"Seamless seq prefill: seq send/recv {seq.get('send/recv')}, want {p2p}")
+    require(seq.get("all-gather", {}).get("count", 0) == 1,
+            f"Seamless seq prefill: want one seq all-gather (the memory): {seq}")
+    require(rec["collectives_same_each_step"], "Seamless prefill: passes differ in collectives")
+    print(f"dry run {SEAMLESS_ARCH} prefill_32k B=1, rank 0 of {SEQ_MESH} (fake group: values not "
+          f"held): {rec['s_per_step']:.4f} s a pass (no shape log), peak {rec['peak_gb']:.2f} GB, "
+          f"{launches['flash_attention_wgmma']} wgmma launches ({per_pass} a pass: warm-up and "
+          f"1 timed), 0 SIMT; seq collectives a pass: {_seq_line(rec)}", flush=True)
+    _release()
+    gated = dryrun.main([*argv, "--seq", str(SEAMLESS_GATE_SEQ), "--require-flash"])
+    require(gated["no_s2_scores_ok"] and gated["ring_p2p"] == p2p,
+            f"Seamless seq prefill at {SEAMLESS_GATE_SEQ}: flash gate "
+            f"{gated.get('s2_offenders')}, ring_p2p {gated.get('ring_p2p')}, want {p2p}")
+    print(f"dry run {SEAMLESS_ARCH} prefill_32k cut to {SEAMLESS_GATE_SEQ} positions, B=1, rank 0 "
+          f"of {SEQ_MESH} --require-flash: no_s2_scores_ok {gated['no_s2_scores_ok']}, ring_p2p "
+          f"{gated['ring_p2p']}; {_log_on_off(gated)} s a pass", flush=True)
+    _release()
+    # each layer's cross k/v over the whole memory (the cache seq never cuts)
+    _seq_gate_report(f"dry run {SEAMLESS_ARCH} prefill_32k B=1 on {SEQ_MESH}", argv,
+                     "bfloat16[1,32768,16,64]")
+    _release()
+    return {f"seq-parallel prefill_32k {SEAMLESS_ARCH} {SEQ_MESH}":
+            launches["flash_attention_wgmma"]}
+
+
+@phase("sequence parallelism (f7): SeamlessM4T-large-v2 train_4k (batch 4) as rank 0 of "
+       "1x1x4x1 under the fake group")
+def seq_seamless_train() -> None:
+    """``launch.dryrun`` of Seamless's train step on a ``seq`` axis of 4:
+    rank 0 keeps 1,024 of the 4,096 source frames and 128 of the 512
+    target tokens; the encoder's K/V and its memory are gathered over
+    ``seq`` (reduce-scatter backward). A finite loss, the same collectives
+    in every step; s/step, peak and the seq collectives by kind. Then the
+    seq gate: the JAX package's step fails it too (its verdict on the CPU,
+    ``tests/test_torch_dryrun.py``), so it must fail here; its report."""
+    import math
+
+    from repro_torch.launch import dryrun
+
+    argv = ["--arch", SEAMLESS_ARCH, "--shape", "train_4k", "--mesh-shape", SEQ_MESH,
+            "--batch", "4", "--steps", "1"]
+    _reset_all_launches()
+    rec = dryrun.main(argv)
+    launches = _all_launches()
+    require(math.isfinite(rec["loss_not_held"]), f"Seamless seq train: loss {rec['loss_not_held']}")
+    require(rec["collectives_same_each_step"], "Seamless: warm-up and timed collectives differ")
+    seq = rec["collectives"].get("seq", {})
+    require(seq.get("all-gather", {}).get("count", 0) > 0
+            and seq.get("reduce-scatter", {}).get("count", 0) > 0,
+            f"Seamless seq-parallel step: seq collectives {seq}")
+    require(not any(launches.values()), f"the Seamless train step launched kernels: {launches}")
+    print(f"dry run {SEAMLESS_ARCH} train_4k (global batch cut to 4), rank 0 of {SEQ_MESH} (fake "
+          f"group: values not held): loss {rec['loss_not_held']:.4f} (finite); "
+          f"{rec['s_per_step']:.4f} s/step (no shape log), peak {rec['peak_gb']:.2f} GB, "
+          f"forward/backward peak {rec['fwd_bwd_peak_gb']:.2f} GB; seq collectives a step: "
+          f"{_seq_line(rec)}; all {_coll_line(rec)}", flush=True)
+    _release()
+    # the encoder memory gathered over seq (B, S_src, d)
+    _seq_gate_report(f"dry run {SEAMLESS_ARCH} train_4k (batch 4) on {SEQ_MESH}", argv,
+                     "bfloat16[4,4096,1024]")
+    _release()
+
+
+@phase("sequence parallelism (f3, f4, f6 kernels): the wgmma kernel at the seq rings' step "
+       "shapes vs plain; the Seamless encoder's 32k non-causal ring vs one pass")
 def seq_ring_kernels(report: dict) -> None:
-    """Each SEQ_RINGS shape: rank 0's diagonal ring step of the 32k
-    prefill (B = 1, 8,192 queries and keys, both at offset 0, bf16, the
-    fp32 partial with its lse), through the wgmma route, against the plain
-    version within FLASH_TOL; kernel time, bound and SDPA's time. Adds the
-    rows SEQ_RINGS names; their launches come from (f3) and (f4). Timed
-    beside the local-heads rows, early in the run: a profiler trace late
-    in the full run has come back without the kernel's device activity."""
+    """Each SEQ_RINGS shape: a ring step of rank 0 in the 32k prefill
+    (B = 1, 8,192 queries and keys, bf16, the fp32 partial with its lse),
+    through the wgmma route, against the plain version within FLASH_TOL;
+    kernel time, bound and SDPA's time (the causal steps' masks as the
+    kernel's; the non-causal step without a mask). Seamless's non-causal
+    step passes no offset to the kernel (its mask reads no position): it is
+    held bit-identical to the same step through the ``OFFSET``
+    instantiation, and both are timed. Then the whole non-causal ring at
+    32,768 positions through ``LocalRing(4)`` against one wgmma pass
+    within FLASH_TOL["bfloat16"]. Adds the rows SEQ_RINGS names; their
+    launches come from (f3), (f4) and (f6). Timed beside the local-heads
+    rows, early in the run: a profiler trace late in the full run has come
+    back without the kernel's device activity."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(25)
     b, s = 1, 8192
-    for name, arch, (h, kv, hd, window), _n in SEQ_RINGS:
+    for name, arch, (h, kv, hd, window, causal, off), _n in SEQ_RINGS:
         q, k, v = ((0.3 * torch.randn((b, s, heads, hd), generator=gen, device="cuda"))
                    .to(torch.bfloat16) for heads in (h, kv, kv))
-        kw = dict(causal=True, window=window, with_lse=True, out_fp32=True, q_offset=0,
+        kw = dict(causal=causal, window=window, with_lse=True, out_fp32=True, q_offset=off,
                   k_offset=0)
 
         def run():
@@ -3053,21 +3207,82 @@ def seq_ring_kernels(report: dict) -> None:
         want, want_lse = fa.flash_attention_plain(q, k, v, **kw)
         err = _out_error(name, out, want)
         require(bool(torch.isfinite(lse).all()), f"{name}: non-finite lse")
-        pairs = visible_pairs(s, s, True, window)
+        pairs = visible_pairs(s, s, causal, window, off)
         b_ms, b_by = bound((q.numel() + 2 * k.numel()) * 2 + out.numel() * 4 + lse.numel() * 4,
                            4.0 * b * h * hd * pairs, BF16_FLOPS)
         k_ms = kernel_ms(run, "flash_fwd_wgmma_kernel", iters=10)
         p_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 2, warmup=1)
-        lib_ms = cuda_ms(_sdpa(q, k, v, True, window), 20)
-        print(f"{name} ({arch}'s ring, rank 0's diagonal step): B={b} S=T={s} H={h}/{kv} "
-              f"hd={hd} causal{f' window {window}' if window else ''} bf16, fp32 partial "
-              f"(wgmma): max_abs_err={err:.3e}; kernel {k_ms:.3f} ms (profiler), bound "
-              f"{b_ms:.3f} ms ({b_by}), plain {p_ms:.3f} ms (events), "
-              f"scaled_dot_product_attention {lib_ms:.3f} ms (events)", flush=True)
+        lib_ms = cuda_ms(_sdpa(q, k, v, causal, window), 20)
+        extra = ""
+        if off and not causal and not window:
+            def offset_run():                 # the same step through the OFFSET instantiation
+                return fa._launch(q, k, v, causal=False, window=0, off=off, with_lse=True,
+                                  out_fp32=True)
+
+            out_o, lse_o = offset_run()
+            require(torch.equal(out_o, out) and torch.equal(lse_o, lse),
+                    f"{name}: the OFFSET instantiation's step is not bit-identical")
+            off_ms = kernel_ms(offset_run, "flash_fwd_wgmma_kernel", iters=10)
+            extra = (f"; through the OFFSET instantiation (offset {off}) bit-identical, "
+                     f"{off_ms:.3f} ms (profiler)")
+        print(f"{name} ({arch}'s ring, rank 0's step at offset {off}): B={b} S=T={s} H={h}/{kv} "
+              f"hd={hd} {'causal' if causal else 'non-causal'}"
+              f"{f' window {window}' if window else ''} bf16, fp32 partial (wgmma): "
+              f"max_abs_err={err:.3e}; kernel {k_ms:.3f} ms (profiler), bound {b_ms:.3f} ms "
+              f"({b_by}, {pairs} visible pairs), plain {p_ms:.3f} ms (events), "
+              f"scaled_dot_product_attention{'' if causal else ' without a mask'} "
+              f"{lib_ms:.3f} ms (events){extra}", flush=True)
         report[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                             library_ms=lib_ms)
         del q, k, v, out, lse, want, want_lse
+    _seamless_ring_32k(report)
     torch.cuda.empty_cache()
+
+
+def _seamless_ring_32k(report: dict) -> None:
+    """The Seamless encoder's attention at prefill_32k (B = 1, H = KV = 16,
+    hd 64, non-causal) as ``LocalRing(4)`` against one wgmma pass over the
+    32,768 positions, within FLASH_TOL["bfloat16"] (each against the plain
+    version too): all 16 steps visible and launched. Times: the ring's
+    kernels summed, the single pass."""
+    import torch
+    from repro_torch.dist.ring import LocalRing, ring_flash_attention
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q, k, v = ((0.3 * torch.randn((1, RING_SEQ, 16, 64), generator=gen, device="cuda"))
+               .to(torch.bfloat16) for _ in range(3))
+    single = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    single_err = _out_error(f"Seamless single pass S={RING_SEQ}", single, want)
+    ring = LocalRing(RING_N)
+    _reset_all_launches()
+    got = ring_flash_attention(q, k, v, ring=ring, causal=False)
+    torch.cuda.synchronize()
+    launches = _all_launches()
+    require(launches["flash_attention_wgmma"] == RING_N * RING_N
+            and launches["flash_attention"] == RING_N * RING_N,
+            f"Seamless ring: launches {launches}, want {RING_N * RING_N} through wgmma")
+    rtol, atol = FLASH_TOL["bfloat16"]
+    err = (got.float() - single.float()).abs()
+    require(bool((err <= atol + rtol * single.float().abs()).all()),
+            f"Seamless ring: max abs err {err.max().item():.3e} against the single pass")
+    ring_err = _out_error(f"Seamless ring S={RING_SEQ}", got, want)
+    call = lambda: ring_flash_attention(q, k, v, ring=ring, causal=False)
+    ring_ms = kernel_ms(call, "flash_fwd_wgmma_kernel", iters=2) * RING_N * RING_N
+    single_ms = kernel_ms(lambda: fa.flash_attention(q, k, v, causal=False),
+                          "flash_fwd_wgmma_kernel", iters=3)
+    print(f"ring {SEAMLESS_ARCH} encoder B=1 S={RING_SEQ} H=KV=16 hd=64 non-causal, "
+          f"LocalRing({RING_N}): {RING_N * RING_N} wgmma launches (every step visible); max abs "
+          f"err vs the plain version: single pass {single_err:.3e}, ring {ring_err:.3e}; ring vs "
+          f"the single pass {err.max().item():.3e} (tol rtol {rtol:g} atol {atol:g}); ring "
+          f"kernels summed {ring_ms:.3f} ms (profiler), single pass {single_ms:.3f} ms "
+          f"(profiler), ratio {ring_ms / single_ms:.3f}", flush=True)
+    shapes = report.setdefault("flash_attention_wgmma", {}).setdefault("shapes", {})
+    shapes[f"{SEAMLESS_ARCH} S={RING_SEQ} non-causal ring of {RING_N}"] = dict(
+        max_abs_err=ring_err, max_abs_err_vs_single_pass=err.max().item(), ms=ring_ms,
+        single_pass_ms=single_ms, launches=RING_N * RING_N)
+    del q, k, v, single, got, want
 
 
 @phase("sequence parallelism (f5): one full-width RWKV6-7B layer and one Zamba2-7B Mamba2 "
@@ -3468,6 +3683,8 @@ def main() -> int:
     dry_launches.update(tp_gates())
     seq_train_gates()
     seq_launches = seq_family_prefills()
+    seq_launches.update(seq_seamless_prefill())
+    seq_seamless_train()
     seq_local_fold()
 
     wgmma_rows = ("flash_attention_wgmma", "flash_attention_wgmma_ring_heads_on_model",

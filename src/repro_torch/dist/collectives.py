@@ -35,7 +35,9 @@ forward needs a backward:
     (``dist.ring.GroupRing``), the sequence-parallel prefill and the
     client-sharded fleet.
 
-Each call records into every open :class:`CollectiveCounter`: the kind
+Every buffer a collective writes into comes from :func:`recv_buffer`
+(zeros under torch's fake process group, which moves no data). Each call
+records into every open :class:`CollectiveCounter`: the kind
 (``all-gather``, ``reduce-scatter``, ``all-reduce``, ``broadcast``,
 ``send/recv``), the mesh axis, the dtype, the bytes and the group size.
 Bytes follow ``hlo_analysis._result_bytes``: the op's *result* bytes (an
@@ -128,11 +130,21 @@ def _record(kind: str, axis: str, result: torch.Tensor, group_size: int, tag: st
 
 # ------------------------------------------------------------ raw ops
 
+def recv_buffer(like: torch.Tensor, shape, group) -> torch.Tensor:
+    """The buffer a collective over ``group`` writes into, of ``like``'s
+    dtype and device: uninitialized, or zeros under torch's fake process
+    group, which moves no data (a dry run's rank then reads zeros for the
+    other ranks' parts, not whatever memory the allocator handed back)."""
+    if dist.get_backend(group) == "fake":
+        return like.new_zeros(shape)
+    return like.new_empty(shape)
+
+
 def _ag(x: torch.Tensor, group, axis: str, dim: int, tag: str = "") -> torch.Tensor:
     """All-gather x's blocks along ``dim`` in group-rank order."""
     n = dist.get_world_size(group)
     x = x.contiguous()
-    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    out = recv_buffer(x, (n * x.shape[0],) + tuple(x.shape[1:]), group)
     with warnings.catch_warnings():   # deprecated in some torch versions, in all of them
         warnings.simplefilter("ignore", FutureWarning)
         dist.all_gather_into_tensor(out, x, group=group)
@@ -146,7 +158,7 @@ def _rs(g: torch.Tensor, group, axis: str, dim: int) -> torch.Tensor:
     """Reduce-scatter (sum) of g along ``dim``: the rank's block of the sum."""
     n = dist.get_world_size(group)
     parts = torch.stack(torch.chunk(g, n, dim=dim))
-    out = g.new_empty(parts.shape[1:])
+    out = recv_buffer(g, parts.shape[1:], group)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         dist.reduce_scatter_tensor(out, parts.reshape((-1,) + tuple(out.shape[1:])), group=group)
@@ -344,8 +356,7 @@ def all_gather(x: torch.Tensor, group, axis: str, dim: int) -> torch.Tensor:
     """Every rank's x over ``group``, concatenated along ``dim``."""
     if dist.get_world_size(group) == 1:
         return x
-    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-             for _ in range(dist.get_world_size(group))]
+    parts = [recv_buffer(x, x.shape, group) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     out = torch.cat(parts, dim=dim)
     _record("all-gather", axis, out, len(parts))

@@ -90,8 +90,7 @@ class GroupRing:
         1's, in one batch; every request is waited on before returning."""
         idx, n = self.ranks[0], self.n
         dst, src = self._global((idx + 1) % n), self._global((idx - 1) % n)
-        k_in, v_in = (torch.empty_like(x[0], memory_format=torch.contiguous_format)
-                      for x in (ks, vs))
+        k_in, v_in = (collectives.recv_buffer(x[0], x[0].shape, self.group) for x in (ks, vs))
         collectives.send_recv([ks[0].contiguous(), vs[0].contiguous()], [k_in, v_in], dst, src,
                               self.group, self.axis)
         return [k_in], [v_in]

@@ -361,8 +361,9 @@ def flash_attention(
     the card (fp32 or bf16, hd <= 128; anything else raises), the plain
     version for tensors on the CPU. ``q_offset``/``k_offset`` (Python ints)
     place queries and keys at global positions; the kernels take their
-    difference. ``out_fp32`` writes ``out`` in fp32. Forward only: under
-    grad it raises (``build.refuse_grad``) on every device."""
+    difference (none for a non-causal call without a window, whose mask
+    reads no position). ``out_fp32`` writes ``out`` in fp32. Forward only:
+    under grad it raises (``build.refuse_grad``) on every device."""
     build.refuse_grad("flash_attention", FLASH_GRAD_ROUTE, q, k, v)
     _check_shapes(q, k, v, window)
     _check_offsets(q, k, window, q_offset, k_offset)
@@ -370,9 +371,20 @@ def flash_attention(
         return flash_attention_plain(q, k, v, causal=causal, window=window, with_lse=with_lse,
                                      q_offset=q_offset, k_offset=k_offset, out_fp32=out_fp32)
     _check_kernel_inputs(q, k, v)
+    # a non-causal, windowless mask reads no position: the instantiation
+    # without the offset runs, as for offsets that cancel
+    off = q_offset - k_offset if causal or window else 0
+    return _launch(q, k, v, causal=causal, window=window, off=off, with_lse=with_lse,
+                   out_fp32=out_fp32)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, window: int,
+            off: int, with_lse: bool, out_fp32: bool):
+    """One kernel launch on checked CUDA tensors, query row 0 ``off``
+    positions after key 0 (a nonzero ``off`` runs the kernels' ``OFFSET``
+    instantiation), counted in :data:`launches`."""
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
-    off = q_offset - k_offset
     out = torch.empty((b, s, h, hd), dtype=torch.float32 if out_fp32 else q.dtype,
                       device=q.device)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device) if with_lse else None

@@ -17,7 +17,8 @@ axis, result bytes).
 
 The step goes through the normal entry points: ``dist.placement.
 init_params_local`` places rank 0's shards (fp32 masters for a train
-shape), then 1 warm-up and ``--steps`` timed steps of
+shape), then 1 warm-up, the gates' step when a gate is asked for, and
+``--steps`` timed steps of
 ``launch.steps.make_train_step(..., mesh=)`` with adamw and full remat on
 the global batch (``--batch`` cuts the shape's; on a ``seq`` axis above 1
 each rank keeps S / n positions), or, for a prefill shape,
@@ -29,11 +30,13 @@ The record (one JSON line) holds the mesh, the per-rank parameter,
 gradient (as the optimizer update receives it) and optimizer bytes, the
 peak device memory (``torch.cuda.max_memory_allocated``, not measured on
 the CPU: ``peak_gb`` over the run, ``fwd_bwd_peak_gb`` from a step's start
-to its optimizer update: forward, backward and the clip), s/step, the
-counter's bytes and counts by axis and kind for one step, the analytic
-count the port's code implies for that step (:func:`analytic_collectives`,
-dense family, train), whether every step issued the same collectives
-(the warm-up's included), and the three roofline terms with the H100's
+to its optimizer update: forward, backward and the clip), s/step of the
+timed steps (``s_per_step``, ``step_seconds``), the gates' step's seconds
+apart (``shape_log_step_s``), the counter's bytes and counts by axis and
+kind for one timed step, the analytic count the port's code implies for
+that step (:func:`analytic_collectives`, dense family, train), whether
+every step issued the same collectives (the warm-up's and the gates'
+included), and the three roofline terms with the H100's
 constants (the collective term from :func:`wire_bytes`). On a ``seq`` axis
 the counts hold its all-gathers (K and V in training, the recurrent
 families' halos and state pairs), reduce-scatters (their backward),
@@ -42,8 +45,11 @@ send/recv by kind; the analytic count stays the dense family's on
 ``{data, model}``. Without
 ``fake_pg`` it raises: there is no other route.
 
-Two gates, with the JAX dry run's names and meanings, read the shapes the
-first timed step materializes on the rank (``dist.shape_log``):
+Two gates, with the JAX dry run's names and meanings, read the shapes one
+step materializes on the rank (``dist.shape_log``) and its collectives.
+That step runs after the warm-up, untimed and alone under the log (the
+log's dispatch slows the step it logs), so no timed step runs
+under it:
 
   * ``--require-seq-sharded``: no per-rank tensor of 2 B_loc S d_model
     bytes or more still carries the full sequence length (records
@@ -54,7 +60,8 @@ first timed step materializes on the rank (``dist.shape_log``):
     must have run: seq-axis send/recv in the counter (``ring_p2p``, the
     counterpart of JAX's collective-permute count).
 
-A gate that fails raises ``AssertionError``, as the JAX dry run's does.
+A gate that fails raises ``AssertionError``, as the JAX dry run's does
+(the seq gate's carries every offender as ``offenders``).
 """
 from __future__ import annotations
 
@@ -256,7 +263,7 @@ def _inputs(cfg, shape, kind: str, gen: torch.Generator, dev: torch.device) -> d
 
 def _gates(cfg, sizes: dict, b: int, s: int, log, counter, *, seq_sharded: bool,
            flash: bool) -> dict:
-    """The two gates on the first timed step's shape log and collectives
+    """The two gates on the gates' step's shape log and collectives
     (module docstring); raises ``AssertionError`` where one fails."""
     from repro_torch.dist.shape_log import full_length_intermediates, no_s2_scores
 
@@ -268,8 +275,10 @@ def _gates(cfg, sizes: dict, b: int, s: int, log, counter, *, seq_sharded: bool,
         offenders = full_length_intermediates(log.entries, s, min_bytes=min_bytes)
         gates.update(seq_sharded_ok=not offenders, full_seq_intermediates=offenders[:10])
         if offenders:
-            raise AssertionError(f"{len(offenders)} full-seq intermediates >= {min_bytes}B on a "
+            err = AssertionError(f"{len(offenders)} full-seq intermediates >= {min_bytes}B on a "
                                  f"seq={seq_sh} mesh; top: {offenders[:3]}")
+            err.offenders = offenders          # every one, for a caller that compares them
+            raise err
     if flash:
         offenders = no_s2_scores(log.entries, s, shards=seq_sh)
         p2p = sum(1 for r in counter.log if r.kind == "send/recv" and r.axis == "seq")
@@ -336,63 +345,69 @@ def main(argv: Optional[Sequence[str]] = None,
         gen = torch.Generator(device=dev).manual_seed(SEED)
         batch = _inputs(cfg, shape, kind, gen, dev)
         logging = args.require_seq_sharded or args.require_flash
-        log = ShapeLog()
         peaks = _Peaks(dev)
         record = {"arch": args.arch, "shape": args.shape, "kind": kind,
                   "mesh": mesh_label(mesh), "axes": list(mesh.mesh_dim_names),
-                  "world": world, "rank": 0, "batch": b, "seq": s, "note": NOT_HELD}
+                  "world": world, "rank": 0, "batch": b, "seq": s, "note": NOT_HELD,
+                  "shape_log_step_s": None}
         if kind == "train":
             from repro_torch.launch.steps import make_train_step
             from repro_torch.optim import adamw
 
             plan = make_plan(mesh)
-            params = init_params_local(cfg, plan, SEED, device=dev,
-                                       param_dtype=torch.float32)
+            held = {"params": init_params_local(cfg, plan, SEED, device=dev,
+                                                param_dtype=torch.float32)}
             opt = adamw(3e-4)
-            state = opt.init(params)
+            held["state"] = opt.init(held["params"])
             probe: dict = {}
-            step = make_train_step(cfg, _probed(opt, peaks, probe), mesh=mesh)
-            with CollectiveCounter() as warm:
-                params, state, _ = step(params, state, batch)        # warm-up
-            counters = []
-            times = []
-            for i in range(args.steps):
-                _sync(dev)
-                peaks.read()
-                t0 = time.perf_counter()
-                with CollectiveCounter() as c, _logging(log, logging and i == 0):
-                    params, state, metrics = step(params, state, batch)
-                    _sync(dev)
-                times.append(time.perf_counter() - t0)
-                counters.append(c)
-            record.update(param_bytes=_nbytes(params), grad_bytes=probe["grad_bytes"],
-                          opt_bytes=_nbytes(state), loss_not_held=float(metrics["loss"]),
-                          fwd_bwd_peak_gb=peaks.gb(peaks.fwd_bwd))
-            if cfg.family == "dense" and set(sizes) <= {"data", "model"}:
-                record["analytic_collectives"] = analytic_collectives(cfg, sizes, b, s)
+            train_step = make_train_step(cfg, _probed(opt, peaks, probe), mesh=mesh)
+
+            def step():
+                held["params"], held["state"], held["metrics"] = train_step(
+                    held["params"], held["state"], batch)
+            scope = contextlib.nullcontext()
         else:
             from repro_torch.models import decode
 
             cfg = dataclasses.replace(cfg, attn_impl="flash")
             plan = make_plan(mesh, mode="serve")
-            params = init_params_local(cfg, plan, SEED, device=dev)
-            times, counters = [], []
-            with activation_mesh(plan):
-                with CollectiveCounter() as warm:
-                    decode.prefill(cfg, params, batch, s)                  # warm-up
-                for i in range(args.steps):
+            held = {"params": init_params_local(cfg, plan, SEED, device=dev)}
+
+            def step():
+                decode.prefill(cfg, held["params"], batch, s)
+            scope = activation_mesh(plan)
+        with scope:
+            with CollectiveCounter() as warm:
+                step()                                                  # warm-up
+            signatures = [warm.signature()]
+            if logging:       # the gates' step: untimed, alone under the shape log
+                _sync(dev)
+                t0 = time.perf_counter()
+                with CollectiveCounter() as logged, ShapeLog() as log:
+                    step()
                     _sync(dev)
-                    t0 = time.perf_counter()
-                    with CollectiveCounter() as c, _logging(log, logging and i == 0):
-                        decode.prefill(cfg, params, batch, s)
-                        _sync(dev)
-                    times.append(time.perf_counter() - t0)
-                    counters.append(c)
-            record.update(param_bytes=_nbytes(params))
-        if logging:
-            record.update(_gates(cfg, sizes, b, s, log, counters[0],
-                                 seq_sharded=args.require_seq_sharded,
-                                 flash=args.require_flash))
+                record["shape_log_step_s"] = time.perf_counter() - t0
+                signatures.append(logged.signature())
+                record.update(_gates(cfg, sizes, b, s, log, logged,
+                                     seq_sharded=args.require_seq_sharded,
+                                     flash=args.require_flash))
+            counters, times = [], []
+            for _ in range(args.steps):
+                _sync(dev)
+                peaks.read()
+                t0 = time.perf_counter()
+                with CollectiveCounter() as c:
+                    step()
+                    _sync(dev)
+                times.append(time.perf_counter() - t0)
+                counters.append(c)
+        record.update(param_bytes=_nbytes(held["params"]))
+        if kind == "train":
+            record.update(grad_bytes=probe["grad_bytes"], opt_bytes=_nbytes(held["state"]),
+                          loss_not_held=float(held["metrics"]["loss"]),
+                          fwd_bwd_peak_gb=peaks.gb(peaks.fwd_bwd))
+            if cfg.family == "dense" and set(sizes) <= {"data", "model"}:
+                record["analytic_collectives"] = analytic_collectives(cfg, sizes, b, s)
         ana = analytic_record(cfg, shape, kind, world,
                               dp_size=sizes.get("data", 1) * sizes.get("pod", 1))
         peaks.read()
@@ -400,8 +415,8 @@ def main(argv: Optional[Sequence[str]] = None,
             s_per_step=sum(times) / len(times), step_seconds=times,
             peak_gb=peaks.gb(peaks.all),
             collectives=counters[0].totals(),
-            collectives_same_each_step=all(c.signature() == warm.signature()
-                                           for c in counters),
+            collectives_same_each_step=all(sig == signatures[0] for sig in
+                                           signatures + [c.signature() for c in counters]),
             compute_term_s=ana["analytic_flops_per_device"] / PEAK_FLOPS,
             memory_term_s=ana["analytic_bytes_per_device"] / HBM_BW,
             collective_term_s=wire_bytes(counters[0].log) / NVLINK_BW,
@@ -410,11 +425,6 @@ def main(argv: Optional[Sequence[str]] = None,
         dist.destroy_process_group()
     print(json.dumps(record), flush=True)
     return record
-
-
-def _logging(log, on: bool):
-    """``log`` open around a step when ``on``, else nothing."""
-    return log if on else contextlib.nullcontext()
 
 
 def _sync(dev: torch.device) -> None:

@@ -21,13 +21,16 @@ time with absolute positions, so ring overwrites need no re-rotation. The
 vlm family's positions count its patch tokens first.
 
 Under a sequence-parallel plan (``models.model``'s docstring) the
-:func:`prefill` of every family but encdec runs each rank's shard of the
-context and leaves every rank with the whole cache (its positions are
-never sharded, as the JAX package's ``cache_seq`` rule says): each
-layer's k/v ring takes the context's last positions from the seq group
-(broadcast from the last rank where its shard holds them all, else
-gathered), the recurrent states and carries and the last logits come
-from the last seq rank, and decoding runs replicated.
+:func:`prefill` of every family runs each rank's shard of the context and
+leaves every rank with the whole cache (its positions are never sharded,
+as the JAX package's ``cache_seq`` rule says): each layer's k/v ring
+takes the context's last positions from the seq group (broadcast from the
+last rank where its shard holds them all, else gathered), the recurrent
+states and carries and the last logits come from the last seq rank, and
+decoding runs replicated. The encdec family's :func:`encode` runs the
+source's shard through the ring and gathers the encoder memory over
+``seq`` once, so every rank builds the whole cross k/v; its BOS step runs
+whole on every rank.
 
 Under a tensor-parallel serve plan (``make_plan(mesh, mode="serve")``,
 ``params`` placed as DTensors) each rank runs its heads, SwiGLU columns,
@@ -55,9 +58,9 @@ from repro_torch.dist import collectives, parallel
 from repro_torch.models import layers, mamba2, rwkv6
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
-    _SEQ_SHARD, Params, _cross_attention, _forward_encoder, _holding, _mamba_block,
-    _merge_heads, _positions, _proj_heads, _rwkv_block, _self_attention, _shared_attn_block,
-    attention_mode, cross_memory, embed_inputs, embed_table, expand_local_kv, ffn,
+    _SEQ_SHARD, Params, _cross_attention, _holding, _mamba_block, _merge_heads, _positions,
+    _proj_heads, _rwkv_block, _self_attention, _shared_attn_block, attention_mode,
+    cross_memory, embed_inputs, embed_table, encode_memory, expand_local_kv, ffn,
     final_norm, from_last_shard, head_table, layer_params, mlp, rwkv_heads, rwkv_state,
     seq_shard, shared_window, tail_of_sequence,
 )
@@ -136,14 +139,17 @@ def encode(cfg: ModelConfig, params: Params, cache: Cache, src_embeds: torch.Ten
     """The encdec family's encoder side: the encoder over ``src_embeds``
     (B, S_src, D), then each decoder layer's cross-attention k/v of its
     output, written into ``cache["mem_k"]``/``cache["mem_v"]`` (the cache,
-    returned)."""
+    returned). Under a sequence-parallel plan that cuts the source, each
+    rank runs its shard (the ring, non-causal) and the memory is gathered
+    over ``seq`` once: every rank leaves with the whole cross k/v."""
     view, params, _ = parallel.enter(cfg, params)
     with parallel.holding(view):
         return _encode(cfg, params, cache, src_embeds)
 
 
 def _encode(cfg: ModelConfig, params: Params, cache: Cache, src_embeds: torch.Tensor) -> Cache:
-    mem = _forward_encoder(cfg, params, src_embeds.to(cfg.activation_dtype))
+    shards, batch = seq_shard(cfg, {"src_embeds": src_embeds})
+    mem = encode_memory(cfg, params, batch["src_embeds"].to(cfg.activation_dtype), shards)
     kv = [cross_memory(cfg, parallel.layer(layer_params(params, i))["xattn"], mem)
           for i in range(cfg.n_layers)]
     cache["mem_k"] = torch.stack([k for k, _ in kv])
@@ -298,13 +304,13 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict,
 
 def _prefill(cfg: ModelConfig, params: Params, batch: dict,
              seq_len: int) -> tuple[torch.Tensor, Cache]:
-    shard, batch = seq_shard(cfg, batch)
-    if cfg.family == "encdec":
+    if cfg.family == "encdec":          # encode cuts the source; BOS runs whole on every rank
         src = batch["src_embeds"]
         b = src.shape[0]
         cache = encode(cfg, params, init_cache(cfg, b, seq_len, device=src.device), src)
         bos = torch.zeros((b,), dtype=torch.int64, device=src.device)
         return decode_step(cfg, params, cache, bos)
+    shard, batch = seq_shard(cfg, batch)
     with _holding(shard):
         return _prefill_decoder(cfg, params, batch, seq_len)
 

@@ -30,24 +30,30 @@ backward and refuse a call under grad.
 
 Sequence parallelism: under ``dist.activations.activation_mesh(plan)``
 whose ``seq`` axis resolves to n > 1 ranks for the context's length S,
-:func:`forward_logits`, ``decode.prefill`` and :func:`forward_train` of
-every family but encdec take the whole batch on every rank and keep this
-rank's shard of S / n positions (:func:`seq_shard`; the vlm family's patch
-prefix counts in S and lands on the first ranks), with global RoPE
-positions. Attention runs as the ring over the mesh's ``seq`` group
-(``dist.ring.ring_flash_attention``, each step through the flash kernels)
-where the JAX package's ring test holds (``attn_impl="flash"``, S above
-2,048, ``S % (n chunk_size) == 0``) outside autograd; otherwise K and V
-are all-gathered over ``seq`` with a reduce-scatter backward and the
-rank's queries attend at their global positions. The moe family's shards
-hold whole 512-token routing groups (its aux values are averaged over the
+:func:`forward_logits`, ``decode.prefill`` and :func:`forward_train` take
+the whole batch on every rank and keep this rank's shard of S / n
+positions (:func:`seq_shard`; the vlm family's patch prefix counts in S
+and lands on the first ranks), with global RoPE positions. Attention runs
+as the ring over the mesh's ``seq`` group (``dist.ring.
+ring_flash_attention``, each step through the flash kernels) where the
+JAX package's ring test holds (``attn_impl="flash"``, S above 2,048,
+``S % (n chunk_size) == 0``) outside autograd; otherwise K and V are
+all-gathered over ``seq`` with a reduce-scatter backward and the rank's
+queries attend at their global positions. The moe family's shards hold
+whole 512-token routing groups (its aux values are averaged over the
 shards); RWKV6's token shifts and Mamba2's conv take the previous shard's
 last rows, and their chunked scans start from the fold of the earlier
-shards' state maps (``dist.seq``). In training the sequence's shards sum
-every replicated leaf's gradient and the loss's two sums
-(``parallel.holding_seq``). The last position's logits, a prefill's
-recurrent states and its cache rows come from the shards that hold them:
-every rank leaves with the same. The encdec family raises.
+shards' state maps (``dist.seq``). The encdec family cuts its two
+sequences each by its own length (:class:`EncDecShards`): the encoder
+runs the source's shard (non-causal: the ring's every step, or K/V
+gathered), its output is gathered over ``seq`` once a forward
+(:func:`encode_memory`), and the decoder runs the target's shard with
+cross-attention over the whole memory. In training the sequence's shards
+sum every replicated leaf's gradient and the loss's two sums
+(``parallel.holding_seq``); an encdec target that stays whole sums only
+the encoder's. The last position's logits, a prefill's recurrent states
+and its cache rows come from the shards that hold them: every rank
+leaves with the same.
 
 Model parallelism (``dist.parallel``): under a plan with parameters placed
 as DTensors (``dist.placement``), every entry point takes the rank's local
@@ -68,7 +74,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import threading
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -364,15 +370,40 @@ def ssd_chunk(cfg: ModelConfig) -> int:
     return min(cfg.chunk_size, 128)
 
 
-def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[GroupSeq], dict]:
+class EncDecShards(NamedTuple):
+    """The encdec family's shards: the source's (the encoder runs it) and
+    the target's (the decoder, the loss and the last logits run it), each
+    ``None`` where its sequence stays whole."""
+    src: Optional[GroupSeq]
+    tgt: Optional[GroupSeq]
+
+
+def _cut(plan, rows: int, s: int) -> Optional[tuple[GroupSeq, slice]]:
+    """This rank's ``GroupSeq`` and positions of a (rows, s) sequence where
+    the plan's ``seq`` rule shards it (JAX's divisibility rule), else
+    None."""
+    ent = plan.resolve(s, "seq")
+    if not isinstance(ent, str) or plan.axis_size(ent) == 1:
+        return None
+    sl = plan.local_slice(plan.spec((rows, s), ("act_batch", "seq"), align="left"),
+                          (rows, s), mesh_coord(plan.mesh))[1]
+    n = plan.axis_size(ent)
+    return GroupSeq(n, plan.mesh.get_local_rank(ent), plan.mesh.get_group(ent), ent), sl
+
+
+def seq_shard(cfg: ModelConfig,
+              batch: dict) -> tuple[Optional[Union[GroupSeq, EncDecShards]], dict]:
     """Under an active plan whose ``seq`` axis resolves to n > 1 ranks for
     the batch's S positions (the vlm family's patch prefix counted in):
     this rank's ``GroupSeq`` and its slice of the batch's ``tokens``,
     ``labels`` and ``mask`` (and of ``vis_embeds``: the prefix lands on
-    the first ranks); else ``(None, batch)``. Where the plan's batch rows
-    run over ``seq`` (the federated round's intra-client data axis), the
-    sequence stays whole. Raises where the port has no path: the encdec
-    family, a MoE shard that splits a routing group, a recurrent shard off
+    the first ranks); else ``(None, batch)``. The encdec family cuts
+    ``src_embeds`` by the source's length and ``tokens``/``labels``/
+    ``mask`` by the target's, each where the plan shards it, and returns
+    :class:`EncDecShards` (``None`` where neither is cut). Where the
+    plan's batch rows run over ``seq`` (the federated round's intra-client
+    data axis), the sequence stays whole. Raises where the port has no
+    path: a MoE shard that splits a routing group, a recurrent shard off
     its scan's chunk (module docstring)."""
     plan = current_activation_plan()
     if plan is None or plan.axis_size("seq") == 1:
@@ -380,18 +411,27 @@ def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[GroupSeq], dict]:
     view = parallel.current()
     if view is not None and "seq" in view.batch_axes:
         return None, batch
+    text_keys = ("tokens", "labels", "mask")
     if cfg.family == "encdec":
-        raise ValueError(
-            "the encdec family has no sequence-parallel path yet (its encoder's ring and its "
-            "cross-attention over a memory gathered on seq: the next distribution step, B2c); "
-            "run it under a plan without a seq axis")
+        src = batch["src_embeds"]
+        cuts = (_cut(plan, src.shape[0], src.shape[1]),
+                _cut(plan, *batch["tokens"].shape) if "tokens" in batch else None)
+        if cuts == (None, None):
+            return None, batch
+        out = dict(batch)
+        if cuts[0] is not None:
+            out["src_embeds"] = src[:, cuts[0][1]]
+        if cuts[1] is not None:
+            out.update({k: batch[k][:, cuts[1][1]] for k in text_keys if k in batch})
+        return EncDecShards(*(None if c is None else c[0] for c in cuts)), out
     tokens = batch["tokens"]
     n_vis = batch["vis_embeds"].shape[1] if cfg.family == "vlm" else 0
     s = n_vis + tokens.shape[1]
-    ent = plan.resolve(s, "seq")
-    if not isinstance(ent, str) or plan.axis_size(ent) == 1:
+    cut = _cut(plan, tokens.shape[0], s)
+    if cut is None:
         return None, batch           # not sharded: every rank runs the whole sequence
-    n = plan.axis_size(ent)
+    shard, sl = cut
+    n = shard.n
     if cfg.family == "moe" and s % (n * moe.ROUTE_CHUNK):
         raise ValueError(
             f"a sequence-parallel MoE over {n} ranks needs S % (n * {moe.ROUTE_CHUNK}) == 0, "
@@ -401,20 +441,28 @@ def seq_shard(cfg: ModelConfig, batch: dict) -> tuple[Optional[GroupSeq], dict]:
             f"a sequence-parallel {cfg.family} forward over {n} ranks needs each shard's "
             f"{s // n} positions to be a multiple of its scan's chunk {_seq_chunk(cfg)}; "
             f"got S={s}")
-    sl = plan.local_slice(plan.spec((tokens.shape[0], s), ("act_batch", "seq"), align="left"),
-                          (tokens.shape[0], s), mesh_coord(plan.mesh))[1]
     text = slice(min(max(sl.start - n_vis, 0), s - n_vis), max(sl.stop - n_vis, 0))
-    out = {**batch, **{k: batch[k][:, text] for k in ("tokens", "labels", "mask") if k in batch}}
+    out = {**batch, **{k: batch[k][:, text] for k in text_keys if k in batch}}
     if n_vis:
         out["vis_embeds"] = batch["vis_embeds"][:, min(sl.start, n_vis):min(sl.stop, n_vis)]
-    return GroupSeq(n, plan.mesh.get_local_rank(ent), plan.mesh.get_group(ent), ent), out
+    return shard, out
+
+
+def decoder_shard(shard) -> Optional[GroupSeq]:
+    """The shard the decoder, the loss and the last logits run under: a
+    :func:`seq_shard` result's, the target's for the encdec family."""
+    return shard.tgt if isinstance(shard, EncDecShards) else shard
 
 
 @contextlib.contextmanager
-def _holding(shard: Optional[GroupSeq]):
+def _holding(shard: Optional[GroupSeq], sums: Optional[str] = None):
+    """``shard`` as the active sequence shard (None: the sequence whole),
+    and the view's gradient and loss sums over its axis, or over ``sums``
+    where the shard is None (an encdec encoder that runs its whole source
+    for a target cut over ``seq``: each rank's gradient is a partial)."""
     token = _SEQ_SHARD.set(shard)
     try:
-        with parallel.holding_seq(None if shard is None else shard.axis):
+        with parallel.holding_seq(sums if shard is None else shard.axis):
             yield
     finally:
         _SEQ_SHARD.reset(token)
@@ -720,8 +768,9 @@ def _forward_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
 def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
                      remat: bool = False) -> torch.Tensor:
     """The encdec family's encoder: non-causal self-attention over the
-    source frames, then ``enc_norm``."""
-    positions = torch.arange(src.shape[1], device=src.device)
+    source frames (the rank's shard under a sequence-parallel forward, at
+    its global positions), then ``enc_norm``."""
+    positions = _positions(src)
 
     def body(h, lp):
         lp = parallel.layer(lp, "enc_layers")
@@ -737,6 +786,29 @@ def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
     for lp in unstack(params, "enc_layers"):
         h = step(h, lp)
     return layers.rmsnorm(parallel.tree(params["enc_norm"], "enc_norm"), h, cfg.norm_eps)
+
+
+def encode_memory(cfg: ModelConfig, params: Params, src: torch.Tensor,
+                  shards: Optional[EncDecShards], *, remat: bool = False) -> torch.Tensor:
+    """The encoder's output (B, S_src, D), whole on every rank. The encoder
+    runs under the source's shard (its leaves' gradients summed over
+    ``seq`` wherever either sequence is cut); where the source is cut, its
+    output is all-gathered over ``seq`` once a forward, outside the layer
+    bodies (so no recompute gathers it again). Backward of the gather:
+    with the target cut too, each rank's gradient of the whole memory is a
+    partial (its target positions') and a reduce-scatter sums them; with
+    the target whole, every rank's is the same and the rank keeps its
+    block."""
+    if shards is None:
+        return _forward_encoder(cfg, params, src, remat=remat)
+    src_shard = shards.src
+    with _holding(src_shard, (src_shard or shards.tgt).axis):
+        mem = _forward_encoder(cfg, params, src, remat=remat)
+    if src_shard is None:
+        return mem
+    if shards.tgt is not None:
+        return collectives.gather_fsdp(mem, src_shard.axis, 1)
+    return collectives.gather_replicated(mem, src_shard.axis, 1)
 
 
 def cross_memory(cfg: ModelConfig, p: dict, mem: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -767,9 +839,13 @@ def _cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, mem_k: torch.Te
 
 
 def _forward_encdec(cfg: ModelConfig, params: Params, src: torch.Tensor,
-                    tgt: torch.Tensor, *, remat: bool = False) -> tuple[torch.Tensor, dict]:
-    mem = _forward_encoder(cfg, params, src, remat=remat)
-    positions = torch.arange(tgt.shape[1], device=tgt.device)
+                    tgt: torch.Tensor, *, remat: bool = False,
+                    shards: Optional[EncDecShards] = None) -> tuple[torch.Tensor, dict]:
+    """The encoder over ``src``, then the decoder over ``tgt`` with
+    cross-attention to the whole memory. Under ``shards`` the caller holds
+    the target's shard (:func:`decoder_shard`)."""
+    mem = encode_memory(cfg, params, src, shards, remat=remat)
+    positions = _positions(tgt)
 
     def body(h, lp, mem):
         lp = parallel.layer(lp)
@@ -836,13 +912,13 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tenso
 
 
 def _forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
-    shard, batch = seq_shard(cfg, batch)
-    fam = cfg.family
+    shards, batch = seq_shard(cfg, batch)
+    shard = decoder_shard(shards)
     with _holding(shard):
-        if fam == "encdec":
+        if cfg.family == "encdec":
             src = batch["src_embeds"].to(cfg.activation_dtype)
             tgt = layers.embed(embed_table(params), batch["tokens"], cfg.activation_dtype)
-            h, _ = _forward_encdec(cfg, params, src, tgt)
+            h, _ = _forward_encdec(cfg, params, src, tgt, shards=shards)
         else:
             h, _ = _decoder_stack(cfg, params, embed_inputs(cfg, params, batch))
     h = final_norm(cfg, params, h[:, -1:, :])
@@ -888,7 +964,8 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor, labels: torch
     add in chunk order, rows within; the loss is their ratio, over at
     least 1. Under a model-parallel plan the table is gathered once, before
     the chunks, and the two sums are summed over the batch's axes and the
-    sequence's shards."""
+    sequence's shards (an encdec target that stays whole: the batch's axes
+    only, since every rank holds the same positions)."""
     table = head_table(cfg, params)["table"]
     s = h.shape[1]
     chunk = min(ce_chunk, s)
@@ -933,12 +1010,12 @@ def _forward_train(cfg: ModelConfig, params: Params, batch: dict, *, causal_skip
                    remat: bool, remat_policy: str) -> tuple[torch.Tensor, dict]:
     dtype = cfg.activation_dtype
     fam = cfg.family
-    shard, batch = seq_shard(cfg, batch)
-    with _holding(shard):
+    shards, batch = seq_shard(cfg, batch)
+    with _holding(decoder_shard(shards)):
         if fam == "encdec":
             src = batch["src_embeds"].to(dtype)
             tgt = layers.embed(embed_table(params), batch["tokens"], dtype)
-            h, aux = _forward_encdec(cfg, params, src, tgt, remat=remat)
+            h, aux = _forward_encdec(cfg, params, src, tgt, remat=remat, shards=shards)
         else:
             h, aux = _decoder_stack(cfg, params, embed_inputs(cfg, params, batch),
                                     causal_skip=causal_skip, remat=remat,

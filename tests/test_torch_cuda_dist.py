@@ -1,5 +1,7 @@
 """The flash kernels' position offsets and fp32 partials, and the ring
-emulation, on the card against the plain version.
+emulation (causal, and the encdec encoder's non-causal ring), on the card
+against the plain version; a non-causal, windowless step passes the
+kernels no offset, bit-identical to the ``OFFSET`` instantiation.
 
 Needs a CUDA device and nvcc (the libraries are built at first use); every
 test here skips without a card. Run on the GPU machine with
@@ -124,3 +126,41 @@ def test_local_ring_on_views_equals_contiguous_shards(cuda):
             return [p.contiguous() for p in super().split(x)]
 
     assert torch.equal(got, ring_mod.ring_flash_attention(q, k, v, ring=Contiguous(4)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(1, 1024, 1024, 16, 16, 64, 1024, 0),
+                                   (2, 300, 517, 8, 2, 112, 17, 900)],
+                         ids=["seamless-step", "ragged"])
+def test_non_causal_offset_passes_none_bit_identical(cuda, dtype, shape):
+    """A non-causal, windowless step's offsets change no mask: the wrapper
+    passes the kernels no offset, and its result is bit-identical to the
+    same step through the ``OFFSET`` instantiation (``_launch`` with the
+    offset), both through the route of the dtype."""
+    b, s, t, h, kv, hd, qo, ko = shape
+    q, k, v = _qkv(b, s, t, h, kv, hd, dtype, s + t, cuda)
+    fa.reset_launches()
+    out, lse = fa.flash_attention(q, k, v, causal=False, q_offset=qo, k_offset=ko,
+                                  with_lse=True, out_fp32=True)
+    out_o, lse_o = fa._launch(q, k, v, causal=False, window=0, off=qo - ko, with_lse=True,
+                              out_fp32=True)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.launches[f"flash_attention_{route}"] == 2
+    assert torch.equal(out, out_o) and torch.equal(lse, lse_o)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=False, with_lse=True,
+                                              out_fp32=True)
+    rtol, atol = TOL[torch.float32]
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_non_causal_local_ring_matches_single_pass(cuda, n):
+    """The encoder's ring: non-causal, every step visible and launched
+    (n x n), against one wgmma pass."""
+    q, k, v = _qkv(1, 4096, 4096, 16, 16, 64, torch.bfloat16, n, cuda)
+    want = fa.flash_attention(q, k, v, causal=False)
+    fa.reset_launches()
+    got = ring_mod.ring_flash_attention(q, k, v, ring=ring_mod.LocalRing(n), causal=False)
+    assert fa.launches["flash_attention_wgmma"] == n * n
+    rtol, atol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)

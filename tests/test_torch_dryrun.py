@@ -18,7 +18,19 @@ counterpart (``tests/test_sharding_dryrun.py``'s ``lower_train_step`` on
 ``(1, 2, 2, 2)``): the reduced Llama's train step at B = 8, S = 2,304 on
 ``1x2x2x2`` passes ``--require-seq-sharded``, its seq-axis collectives
 counted by kind, and the same run on ``1x2x1x2`` fails it (two
-subprocesses side by side, one torch thread each).
+subprocesses side by side, one torch thread each). The gates read one
+untimed step run alone under the shape log after the warm-up: no timed
+step runs under it, and its time is recorded apart.
+
+The seq gate against the JAX package's (a third subprocess beside those
+two, on 2 forced host devices: ``lower_train_step`` /
+``lower_prefill_step`` and ``hlo_analysis.full_length_intermediates`` at
+its own threshold) on a ``seq`` 2 mesh, for the reduced Zamba2-7B train
+step, the reduced SeamlessM4T-large-v2 train step and its prefill, each
+at 2,304 positions (the Zamba2 and encoder attention chunked; the
+Seamless target 288, the encoder's prefill on the ring): both verdicts
+fail alike on every case, and an offender of the port's is the same
+tensor, up to its layout, as one JAX's step holds whole on a device.
 """
 import json
 import math
@@ -33,7 +45,8 @@ import torch.distributed as dist
 from torch_replay import one_torch_thread  # noqa: F401  (autouse)
 
 FIELDS = ("arch", "shape", "kind", "mesh", "axes", "world", "rank", "batch", "seq", "note",
-          "param_bytes", "grad_bytes", "opt_bytes", "s_per_step", "step_seconds", "peak_gb",
+          "param_bytes", "grad_bytes", "opt_bytes", "s_per_step", "step_seconds",
+          "shape_log_step_s", "peak_gb",
           "fwd_bwd_peak_gb", "collectives",
           "collectives_same_each_step", "compute_term_s", "memory_term_s",
           "collective_term_s")
@@ -79,8 +92,64 @@ def test_record_fields_and_note():
     assert rec["peak_gb"] is None and rec["fwd_bwd_peak_gb"] is None
     assert rec["world"] == 4 and rec["mesh"] == "2x2" and rec["kind"] == "train"
     assert "no data moved" in rec["note"] and "not meaningful" in rec["note"]
-    assert len(rec["step_seconds"]) == 1
+    assert len(rec["step_seconds"]) == 1 and rec["shape_log_step_s"] is None   # no gate: no log
     assert all(rec[k] > 0 for k in ("compute_term_s", "memory_term_s", "collective_term_s"))
+
+
+def _under_the_log(monkeypatch, kind):
+    """Record, for each step the dry run takes, whether a shape log was
+    open around it."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from repro_torch.dist.shape_log import ShapeLog
+    from repro_torch.launch import steps
+    from repro_torch.models import decode
+
+    seen = []
+
+    def logged():
+        seen.append(isinstance(_get_current_dispatch_mode(), ShapeLog))
+
+    if kind == "prefill":
+        prefill = decode.prefill
+
+        def spy(*a, **kw):
+            logged()
+            return prefill(*a, **kw)
+
+        monkeypatch.setattr(decode, "prefill", spy)
+    else:
+        make = steps.make_train_step
+
+        def spy_make(*a, **kw):
+            step = make(*a, **kw)
+
+            def spy(*args):
+                logged()
+                return step(*args)
+            return spy
+
+        monkeypatch.setattr(steps, "make_train_step", spy_make)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_timed_steps_run_without_the_shape_log(monkeypatch, kind):
+    """The warm-up, then the gates' step alone under the log (untimed, its
+    time apart), then ``--steps`` timed steps without it; every step
+    issues the same collectives."""
+    seen = _under_the_log(monkeypatch, kind)
+    if kind == "prefill":
+        rec = _run("--mesh-shape", "1x1x4x1", "--steps", "2", "--require-seq-sharded",
+                   "--require-flash", shape="prefill_32k", batch=1, seq=2560)
+        assert rec["seq_sharded_ok"] and rec["ring_p2p"] == 2 * 3 * 2
+    else:                            # one row a data rank: no score tensor of 1 MiB
+        rec = _run("--mesh-shape", "2x1", "--steps", "2", "--require-flash", batch=2)
+    assert seen == [False, True, False, False]
+    assert rec["no_s2_scores_ok"] and len(rec["step_seconds"]) == 2
+    assert rec["s_per_step"] == pytest.approx(sum(rec["step_seconds"]) / 2, rel=1e-12)
+    assert rec["shape_log_step_s"] > 0 and rec["shape_log_step_s"] not in rec["step_seconds"]
+    assert rec["collectives_same_each_step"]
 
 
 @pytest.mark.parametrize("mesh", ("1x2", "1x4"))
@@ -200,24 +269,90 @@ except AssertionError as e:
 """
 
 
+# the seq gate's verdict, JAX's and the port's, on a seq 2 mesh: case ->
+# (arch, shape kind); B = 1, 2,304 positions (> 2,048: chunked attention in
+# training, the ring in the Seamless prefill; every sequence divides over
+# seq and the Zamba2 scan's 64-position chunk; the Seamless target is 288)
+VERDICT_CASES = {"zamba2_train": ("zamba2_7b", "train"),
+                 "seamless_train": ("seamless_m4t_large_v2", "train"),
+                 "seamless_prefill": ("seamless_m4t_large_v2", "prefill")}
+VERDICT_B, VERDICT_S = 1, 2304
+_JAX_GATES = r"""
+import dataclasses, json, re, sys
+from repro.configs import get_reduced
+from repro.dist.hlo_analysis import full_length_intermediates
+from repro.launch import steps
+from repro.launch.mesh import make_production_mesh
+from repro.models.config import InputShape
+from repro.optim import adamw
+b, s = int(sys.argv[1]), int(sys.argv[2])
+mesh = make_production_mesh(shape=(1, 1, 2, 1))
+gathered = re.compile(r"= (\w+)\[([\d,]*)\]\S* all-gather(?:-start)?\(")
+out = {}
+for case in sys.argv[3:]:
+    arch, kind = case.split(":")[1:]
+    cfg = get_reduced(arch)
+    if kind == "prefill":              # as the port's dry run serves it: flash, the ring
+        cfg = dataclasses.replace(cfg, attn_impl="flash")
+        lowered = steps.lower_prefill_step(cfg, mesh, InputShape("p", s, b, "prefill"))
+    else:
+        lowered = steps.lower_train_step(cfg, mesh, InputShape("t", s, b, "train"), adamw(1e-3))
+    hlo = lowered.compile().as_text()
+    offenders = full_length_intermediates(hlo, s, min_bytes=2 * b * s * cfg.d_model)
+    out[case.split(":")[0]] = {"offenders": offenders, "all_gathers": sorted(
+        {f"{d}[{dims}]" for d, dims in gathered.findall(hlo)})}
+print("JAX-GATES " + json.dumps(out))
+"""
+
+
+def _port_verdicts() -> dict:
+    """The port's seq gate on each VERDICT_CASES case (this process, the
+    fake group): ``{case: offenders}``, empty where the gate holds."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for case, (arch, kind) in VERDICT_CASES.items():
+        try:
+            _run("--mesh-shape", "1x1x2x1", "--steps", "1", "--require-seq-sharded",
+                 arch=arch, shape="train_4k" if kind == "train" else "prefill_32k",
+                 batch=VERDICT_B, seq=VERDICT_S)
+            out[case] = []
+        except AssertionError as e:
+            out[case] = e.offenders
+        assert not dist.is_initialized()
+    return out
+
+
 @pytest.fixture(scope="module")
 def train_gates():
     """The train gate on ``1x2x2x2`` and on ``1x2x1x2``, each in its own
-    subprocess, both at once: ``{mesh: record or the gate's message}``."""
+    subprocess, and the JAX package's seq gate on VERDICT_CASES in a third,
+    all at once, while this process runs the port's verdicts:
+    ``{mesh: record or the gate's message, "jax": {case: ...}, "port":
+    {case: offenders}}``."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     procs = {mesh: subprocess.Popen([sys.executable, "-c", _GATE_RUN, *TRAIN_GATE,
                                      "--mesh-shape", mesh], stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True, env=env, cwd=root)
              for mesh in ("1x2x2x2", "1x2x1x2")}
+    jax_env = dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    procs["jax"] = subprocess.Popen(
+        [sys.executable, "-c", _JAX_GATES, str(VERDICT_B), str(VERDICT_S),
+         *(f"{case}:{arch}:{kind}" for case, (arch, kind) in VERDICT_CASES.items())],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=jax_env, cwd=root)
     out = {}
     try:
+        out["port"] = _port_verdicts()
         for mesh, proc in procs.items():
             stdout, stderr = proc.communicate(timeout=600)
             assert proc.returncode == 0, stdout[-2000:] + stderr[-2000:]
-            line = [ln for ln in stdout.splitlines() if ln.startswith("GATE-")][-1]
-            out[mesh] = (json.loads(line[len("GATE-RECORD "):]) if line.startswith("GATE-RECORD")
-                         else line[len("GATE-FAILED "):])
+            line = [ln for ln in stdout.splitlines() if ln.startswith(("GATE-", "JAX-GATES"))][-1]
+            if mesh == "jax":
+                out[mesh] = json.loads(line[len("JAX-GATES "):])
+            else:
+                out[mesh] = (json.loads(line[len("GATE-RECORD "):])
+                             if line.startswith("GATE-RECORD") else line[len("GATE-FAILED "):])
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -242,3 +377,45 @@ def test_train_gate_holds_on_a_seq_axis(train_gates):
 def test_train_gate_fails_without_a_seq_axis(train_gates):
     msg = train_gates["1x2x1x2"]
     assert isinstance(msg, str) and "full-seq intermediates" in msg and "seq=1" in msg, msg
+
+
+def _tensor(label: str) -> tuple:
+    """(dtype, elements) of an ``f32[1,2304,256]`` or ``float32[...]``
+    shape label: the tensor up to its layout."""
+    dtype, dims = label.rstrip("]").split("[")
+    return ({"f32": "float32", "bf16": "bfloat16"}.get(dtype, dtype),
+            math.prod(int(d) for d in dims.split(",") if d))
+
+
+# the tensor both steps hold whole, by (dtype, elements): the port's
+# offender, and the JAX step's offender or all-gather result
+SAME_TENSOR = {
+    # K (and V) of the shared attention gathered over seq: the port's
+    # (1, 2304, 4, 64) offender; JAX gathers it as (1, 36, 64, 4, 64) chunks,
+    # which the gate's rule does not read as full-length. JAX's own
+    # offenders are the Mamba2 conv input laid out on channels, (1, 2304,
+    # 272): the port keeps that one on the sequence, with a halo
+    "zamba2_train": ("float32", VERDICT_B * VERDICT_S * 4 * 64),
+    # the source frames whole: JAX's replicated input (in f32 after its
+    # convert), the port's encoder memory gathered over seq
+    "seamless_train": ("float32", VERDICT_B * VERDICT_S * 256),
+    # a layer's cross k/v over the whole memory, the cache that seq never cuts
+    "seamless_prefill": ("float32", VERDICT_B * VERDICT_S * 4 * 64),
+}
+
+
+@pytest.mark.parametrize("case", VERDICT_CASES)
+def test_seq_gate_verdict_equals_jax(train_gates, case):
+    """JAX's verdict and the port's agree (each fails: ROADMAP's reference
+    state), and they fail on the same tensor up to its layout. The gate's
+    threshold is 2 B_loc S d_model in both packages."""
+    jax_case, port = train_gates["jax"][case], train_gates["port"][case]
+    assert bool(jax_case["offenders"]) == bool(port)
+    assert port and jax_case["offenders"]
+    want = SAME_TENSOR[case]
+    assert want in {_tensor(o["shape"]) for o in port}, port[:5]
+    held = {_tensor(o["shape"]) for o in jax_case["offenders"]} | {
+        _tensor(label) for label in jax_case["all_gathers"]}
+    assert want in held, (jax_case["offenders"][:5], jax_case["all_gathers"])
+    if case == "zamba2_train":
+        assert {o["shape"] for o in jax_case["offenders"]} == {"f32[1,2304,272]"}

@@ -230,6 +230,22 @@ def test_a_sound_call_reaches_its_library(monkeypatch, dtype, route):
     assert asked == ["flash_attention_wgmma" if route == "wgmma" else "flash_attention"]
 
 
+@pytest.mark.parametrize("causal,window,want", [(False, 0, 0), (True, 0, 8192 - 100),
+                                                (False, 300, 8192 - 100)])
+def test_offset_reaches_the_kernels_only_where_the_mask_reads_it(monkeypatch, causal, window,
+                                                                 want):
+    """A non-causal call without a window passes the kernels no offset (the
+    instantiation without it runs); a causal or windowed one passes
+    ``q_offset - k_offset``."""
+    seen = []
+    monkeypatch.setattr(build, "route", lambda name, *tensors: True)
+    monkeypatch.setattr(fa, "_launch", lambda *a, **kw: seen.append(kw["off"]))
+    q = _aligned((1, 64, 4, 64))
+    k = _aligned((1, 64, 2, 64))
+    fa.flash_attention(q, k, k, causal=causal, window=window, q_offset=8192, k_offset=100)
+    assert seen == [want]
+
+
 # ------------------------------------------------------------ why p is split
 
 def _bf16(x: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
 """The ring (sequence-parallel) flash attention of ``repro_torch.dist.ring``
 against the JAX package's ``ring_flash_attention`` and ``merge_partials``,
-the plain flash version's position offsets against ``flash_attention_xla``,
-and the two transports against each other: ``GroupRing`` on 4 gloo ranks
-bit-equal to ``LocalRing``. The JAX ring runs in a subprocess on forced
+the plain flash version's position offsets against ``flash_attention_xla``
+(and, non-causal without a window, bit-identical to no offsets), a
+non-causal ring (the encdec encoder's) against one pass, and the two
+transports against each other: ``GroupRing`` on 4 gloo ranks bit-equal
+to ``LocalRing``. The JAX ring runs in a subprocess on forced
 host devices (``tests/conftest.py`` forbids the flag in-process).
 """
 import os
@@ -302,6 +304,30 @@ def test_skipped_steps_equal_launched_ones(causal, window):
     got = ring_mod.ring_flash_attention(q, k, v, ring=ring_mod.LocalRing(4), causal=causal,
                                         window=window)
     assert torch.equal(got, _every_step(q, k, v, 4, causal, window))
+
+
+def test_non_causal_ring_equals_one_pass():
+    """The encdec encoder's ring: non-causal, no window, every step visible
+    and launched (n x n), at n = 4 against one pass of the plain version."""
+    q, k, v = (_t(x) for x in _qkv(4, 2, 1024, 1024, 4, 4, 16))
+    wrapper, calls = _counted(fa.flash_attention)
+    with mock.patch.object(ring_mod.fa, "flash_attention", wrapper):
+        got = ring_mod.ring_flash_attention(q, k, v, ring=ring_mod.LocalRing(4), causal=False)
+    assert len(calls) == 4 * 4
+    want = fa.flash_attention(q, k, v, causal=False)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("q_offset,k_offset", [(8192, 0), (0, 8192), (17, 900)])
+def test_plain_non_causal_ignores_offsets(q_offset, k_offset):
+    """A non-causal, windowless mask reads no position: the plain version
+    with offsets is bit-identical to it without (the kernels are passed
+    none for such a call)."""
+    q, k, v = (_t(x) for x in _qkv(5, 1, 192, 320, 4, 2, 16))
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal=False, with_lse=True)
+    got, lse = fa.flash_attention_plain(q, k, v, causal=False, with_lse=True,
+                                        q_offset=q_offset, k_offset=k_offset)
+    assert torch.equal(got, want) and torch.equal(lse, want_lse)
 
 
 def test_ring_refuses_grad_and_ragged_shards():

@@ -11,17 +11,21 @@ subprocess) and against the port's unsharded forward:
     InternVL2-26B (8 patch positions and 20 tokens: 7 positions a shard,
     the prefix across shards 0 and 1), RWKV6-7B and Zamba2-7B (S = 256:
     one scan chunk a shard, the halos and the state fold; Zamba2's shared
-    attention gathered, window 64);
+    attention gathered, window 64), and SeamlessM4T-large-v2 with
+    ``attn_impl="flash"`` at 4,096 source frames (the encoder's non-causal
+    ring, 1,024 frames a shard) and 512 target tokens (128 a shard, K/V
+    gathered; cross-attention over the memory gathered over ``seq``);
 
 each with the prefill's cache and logits and the greedy tokens against the
-unsharded ones. The paths that raised before this slice, now gathered
-(the reduced Llama at 1,024 positions, with chunked attention, and at a
-length off the ring's chunks; RWKV6 and Zamba2 with their heads on
-``model`` 2 beside ``seq`` 2: the fold on the rank's heads), against the
-unsharded forward; and the refusals that stay
-(encdec, a MoE shard that splits a routing group, a recurrent shard off
-its scan's chunk). Tolerance: 1e-5 relative and absolute, greedy tokens
-equal.
+unsharded ones. The gathered paths (the reduced Llama at 1,024
+positions, with chunked attention, and at a length off the ring's
+chunks; RWKV6 and Zamba2 with their heads on ``model`` 2 beside ``seq``
+2: the fold on the rank's heads; Seamless at 256 source frames, its
+encoder's K/V gathered, and at 256 frames with a 30-token target that
+does not divide over ``seq``: the target whole on every rank), against
+the unsharded forward; and the refusals that stay (a MoE shard that
+splits a routing group, a recurrent shard off its scan's chunk).
+Tolerance: 1e-5 relative and absolute, greedy tokens equal.
 """
 import dataclasses
 import os
@@ -39,9 +43,12 @@ from torch_replay import one_torch_thread, spawn_gloo  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("llama3_8b", "starcoder2_7b")
-# the other families on the same mesh: context length (text tokens) each
+SEAMLESS = "seamless_m4t_large_v2"
+# the other families on the same mesh: context length (text tokens) each;
+# Seamless's source frames and target tokens
 FAMILIES = {"granite_moe_1b_a400m": 2048, "internvl2_26b": 20, "rwkv6_7b": 256,
-            "zamba2_7b": 256}
+            "zamba2_7b": 256, SEAMLESS: (4096, 512)}
+FLASH = ARCHS + (SEAMLESS,)
 S, B, NEW = 4096, 2, 3
 
 # the JAX forward on the port's weights (the same tree, leaf for leaf)
@@ -63,7 +70,7 @@ for arch in sys.argv[2:]:
     data = dict(np.load(f"{out_dir}/{name}.npz"))
     params, batch = {}, {}
     for key, arr in data.items():
-        if key in ("tokens", "vis_embeds"):
+        if key in ("tokens", "vis_embeds", "src_embeds"):
             batch[key] = jnp.asarray(arr)
             continue
         node = params
@@ -82,18 +89,34 @@ print("JAX-SEQ-OK")
 def _inputs(arch):
     """The reduced ``arch`` (flash attention for the ring cases), its fp32
     weights from seed 0 and a (B, S) context (the vlm family's patch
-    embeddings beside it)."""
+    embeddings beside it; the encdec family's (B, S_src, d) source frames
+    and (B, T) target)."""
     cfg = get_reduced(arch)
-    s = FAMILIES.get(arch, S)
-    if arch in ARCHS:
+    if arch in FLASH:
         cfg = dataclasses.replace(cfg, attn_impl="flash")
     params = tmodel.init_params(cfg, 0, device="cpu")
     rng = np.random.default_rng(0)
-    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, s)))}
+    if cfg.family == "encdec":
+        return cfg, params, _encdec_batch(cfg, *FAMILIES[arch], rng)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, FAMILIES.get(arch, S))))}
     if cfg.family == "vlm":
         batch["vis_embeds"] = torch.as_tensor(
             rng.standard_normal((B, cfg.n_vis_tokens, cfg.d_model), dtype=np.float32))
     return cfg, params, batch
+
+
+def _encdec_batch(cfg, s_src, t, rng, rows=B):
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (rows, t))),
+            "src_embeds": torch.as_tensor(
+                rng.standard_normal((rows, s_src, cfg.d_model), dtype=np.float32))}
+
+
+def _context(cfg, batch):
+    """What ``prefill`` and ``generate`` take: the context, or for encdec
+    the source frames alone (decoding starts from BOS)."""
+    if cfg.family == "encdec":
+        return {"src_embeds": batch["src_embeds"]}
+    return batch
 
 
 def _save(path, params, batch):
@@ -108,28 +131,39 @@ def _save(path, params, batch):
 def _generate(cfg, params, batch):
     from repro_torch.launch import serve
 
+    if cfg.family == "encdec":
+        return serve.generate(cfg, params, None, NEW, device="cpu",
+                              src_embeds=batch["src_embeds"]).tokens
     return serve.generate(cfg, params, batch["tokens"], NEW, device="cpu",
                           vis_embeds=batch.get("vis_embeds")).tokens
 
 
 def _seq_len(cfg, batch):
+    if cfg.family == "encdec":
+        return 1 + NEW
     return batch["tokens"].shape[1] + (cfg.n_vis_tokens if cfg.family == "vlm" else 0) + NEW
 
 
-# the paths that raised before this slice, now run: (cfg, S, mesh shape)
+# the gathered paths: (cfg, S (encdec: source, target), mesh shape)
 def _gathered_cases():
     small = dataclasses.replace(get_reduced("llama3_8b"), attn_impl="flash")
+    seamless = dataclasses.replace(get_reduced(SEAMLESS), attn_impl="flash")
     return {
         "short": (small, 1024, (1, 1, 4, 1)),
         "chunked": (dataclasses.replace(small, attn_impl="chunked"), S, (1, 1, 4, 1)),
         "indivisible": (small, S + 64, (1, 1, 4, 1)),  # S % n == 0, S % (n chunk_size) != 0
         "model_axis": (get_reduced("rwkv6_7b"), 128, (1, 1, 2, 2)),
         "model_axis_zamba2": (get_reduced("zamba2_7b"), 128, (1, 1, 2, 2)),
+        "seamless_gathered": (seamless, (256, 32), (1, 1, 4, 1)),
+        "seamless_target_whole": (seamless, (256, 30), (1, 1, 4, 1)),   # 30 % 4 != 0
     }
 
 
 def _gathered_batch(cfg, s):
-    return {"tokens": torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab, (1, s)))}
+    rng = np.random.default_rng(4)
+    if cfg.family == "encdec":
+        return _encdec_batch(cfg, *s, rng, rows=1)
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, s)))}
 
 
 def _seq_ranks(rank, world, out_dir):
@@ -137,6 +171,7 @@ def _seq_ranks(rank, world, out_dir):
     ``out_dir/rank<r>.pkl``: logits, prefill logits and cache, greedy tokens,
     the gathered paths' logits and the refusals' messages."""
     from repro_torch.dist.activations import activation_mesh
+    from repro_torch.dist.collectives import CollectiveCounter
     from repro_torch.dist.placement import place_tree
     from repro_torch.dist.plan import make_plan
     from repro_torch.launch.mesh import make_production_mesh
@@ -147,9 +182,12 @@ def _seq_ranks(rank, world, out_dir):
     res = {}
     for arch in ARCHS + tuple(FAMILIES):
         cfg, params, batch = _inputs(arch)
-        with activation_mesh(plan):
+        with activation_mesh(plan), CollectiveCounter() as counter:
             res[arch, "logits"] = tmodel.forward_logits(cfg, params, batch)
-            res[arch, "prefill"] = decode.prefill(cfg, params, batch, _seq_len(cfg, batch))
+        res[arch, "collectives"] = counter.totals()
+        with activation_mesh(plan):
+            res[arch, "prefill"] = decode.prefill(cfg, params, _context(cfg, batch),
+                                                  _seq_len(cfg, batch))
             res[arch, "tokens"] = _generate(cfg, params, batch)
     for name, (cfg, s, shape) in _gathered_cases().items():
         m = make_production_mesh(shape=shape, device="cpu")
@@ -157,14 +195,12 @@ def _seq_ranks(rank, world, out_dir):
         with activation_mesh(make_plan(m, mode="serve")):
             res["gathered", name] = tmodel.forward_logits(cfg, p, _gathered_batch(cfg, s))
     refusals = {
-        "seamless": (get_reduced("seamless_m4t_large_v2"), 256),
         "moe_group": (get_reduced("granite_moe_1b_a400m"), 1024),   # S % (4 * 512) != 0
         "rwkv_chunk": (get_reduced("rwkv6_7b"), 128),                # 32 positions a shard
         "zamba2_chunk": (get_reduced("zamba2_7b"), 128),
     }
     for name, (cfg, s) in refusals.items():
-        batch = {"tokens": torch.zeros((1, s), dtype=torch.int64),
-                 "src_embeds": torch.zeros((1, 16, cfg.d_model))}
+        batch = {"tokens": torch.zeros((1, s), dtype=torch.int64)}
         try:
             with activation_mesh(plan):
                 tmodel.forward_logits(cfg, None, batch)
@@ -187,14 +223,15 @@ def runs(tmp_path_factory):
         _save(out / f"{arch}.npz", params, batch)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    jax_args = [f"{a}:{'flash' if a in ARCHS else 'default'}" for a in inputs]
+    jax_args = [f"{a}:{'flash' if a in FLASH else 'default'}" for a in inputs]
     proc = subprocess.Popen([sys.executable, "-c", _JAX_FORWARD, str(out), *jax_args],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
                             cwd=ROOT)
     try:
         ctx = spawn_gloo(_seq_ranks, 4, out, str(out), join=False)
         refs = {arch: dict(logits=tmodel.forward_logits(cfg, params, batch),
-                           prefill=decode.prefill(cfg, params, batch, _seq_len(cfg, batch)),
+                           prefill=decode.prefill(cfg, params, _context(cfg, batch),
+                                                  _seq_len(cfg, batch)),
                            tokens=_generate(cfg, params, batch))
                 for arch, (cfg, params, batch) in inputs.items()}
         refs["gathered"] = {
@@ -257,11 +294,13 @@ def test_sharded_greedy_tokens_identical(runs, arch):
 
 
 @pytest.mark.parametrize("name", ["granite", "rwkv6", "zamba2", "internvl2", "short", "chunked",
-                                  "indivisible", "model_axis", "model_axis_zamba2"])
+                                  "indivisible", "model_axis", "model_axis_zamba2",
+                                  "seamless_gathered", "seamless_target_whole"])
 def test_off_ring_paths_run(runs, name):
-    """The cases that raised before (``seq_shard`` refused every family but
-    dense, and a dense context off the ring) now run: the four families
-    above, and the gathered dense paths against the unsharded forward."""
+    """The paths off the ring: the four families above, the gathered dense
+    paths, and Seamless with its encoder's K/V gathered (the source cut,
+    the target too, or whole on every rank where it does not divide)
+    against the unsharded forward."""
     ranks, refs = runs
     fam = {"granite": "granite_moe_1b_a400m", "rwkv6": "rwkv6_7b", "zamba2": "zamba2_7b",
            "internvl2": "internvl2_26b"}
@@ -274,16 +313,28 @@ def test_off_ring_paths_run(runs, name):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("seamless", "encdec family"), ("moe_group", "whole routing groups"),
-    ("rwkv_chunk", "scan's chunk"), ("zamba2_chunk", "scan's chunk"),
+    ("moe_group", "whole routing groups"), ("rwkv_chunk", "scan's chunk"),
+    ("zamba2_chunk", "scan's chunk"),
 ])
 def test_off_ring_paths_raise(runs, name, match):
     ranks, _refs = runs
     for res in ranks:
         assert res["refusal", name] is not None and match in res["refusal", name], \
             res["refusal", name]
-    if name == "seamless":
-        assert "B2c" in ranks[0]["refusal", name]
+
+
+def test_seamless_encoder_takes_the_ring(runs):
+    """The Seamless forward on 4 ranks: the encoder's non-causal ring (2
+    layers x 3 rotations x (k, v) send/recv), the memory gathered once, the
+    decoder's K and V gathered a layer (its 512 target tokens are off the
+    ring's length), the last logits broadcast from the last rank."""
+    ranks, _refs = runs
+    for res in ranks:
+        seq = res[SEAMLESS, "collectives"]["seq"]
+        assert seq["send/recv"]["count"] == 2 * 3 * 2
+        assert seq["all-gather"]["count"] == 1 + 2 * 2
+        assert seq["broadcast"]["count"] == 1
+        assert set(seq) == {"send/recv", "all-gather", "broadcast"}
 
 
 def test_no_plan_no_seq_axis_run_whole():

@@ -10,15 +10,20 @@ Granite-3.0 1B-A400M (moe; one 512-token routing group a shard, the aux
 values averaged over the shards), InternVL2-26B (vlm; 8 patch positions
 and 6 tokens, 7 positions a shard: shard 0 holds no text and its loss
 runs one empty chunk), RWKV6-7B (ssm; the token-shift halos and the WKV
-state fold) and Zamba2-7B (hybrid; the conv halo, the SSD state fold and
-the shared attention gathered). Against the port's unsharded
+state fold), Zamba2-7B (hybrid; the conv halo, the SSD state fold and
+the shared attention gathered) and SeamlessM4T-large-v2 (encdec; 128
+source frames and 32 target tokens, each sequence cut by its own length,
+the encoder's K/V and its memory gathered over ``seq``; and a 31-token
+target, which does not divide and stays whole on every rank: the loss and
+the decoder's gradients are not summed over ``seq``, the encoder's are).
+Against the port's unsharded
 ``value_and_grad`` on the same weights and batch: the loss within 1e-5
 relative and every gradient leaf within 1e-5 of its largest magnitude
 (the sums over shards add in another order); the seq axis must have
 carried all-gathers and reduce-scatters, and every rank the same
 collectives in the same order.
 
-The reduced Llama and Zamba2 adamw ``make_train_step`` on ``(1, 1, 2, 1)``
+The reduced Llama, Zamba2 and Seamless adamw ``make_train_step`` on ``(1, 1, 2, 1)``
 against the JAX package's jitted step on the same weights and batch on
 one host device (a subprocess; GSPMD's seq-sharded step computes the same
 function): loss and gradient norm within 1e-5 relative, the parameters
@@ -41,10 +46,12 @@ from torch_replay import assert_adam_step_close, join_all, spawn_gloo
 from torch_replay import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEAMLESS = "seamless_m4t_large_v2"
+# the context's tokens each (the encdec family: source frames, target tokens)
 ARCHS = {"llama3_8b": 256, "granite_moe_1b_a400m": 1024, "internvl2_26b": 6, "rwkv6_7b": 128,
-         "zamba2_7b": 128}           # the context's tokens each
+         "zamba2_7b": 128, SEAMLESS: (128, 32), "seamless_target_whole": (128, 31)}
 MESHES = {"1x1x2x1": (1, 1, 2, 1), "1x2x2x1": (1, 2, 2, 1)}
-JAX_STEPS = ("llama3_8b", "zamba2_7b")
+JAX_STEPS = ("llama3_8b", "zamba2_7b", SEAMLESS)
 B, LR = 2, 3e-3
 
 _JAX_STEP = r"""
@@ -88,15 +95,21 @@ def _inputs(arch):
     from repro_torch.configs import get_reduced
     from repro_torch.models import model
 
-    cfg = get_reduced(arch)
+    cfg = get_reduced(SEAMLESS if arch.startswith("seamless") else arch)
     s = ARCHS[arch]
     rng = np.random.default_rng(6)
+    src = None
+    if cfg.family == "encdec":
+        src, s = s
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, s))),
              "labels": torch.as_tensor(rng.integers(0, cfg.vocab, (B, s))),
              "mask": torch.as_tensor((rng.random((B, s)) > 0.2).astype(np.float32))}
     if cfg.family == "vlm":
         batch["vis_embeds"] = torch.as_tensor(
             rng.standard_normal((B, cfg.n_vis_tokens, cfg.d_model), dtype=np.float32))
+    if src is not None:
+        batch["src_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, src, cfg.d_model), dtype=np.float32))
     return cfg, model.init_params(cfg, 0, device="cpu", param_dtype=torch.float32), batch
 
 
@@ -206,6 +219,12 @@ def test_seq_collectives_alike_on_every_rank(runs, name, arch):
     seq = ranks[name, 0][arch]["totals"]["seq"]
     assert seq["all-gather"]["count"] > 0 and seq["reduce-scatter"]["count"] > 0, seq
     assert seq["all-reduce"]["count"] > 0, seq       # the gradient sum, the loss's sums
+    if arch.startswith("seamless"):
+        # 2 encoder layers' K, V in the forward and the recompute, the memory
+        # once; with the target cut, 2 decoder layers' K, V too
+        whole = arch == "seamless_target_whole"
+        assert seq["all-gather"]["count"] == 2 * 2 * 2 + 1 + (0 if whole else 2 * 2 * 2)
+        assert seq["reduce-scatter"]["count"] == (2 * 2 if whole else 2 * 2 * 2 + 1)
     if name == "1x2x2x1":
         data = ranks[name, 0][arch]["totals"]["data"]
         assert data["all-gather"]["count"] > 0 and data["reduce-scatter"]["count"] > 0, data
