@@ -190,7 +190,15 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      full-width RWKV6-7B layer and Mamba2 block through ``LocalSeq(4)``
      against one scan; the rings' step kernels (and the Seamless 32k
      non-causal ring against one pass) timed early, beside the
-     local-heads rows;
+     local-heads rows; (g) after (f), the dry run's other modes at full
+     width on JAX's default meshes, each one ``dryrun.main`` call:
+     Llama-3-8B's decode_32k on 16x16 (rank 0's 8 of 128 rows, the 8 KV
+     heads whole in a 34.4 GB cache, peak below 80 GB), its long_500k (B 1
+     whole, the 8,192-slot window), ``--fl-round --multi-pod`` at
+     train_512 (client 0's block, the uplink on ``pod``) and ``--wire-ratio
+     --downlink quant`` (the inter-pod ratio inside WIRE_RATIO_BAND), each
+     with its peak, s/step beside its roofline terms, the fake mesh's
+     creation time and its kernel launches;
  12. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
      checked shape's times; rows of their own for the local-heads shapes
@@ -3342,6 +3350,102 @@ def seq_local_fold() -> None:
         _release()
 
 
+# ----------------------------------------------------------- dry-run modes
+
+# (g1) rank 0's k and v of decode_32k on 16x16: 32 layers x 8 rows x 32,768 slots x the
+# 8 KV heads whole (8 does not divide model 16) x hd 128, bf16
+DECODE_CACHE_BYTES = 2 * 32 * 8 * 32_768 * 8 * 128 * 2
+LONG_CACHE_BYTES = 2 * 32 * 1 * 8_192 * 8 * 128 * 2          # (g2) B 1, the 8,192-slot window
+WIRE_RATIO_BAND = (0.27, 0.30)   # the payload rule: (u8 index + sign bit / 8) / 4 B fp32
+
+
+def _terms(rec: dict) -> str:
+    return (f"roofline terms compute {rec['compute_term_s']:.6f} s, memory "
+            f"{rec['memory_term_s']:.6f} s, collectives' wire bytes at NVLink "
+            f"{rec['collective_term_s']:.6f} s")
+
+
+@phase("dry-run modes (g): Llama-3-8B decode_32k and long_500k on JAX's default 16x16, the "
+       "federated round and its wire ratio (downlink quant) at train_512 on 2x16x16, rank 0 "
+       "under the fake process group")
+def dryrun_modes() -> dict:
+    """``launch.dryrun`` of the JAX dry run's other modes at full width,
+    each cell one ``dryrun.main`` call on JAX's default mesh (no data
+    moved: values not held): (g1) decode_32k (B 128) on 16x16, rank 0's 8
+    rows, its q heads 2 and the 8 KV heads whole in a 34.4 GB cache, 1
+    warm-up + 2 timed steps, peak below 80 GB; (g2) long_500k (B 1 whole,
+    an 8,192-slot window through ``long_context_variant``); (g3)
+    ``--fl-round --multi-pod`` at train_512: client 0's 1/256 block in
+    fp32 and its 2 rows x 512, the uplink on ``pod``; (g4) ``--wire-ratio
+    --downlink quant`` at train_512, the ratio inside WIRE_RATIO_BAND.
+    Prints each cell's peak, s/step, roofline terms and the fake mesh's
+    creation time. Returns each cell's kernel launches (none predicted)."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    launches = {}
+
+    def run(cell: str, argv: list) -> dict:
+        _reset_all_launches()
+        rec = dryrun.main(["--arch", SERVE_ARCH, *argv])
+        torch.cuda.synchronize()
+        launches[cell] = {k: n for k, n in _all_launches().items() if n}
+        _release()
+        return rec
+
+    for cell, shape, rows, slots, nbytes in (
+            ("g1", "decode_32k", 8, 32_768, DECODE_CACHE_BYTES),
+            ("g2", "long_500k", 1, 8_192, LONG_CACHE_BYTES)):
+        rec = run(f"{cell} {shape} 16x16", ["--shape", shape, "--steps", "2"])
+        want = [32, rows, slots, 8, 128]
+        require(rec["mesh"] == "16x16" and rec["batch_local"] == rows
+                and rec["cache_shapes"]["k"] == want and rec["cache_bytes"] == nbytes + 4 * slots,
+                f"({cell}) rank 0's rows {rec['batch_local']}, cache {rec['cache_shapes']} "
+                f"{rec['cache_bytes']} B, want k {want}, {nbytes} B of k/v and the slots")
+        require(rec["peak_gb"] < 80.0, f"({cell}) peak {rec['peak_gb']:.2f} GB")
+        require(rec["collectives_same_each_step"], f"({cell}) the steps' collectives differ")
+        print(f"({cell}) dry run {SERVE_ARCH} {shape}, rank 0 of {rec['world']} on 16x16 (data "
+              f"x model; mesh made in {rec['mesh_create_s']:.4f} s; fake group: values not "
+              f"held): {rec['batch_local']} of {rec['batch']} rows, k/v "
+              f"{rec['cache_shapes']['k']} bf16, cache {rec['cache_bytes'] / 1e9:.3f} GB, "
+              f"params {rec['param_bytes'] / 1e9:.3f} GB; {rec['s_per_step']:.4f} s/step "
+              f"(steps {[f'{t:.4f}' for t in rec['step_seconds']]}) beside memory_term_s "
+              f"{rec['memory_term_s']:.6f}; peak {rec['peak_gb']:.2f} GB; {_terms(rec)}; "
+              f"collectives a step {_coll_line(rec)}; launches {launches[f'{cell} {shape} 16x16']}",
+              flush=True)
+    rec = run("g3 fl_round 2x16x16", ["--fl-round", "--multi-pod", "--shape", "train_512",
+                                      "--steps", "1"])
+    require(rec["mesh"] == "2x16x16" and rec["n_clients"] == 2 and rec["batch_local"] == 2,
+            f"(g3) mesh {rec['mesh']}, clients {rec['n_clients']}, rows {rec['batch_local']}")
+    require(rec["collectives"].get("pod", {}).get("all-gather", {}).get("count", 0) > 0,
+            f"(g3) no uplink on pod: {rec['collectives']}")
+    require(rec["peak_gb"] < 80.0 and rec["collectives_same_each_step"],
+            f"(g3) peak {rec['peak_gb']:.2f} GB, same collectives "
+            f"{rec['collectives_same_each_step']}")
+    print(f"(g3) dry run {SERVE_ARCH} --fl-round train_512, rank 0 of {rec['world']} on "
+          f"2x16x16 (pod x data x model; mesh made in {rec['mesh_create_s']:.4f} s; fake group): "
+          f"client 0's block {rec['param_bytes'] / 1e9:.4f} GB fp32, {rec['batch_local']} rows "
+          f"x {rec['seq']}, q {rec['q_bits']}; {rec['s_per_step']:.4f} s a round, peak "
+          f"{rec['peak_gb']:.2f} GB; {_terms(rec)}; collectives a round {_coll_line(rec)}; "
+          f"launches {launches['g3 fl_round 2x16x16']}", flush=True)
+    rec = run("g4 wire_ratio 2x16x16", ["--wire-ratio", "--downlink", "quant", "--shape",
+                                        "train_512"])
+    lo, hi = WIRE_RATIO_BAND
+    require(lo < rec["inter_pod_ratio"] < hi and rec["packed_inter_dense_bytes"] > 0,
+            f"(g4) inter-pod ratio {rec['inter_pod_ratio']:.4f} outside {lo}-{hi}")
+    print(f"(g4) dry run {SERVE_ARCH} --wire-ratio --downlink quant train_512 on 2x16x16 (mesh "
+          f"made in {rec['mesh_create_s']:.4f} s): inter-pod bytes fp32 "
+          f"{rec['fp32_inter_bytes']} ({rec['fp32_inter_by_kind']}), packed "
+          f"{rec['packed_inter_bytes']} (wire {rec['packed_inter_wire_bytes']}, dense "
+          f"{rec['packed_inter_dense_bytes']}), ratio {rec['inter_pod_ratio']:.6f}; a round "
+          f"fp32 {rec['fp32_wall_s']:.4f} s, packed {rec['packed_wall_s']:.4f} s; peak "
+          f"{rec['peak_gb']:.2f} GB; Z {rec['model_dim_z']}, downlink {rec['downlink_wire_bytes']} "
+          f"of {rec['downlink_fp32_bytes']} B ({rec['downlink_ratio']:.6f}); launches "
+          f"{launches['g4 wire_ratio 2x16x16']}", flush=True)
+    return launches
+
+
 # ---------------------------------------------------------------- training
 
 TRAIN_REDUCED_ARCHS = (SERVE_ARCH, GRANITE_ARCH, INTERNVL2_ARCH, SEAMLESS_ARCH, RWKV6_ARCH,
@@ -3686,6 +3790,7 @@ def main() -> int:
     seq_launches.update(seq_seamless_prefill())
     seq_seamless_train()
     seq_local_fold()
+    mode_launches = dryrun_modes()
 
     wgmma_rows = ("flash_attention_wgmma", "flash_attention_wgmma_ring_heads_on_model",
                   *(f"flash_attention_wgmma_local_heads_h{h}_kv{kv}"
@@ -3725,9 +3830,14 @@ def main() -> int:
            for h, kv, *_ in LOCAL_HEADS},
         **{name: {k: n for k, n in seq_launches.items() if arch in k}
            for name, arch, *_ in SEQ_RINGS}})
-    launches = {"quantize": wire_launches["quantize"],
-                "dequantize": wire_launches["dequantize"],
-                **{k: sum(v.values()) for k, v in by_path.items()}}
+    # any kernel launched by a dry-run mode cell (none is predicted: decode attention and
+    # the round's quantizer are plain torch)
+    for cell, found in mode_launches.items():
+        for name in set(found) & set(by_path):
+            by_path[name][f"dry-run mode {cell}"] = found[name]
+    launches = {name: wire_launches[name] + sum(f.get(name, 0) for f in mode_launches.values())
+                for name in ("quantize", "dequantize")}
+    launches.update({k: sum(v.values()) for k, v in by_path.items()})
     for name, paths in by_path.items():
         report[name]["launches_by_path"] = paths
     kernels = [

@@ -3,8 +3,15 @@ group: the memory and collective half of the JAX package's
 ``repro.launch.dryrun`` (which lowers a step on 512 fake host devices).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
-        --shape train_4k --mesh-shape 2x2 [--batch 2] [--steps 2] \\
-        [--require-seq-sharded] [--require-flash]
+        --shape train_4k [--multi-pod | --mesh-shape 2x2] [--fl-round] \\
+        [--causal-skip] [--batch 2] [--seq 4096] [--steps 2] [--reduced] \\
+        [--require-seq-sharded] [--require-flash] [--out results.jsonl]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
+        --shape train_512 --wire-ratio [--downlink off|quant|delta]
+
+The mesh is JAX's by default: 16x16 (``data`` x ``model``), 2x16x16
+(``pod`` x ``data`` x ``model``) with ``--multi-pod`` or ``--wire-ratio``;
+``--mesh-shape`` (rank 2-4 onto ``(pod, data, seq, model)``) overrides it.
 
 The fake group (``torch.testing._internal.distributed.fake_pg``) stands
 in for a world of ``prod(mesh shape)`` ranks, of which this process is
@@ -18,16 +25,37 @@ axis, result bytes).
 The step goes through the normal entry points: ``dist.placement.
 init_params_local`` places rank 0's shards (fp32 masters for a train
 shape), then 1 warm-up, the gates' step when a gate is asked for, and
-``--steps`` timed steps of
-``launch.steps.make_train_step(..., mesh=)`` with adamw and full remat on
-the global batch (``--batch`` cuts the shape's; on a ``seq`` axis above 1
-each rank keeps S / n positions), or, for a prefill shape,
-``models.decode.prefill`` under the serve plan (``--seq`` cuts the
-context; the flash kernels). Weights and inputs are drawn from seed 0:
-every family's batch as ``launch.inputs.train_batch_spec`` lays it out
-(the encdec family's source frames, the vlm family's patch embeddings).
-The record (one JSON line) holds the mesh, the per-rank parameter,
-gradient (as the optimizer update receives it) and optimizer bytes, the
+``--steps`` timed steps of the shape's step (``--batch`` cuts the
+shape's global batch, ``--seq`` its length):
+
+  * train: ``launch.steps.make_train_step(..., mesh=, causal_skip=)``
+    with adamw and full remat on the global batch (on a ``seq`` axis above
+    1 each rank keeps S / n positions);
+  * prefill: ``models.decode.prefill`` under the serve plan on rank 0's
+    rows of the batch (its block over the plan's batch axes, as JAX's
+    ``in_shardings`` place it; the whole batch where the rows do not
+    divide), flash;
+  * decode (``decode_32k``; ``long_500k`` through
+    ``configs.long_context_variant``): one ``models.decode.decode_step``
+    of rank 0's rows under the serve plan, its cache rank 0's block of
+    ``cache_specs_plan`` (rows over ``(pod, data)``, KV or state heads over
+    ``model`` where they divide it; the encdec family's cross k/v for S
+    source positions) standing for a full context: every slot marked,
+    ``pos`` reset to S - 1 before each step, so each step reads every
+    cached position and issues the same collectives;
+  * ``--fl-round`` (a ``pod`` axis of 2 or more: clients = pods): rank 0
+    of ``make_fl_round(cfg, mesh=)``, its block of client 0 in fp32 and the
+    uniforms of that block only (the whole (K, ...) client stack is never
+    built); q_bits and weights fixed from seed 0; the fp32 uplink, no
+    downlink; analytic terms of a train step, as JAX's.
+
+Weights and inputs are drawn from seed 0: every family's batch as
+``launch.inputs.train_batch_spec`` lays it out (the encdec family's
+source frames, the vlm family's patch embeddings).
+The record (one JSON line) holds the mesh (and the seconds its creation
+took), the global batch and the rows rank 0 holds (``batch_local``), the
+per-rank parameter, gradient (as the optimizer update receives it) and
+optimizer bytes (a decode: the cache's bytes and shapes), the
 peak device memory (``torch.cuda.max_memory_allocated``, not measured on
 the CPU: ``peak_gb`` over the run, ``fwd_bwd_peak_gb`` from a step's start
 to its optimizer update: forward, backward and the clip), s/step of the
@@ -42,8 +70,11 @@ the counts hold its all-gathers (K and V in training, the recurrent
 families' halos and state pairs), reduce-scatters (their backward),
 all-reduces (the gradient sums, the loss's), broadcasts and the ring's
 send/recv by kind; the analytic count stays the dense family's on
-``{data, model}``. Without
-``fake_pg`` it raises: there is no other route.
+``{data, model}``. JAX's field names come beside the port's (``step``,
+``n_chips``, ``causal_skip``, the analytic terms, and the counter's bytes
+and counts by kind as ``collective_bytes_per_device``,
+``collective_breakdown``, ``collective_counts``). Without ``fake_pg`` it
+raises: there is no other route.
 
 Two gates, with the JAX dry run's names and meanings, read the shapes one
 step materializes on the rank (``dist.shape_log``) and its collectives.
@@ -62,6 +93,17 @@ under it:
 
 A gate that fails raises ``AssertionError``, as the JAX dry run's does
 (the seq gate's carries every offender as ``offenders``).
+
+``--wire-ratio`` runs the round twice, fp32 and ``wire_packed``, each with
+``--downlink``, and records the inter-pod bytes of each
+(:func:`run_wire_ratio`).
+
+:func:`main` returns the record (``ok`` true), prints it, appends it to
+``--out`` as one JSON line and mirrors it into the obs ledger
+(``REPRO_LEDGER``) as a ``record`` event; it raises on any failure. The
+command line (:func:`cli`) turns a failure into the JAX dry run's record
+(``ok`` false, ``error``, ``traceback``), emitted the same way, and exits
+1.
 """
 from __future__ import annotations
 
@@ -70,12 +112,15 @@ import contextlib
 import dataclasses
 import json
 import math
+import sys
 import time
-from typing import Optional, Sequence, Union
+import traceback
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import DOWNLINK_MODES
 
 # H100 SXM constants (NVIDIA H100 data sheet; the same figures as chip_smoke.py)
 PEAK_FLOPS = 989e12        # bf16 dense tensor cores
@@ -239,38 +284,52 @@ def analytic_collectives(cfg, axis_sizes: dict, batch: int, seq: int) -> dict:
     return out
 
 
-def _inputs(cfg, shape, kind: str, gen: torch.Generator, dev: torch.device) -> dict:
+def _local_shape(plan, spec, shape, coord) -> tuple:
+    return tuple(sl.stop - sl.start for sl in plan.local_slice(spec, shape, coord))
+
+
+def _inputs(cfg, shape, kind: str, gen: torch.Generator, dev: torch.device,
+            plan=None) -> dict:
     """The step's batch, drawn from ``gen`` as ``train_batch_spec`` lays it
     out: tokens and labels in the vocab, a mask of ones, embeddings
-    standard normal; a prefill keeps the model inputs."""
+    standard normal; a prefill keeps the model inputs. With ``plan``, only
+    rank 0's block of the rows, as the plan's ``data_specs`` place them
+    (JAX's ``in_shardings``): the whole batch where its rows do not divide."""
+    from repro_torch.dist.plan import mesh_coord
+    from repro_torch.dist.sharding import data_specs
     from repro_torch.launch.inputs import train_batch_spec
 
+    specs = train_batch_spec(cfg, shape)
+    if kind == "prefill":
+        specs = {k: v for k, v in specs.items() if k in ("tokens", "vis_embeds", "src_embeds")}
+        if cfg.family == "encdec":
+            specs.pop("tokens")
+    if plan is not None:
+        coord = mesh_coord(plan.mesh)
+        dspecs = data_specs(plan, specs)
+        specs = {k: torch.empty(_local_shape(plan, dspecs[k], v.shape, coord), dtype=v.dtype,
+                                device="meta") for k, v in specs.items()}
     out = {}
-    for name, spec in train_batch_spec(cfg, shape).items():
+    for name, spec in specs.items():
         if name in ("tokens", "labels"):
             out[name] = torch.randint(0, cfg.vocab, spec.shape, generator=gen, device=dev)
         elif name == "mask":
             out[name] = torch.ones(spec.shape, dtype=spec.dtype, device=dev)
         else:
             out[name] = torch.randn(spec.shape, generator=gen, device=dev).to(spec.dtype)
-    if kind == "prefill":
-        out.pop("labels")
-        out.pop("mask")
-        if cfg.family == "encdec":
-            out.pop("tokens")
     return out
 
 
-def _gates(cfg, sizes: dict, b: int, s: int, log, counter, *, seq_sharded: bool,
+def _gates(cfg, sizes: dict, b_loc: int, s: int, log, counter, *, seq_sharded: bool,
            flash: bool) -> dict:
     """The two gates on the gates' step's shape log and collectives
-    (module docstring); raises ``AssertionError`` where one fails."""
+    (module docstring); raises ``AssertionError`` where one fails.
+    ``b_loc``: the rows of the batch rank 0 holds."""
     from repro_torch.dist.shape_log import full_length_intermediates, no_s2_scores
 
     gates: dict = {}
     seq_sh = sizes.get("seq", 1)
     if seq_sharded:
-        b_loc = max(b // (sizes.get("pod", 1) * sizes.get("data", 1)), 1)
         min_bytes = 2 * b_loc * s * cfg.d_model
         offenders = full_length_intermediates(log.entries, s, min_bytes=min_bytes)
         gates.update(seq_sharded_ok=not offenders, full_seq_intermediates=offenders[:10])
@@ -292,12 +351,210 @@ def _gates(cfg, sizes: dict, b: int, s: int, log, counter, *, seq_sharded: bool,
     return gates
 
 
-def main(argv: Optional[Sequence[str]] = None,
-         device: Optional[Union[str, torch.device]] = None) -> dict:
-    ap = argparse.ArgumentParser()
+@dataclasses.dataclass
+class _Run:
+    """One kind of step, built for rank 0: ``step()`` runs it once (under
+    ``scope``), ``after()`` gives the record's fields read once the steps
+    have run. ``batch_local``: the rows rank 0 holds."""
+    cfg: object
+    step: Callable[[], None]
+    after: Callable[[], dict]
+    batch_local: int
+    scope: Callable[[], contextlib.AbstractContextManager] = contextlib.nullcontext
+
+
+def _train_run(cfg, shape, mesh, dev, gen, peaks: _Peaks, causal_skip: bool) -> _Run:
+    from repro_torch.dist.parallel import batch_axes
+    from repro_torch.dist.placement import init_params_local
+    from repro_torch.dist.plan import make_plan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    plan = make_plan(mesh)
+    batch = _inputs(cfg, shape, "train", gen, dev)
+    held = {"params": init_params_local(cfg, plan, SEED, device=dev, param_dtype=torch.float32)}
+    opt = adamw(3e-4)
+    held["state"] = opt.init(held["params"])
+    probe: dict = {}
+    train_step = make_train_step(cfg, _probed(opt, peaks, probe), mesh=mesh,
+                                 causal_skip=causal_skip)
+
+    def step():
+        held["params"], held["state"], held["metrics"] = train_step(
+            held["params"], held["state"], batch)
+
+    def after():
+        sizes = dict(plan.axis_sizes)
+        out = dict(param_bytes=_nbytes(held["params"]), grad_bytes=probe["grad_bytes"],
+                   opt_bytes=_nbytes(held["state"]),
+                   loss_not_held=float(held["metrics"]["loss"]),
+                   fwd_bwd_peak_gb=peaks.gb(peaks.fwd_bwd))
+        if cfg.family == "dense" and set(sizes) <= {"data", "model"}:
+            out["analytic_collectives"] = analytic_collectives(cfg, sizes, shape.global_batch,
+                                                               shape.seq_len)
+        return out
+
+    rows = shape.global_batch // plan.axis_size(batch_axes(plan, shape.global_batch))
+    return _Run(cfg, step, after, rows)
+
+
+def _prefill_run(cfg, shape, mesh, dev, gen) -> _Run:
+    """``decode.prefill`` of rank 0's rows under the serve plan, flash."""
+    from repro_torch.dist.activations import activation_mesh
+    from repro_torch.dist.placement import init_params_local
+    from repro_torch.dist.plan import make_plan
+    from repro_torch.models import decode
+
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    plan = make_plan(mesh, mode="serve")
+    batch = _inputs(cfg, shape, "prefill", gen, dev, plan=plan)
+    params = init_params_local(cfg, plan, SEED, device=dev)
+
+    def step():
+        decode.prefill(cfg, params, batch, shape.seq_len)
+
+    return _Run(cfg, step, lambda: {"param_bytes": _nbytes(params)},
+                next(iter(batch.values())).shape[0], lambda: activation_mesh(plan))
+
+
+def _decode_cache(cfg, shape, plan, rows: int, params, dev) -> dict:
+    """Rank 0's block of ``cache_specs_plan(plan, decode_inputs_spec's
+    cache)``: zeros, standing for a full context of ``S`` positions
+    (``slot_pos`` marks the last ``Lc`` of them; ``pos`` is S - 1). Held
+    against ``decode.init_cache``'s shapes for its ``rows`` under the view
+    ``parallel.enter`` takes of the placed ``params``."""
+    from repro_torch.dist import parallel
+    from repro_torch.dist.activations import activation_mesh
+    from repro_torch.dist.plan import mesh_coord
+    from repro_torch.dist.sharding import cache_specs_plan
+    from repro_torch.launch.inputs import decode_inputs_spec
+    from repro_torch.models import decode
+
+    s = shape.seq_len
+    _tokens, spec = decode_inputs_spec(cfg, shape)
+    coord = mesh_coord(plan.mesh)
+    specs = cache_specs_plan(plan, spec)
+    cache = {name: (torch.zeros(_local_shape(plan, specs[name], t.shape, coord), dtype=t.dtype,
+                                device=dev) if torch.is_tensor(t) else s - 1)
+             for name, t in spec.items()}
+    if "slot_pos" in cache:
+        lc = cache["slot_pos"].shape[0]
+        kept = torch.arange(s - lc, s, device=dev)
+        cache["slot_pos"][kept % lc] = kept.to(torch.int32)
+    with activation_mesh(plan):
+        view, _, _ = parallel.enter(cfg, params)
+        with parallel.holding(view):
+            want = decode.init_cache(cfg, rows, s, device="meta")
+    for name, t in want.items():
+        if torch.is_tensor(t) and tuple(t.shape) != tuple(cache[name].shape):
+            raise RuntimeError(f"dryrun: rank 0's cache {name} {tuple(cache[name].shape)} is not "
+                               f"init_cache's {tuple(t.shape)} under the rank's view")
+    return cache
+
+
+def _decode_run(cfg, shape, mesh, dev, gen) -> _Run:
+    """One ``decode.decode_step`` of rank 0's rows and cache under the
+    serve plan, ``pos`` reset to S - 1 before every step (the step writes
+    the same slot and reads every cached position each time)."""
+    from repro_torch.dist.activations import activation_mesh
+    from repro_torch.dist.placement import init_params_local
+    from repro_torch.dist.plan import make_plan, mesh_coord
+    from repro_torch.dist.sharding import data_specs
+    from repro_torch.launch.inputs import decode_inputs_spec
+    from repro_torch.models import decode
+
+    plan = make_plan(mesh, mode="serve")
+    tokens_spec, _ = decode_inputs_spec(cfg, shape)
+    rows = _local_shape(plan, data_specs(plan, tokens_spec), tokens_spec.shape,
+                        mesh_coord(mesh))
+    tokens = torch.randint(0, cfg.vocab, rows, generator=gen, device=dev)
+    params = init_params_local(cfg, plan, SEED, device=dev)
+    cache = _decode_cache(cfg, shape, plan, rows[0], params, dev)
+
+    def step():
+        cache["pos"] = shape.seq_len - 1
+        decode.decode_step(cfg, params, cache, tokens)
+
+    def after():
+        tensors = {k: v for k, v in cache.items() if torch.is_tensor(v)}
+        return {"param_bytes": _nbytes(params), "cache_bytes": _nbytes(tensors),
+                "cache_shapes": {k: list(v.shape) for k, v in tensors.items()}}
+
+    return _Run(cfg, step, after, rows[0], lambda: activation_mesh(plan))
+
+
+def _fl_inputs(cfg, shape, mesh, dev, gen, downlink: str) -> dict:
+    """Rank 0's part of a federated round's inputs on ``mesh`` (clients on
+    ``pod``): its block of client 0, fp32 (``init_params_local`` under
+    ``fl_plan``) as a DTensor stack with the client dim on ``pod`` (the
+    whole (K, ...) stack is never built); the (K, B / K, ...) batch; q_bits
+    in 2..8 and weights summing to 1, drawn from seed 0; and the uniforms
+    of its block, drawn from ``gen``: client 0's uplink and, with a
+    downlink, the broadcast's (the round reads only its own client's, and
+    its cut of a whole tensor starts at every dim's origin on rank 0, so
+    cutting a block-shaped one leaves it whole)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.dist.parallel import spec_of
+    from repro_torch.dist.placement import _from_local, init_params_local
+    from repro_torch.launch.steps import fl_plan
+
+    plan = fl_plan(mesh)
+    k = plan.axis_size("pod")
+    b = shape.global_batch
+    if b % k:
+        raise ValueError(f"--fl-round: a global batch of {b} does not divide over {k} clients")
+    local = init_params_local(cfg, plan, SEED, device=dev, param_dtype=torch.float32)
+    stack = tree_util.map(lambda t: _from_local(plan, t.to_local()[None],
+                                                plan.stack(spec_of(t), "clients", k),
+                                                (k,) + tuple(t.shape)), local)
+    batch = {name: v.reshape((k, b // k) + tuple(v.shape[1:]))
+             for name, v in _inputs(cfg, shape, "train", gen, dev).items()}
+    draws = torch.Generator().manual_seed(SEED)
+    q_bits = torch.randint(2, 9, (k,), generator=draws)
+    weights = torch.rand(k, generator=draws)
+
+    def block():
+        return [torch.rand(t.to_local().shape, generator=gen, device=dev)
+                for t in tree_util.leaves(local)]
+
+    intra = plan.axis_size(tuple(a for a in ("data", "seq") if a in plan.axis_sizes))
+    return {"stack": stack, "batch": batch, "q_bits": q_bits, "weights": weights / weights.sum(),
+            "uniforms": [block()] + [None] * (k - 1),
+            "downlink_uniforms": block() if downlink != "off" else None,
+            "clients": k, "rows": b // k // intra}
+
+
+def _fl_run(cfg, shape, mesh, dev, gen) -> _Run:
+    """Rank 0 of ``make_fl_round(cfg, mesh=mesh)`` (fp32 uplink, no
+    downlink), the round of JAX's ``lower_fl_round``."""
+    from repro_torch.launch.steps import make_fl_round
+
+    fl = _fl_inputs(cfg, shape, mesh, dev, gen, "off")
+    fl_round = make_fl_round(cfg, mesh=mesh)
+    held = {}
+
+    def step():
+        held["out"] = fl_round(fl["stack"], fl["batch"], fl["q_bits"], fl["weights"],
+                               uniforms=fl["uniforms"])
+
+    def after():
+        return {"param_bytes": _nbytes(fl["stack"]), "n_clients": fl["clients"],
+                "q_bits": fl["q_bits"].tolist(), "loss_not_held": float(held["out"][1])}
+
+    return _Run(cfg, step, after, fl["rows"])
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default="llama3_8b")
     ap.add_argument("--shape", default="train_4k")
-    ap.add_argument("--mesh-shape", default="2x2")
+    ap.add_argument("--multi-pod", action="store_true", help="the 2x16x16 mesh by default")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="explicit 2D/3D/4D mesh, e.g. 1x4x2x16 (pod x data x seq x model); "
+                         "default 16x16, or 2x16x16 with --multi-pod or --wire-ratio")
+    ap.add_argument("--fl-round", action="store_true",
+                    help="rank 0 of the federated round (clients = pods)")
+    ap.add_argument("--causal-skip", action="store_true")
     ap.add_argument("--batch", type=int, default=None, help="cut the shape's global batch")
     ap.add_argument("--seq", type=int, default=None, help="cut the shape's sequence length")
     ap.add_argument("--steps", type=int, default=2, help="timed steps after one warm-up")
@@ -307,88 +564,106 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--require-flash", action="store_true",
                     help="flash attention; fail if a per-rank tensor holds O(S^2) scores, or "
                          "if a seq axis above 1 ran no ring")
-    args = ap.parse_args(argv)
+    ap.add_argument("--wire-ratio", action="store_true",
+                    help="the round's pod-axis bytes in both wire modes (fp32, packed)")
+    ap.add_argument("--downlink", default="off", choices=DOWNLINK_MODES,
+                    help="the broadcast mode of both --wire-ratio rounds")
+    ap.add_argument("--out", default=None, help="append the record as one JSON line")
+    return ap
 
+
+def _mesh_arg(args) -> str:
+    return args.mesh_shape or ("2x16x16" if args.multi_pod or args.wire_ratio else "16x16")
+
+
+@contextlib.contextmanager
+def _fake_world(world: int):
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config, get_reduced
-    from repro_torch.dist.activations import activation_mesh
-    from repro_torch.dist.collectives import CollectiveCounter
-    from repro_torch.dist.placement import init_params_local
-    from repro_torch.dist.plan import make_plan
-    from repro_torch.dist.shape_log import ShapeLog
-    from repro_torch.launch.analytic import analytic_record
-    from repro_torch.launch.mesh import make_production_mesh, mesh_label, parse_mesh_shape
+    if dist.is_initialized():
+        raise RuntimeError("dryrun: a process group is initialized already; it makes its own")
+    _fake_group(world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _setup(args, dev):
+    """(cfg, shape, mesh shape, axis sizes) of the command line."""
+    from repro_torch.configs import get_config, get_reduced, long_context_variant
+    from repro_torch.launch.mesh import MESH_AXIS_NAMES, parse_mesh_shape
     from repro_torch.models.config import INPUT_SHAPES
 
-    dev = resolve_device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("dryrun: no CUDA device was found; pass device=\"cpu\"")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.shape == "long_500k" and not args.wire_ratio:
+        cfg = long_context_variant(cfg)
     if args.require_flash:
         cfg = dataclasses.replace(cfg, attn_impl="flash")
     shape = INPUT_SHAPES[args.shape]
     shape = dataclasses.replace(shape, global_batch=args.batch or shape.global_batch,
                                 seq_len=args.seq or shape.seq_len)
-    kind = shape.kind
-    if kind not in ("train", "prefill"):
-        raise ValueError(f"dryrun: a {kind} shape is not ported; train or prefill")
-    mesh_shape = parse_mesh_shape(args.mesh_shape)
+    mesh_shape = parse_mesh_shape(_mesh_arg(args))
+    sizes = dict(zip(MESH_AXIS_NAMES[len(mesh_shape)], mesh_shape))
+    if (args.fl_round or args.wire_ratio) and sizes.get("pod", 1) < 2:
+        raise ValueError("--fl-round needs a pod axis >= 2 (clients = pods)")
+    return cfg, shape, mesh_shape, sizes
+
+
+def _mesh(mesh_shape, dev) -> tuple:
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_production_mesh(shape=mesh_shape, device=dev)
+    return mesh, time.perf_counter() - t0
+
+
+def _run_one(args, dev: torch.device) -> dict:
+    """A train, prefill, decode or ``--fl-round`` step as rank 0 (module
+    docstring)."""
+    from repro_torch.dist.collectives import CollectiveCounter
+    from repro_torch.dist.shape_log import ShapeLog
+    from repro_torch.launch.analytic import analytic_record
+    from repro_torch.launch.mesh import mesh_label
+
+    cfg, shape, mesh_shape, sizes = _setup(args, dev)
+    kind = "fl_round" if args.fl_round else shape.kind
     world = math.prod(mesh_shape)
-    if dist.is_initialized():
-        raise RuntimeError("dryrun: a process group is initialized already; it makes its own")
-    _fake_group(world)
-    try:
-        mesh = make_production_mesh(shape=mesh_shape, device=dev)
-        sizes = dict(zip(mesh.mesh_dim_names, mesh_shape))
-        b, s = shape.global_batch, shape.seq_len
+    b, s = shape.global_batch, shape.seq_len
+    with _fake_world(world):
+        mesh, mesh_s = _mesh(mesh_shape, dev)
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        batch = _inputs(cfg, shape, kind, gen, dev)
-        logging = args.require_seq_sharded or args.require_flash
         peaks = _Peaks(dev)
-        record = {"arch": args.arch, "shape": args.shape, "kind": kind,
-                  "mesh": mesh_label(mesh), "axes": list(mesh.mesh_dim_names),
-                  "world": world, "rank": 0, "batch": b, "seq": s, "note": NOT_HELD,
-                  "shape_log_step_s": None}
         if kind == "train":
-            from repro_torch.launch.steps import make_train_step
-            from repro_torch.optim import adamw
-
-            plan = make_plan(mesh)
-            held = {"params": init_params_local(cfg, plan, SEED, device=dev,
-                                                param_dtype=torch.float32)}
-            opt = adamw(3e-4)
-            held["state"] = opt.init(held["params"])
-            probe: dict = {}
-            train_step = make_train_step(cfg, _probed(opt, peaks, probe), mesh=mesh)
-
-            def step():
-                held["params"], held["state"], held["metrics"] = train_step(
-                    held["params"], held["state"], batch)
-            scope = contextlib.nullcontext()
+            run = _train_run(cfg, shape, mesh, dev, gen, peaks, args.causal_skip)
+        elif kind == "prefill":
+            run = _prefill_run(cfg, shape, mesh, dev, gen)
+        elif kind == "decode":
+            run = _decode_run(cfg, shape, mesh, dev, gen)
         else:
-            from repro_torch.models import decode
-
-            cfg = dataclasses.replace(cfg, attn_impl="flash")
-            plan = make_plan(mesh, mode="serve")
-            held = {"params": init_params_local(cfg, plan, SEED, device=dev)}
-
-            def step():
-                decode.prefill(cfg, held["params"], batch, s)
-            scope = activation_mesh(plan)
-        with scope:
+            run = _fl_run(cfg, shape, mesh, dev, gen)
+        cfg = run.cfg
+        record = {"arch": args.arch, "shape": args.shape, "kind": kind, "step": kind,
+                  "mesh": mesh_label(mesh), "axes": list(mesh.mesh_dim_names),
+                  "world": world, "n_chips": world, "rank": 0, "ok": True, "batch": b,
+                  "batch_local": run.batch_local, "seq": s, "causal_skip": args.causal_skip,
+                  "note": NOT_HELD, "mesh_create_s": mesh_s, "shape_log_step_s": None}
+        with run.scope():
             with CollectiveCounter() as warm:
-                step()                                                  # warm-up
+                run.step()                                              # warm-up
             signatures = [warm.signature()]
-            if logging:       # the gates' step: untimed, alone under the shape log
+            if args.require_seq_sharded or args.require_flash:
+                # the gates' step: untimed, alone under the shape log
                 _sync(dev)
                 t0 = time.perf_counter()
                 with CollectiveCounter() as logged, ShapeLog() as log:
-                    step()
+                    run.step()
                     _sync(dev)
                 record["shape_log_step_s"] = time.perf_counter() - t0
                 signatures.append(logged.signature())
-                record.update(_gates(cfg, sizes, b, s, log, logged,
+                b_loc = run.batch_local if kind in ("prefill", "decode") else max(
+                    b // (sizes.get("pod", 1) * sizes.get("data", 1)), 1)
+                record.update(_gates(cfg, sizes, b_loc, s, log, logged,
                                      seq_sharded=args.require_seq_sharded,
                                      flash=args.require_flash))
             counters, times = [], []
@@ -397,34 +672,158 @@ def main(argv: Optional[Sequence[str]] = None,
                 peaks.read()
                 t0 = time.perf_counter()
                 with CollectiveCounter() as c:
-                    step()
+                    run.step()
                     _sync(dev)
                 times.append(time.perf_counter() - t0)
                 counters.append(c)
-        record.update(param_bytes=_nbytes(held["params"]))
-        if kind == "train":
-            record.update(grad_bytes=probe["grad_bytes"], opt_bytes=_nbytes(held["state"]),
-                          loss_not_held=float(held["metrics"]["loss"]),
-                          fwd_bwd_peak_gb=peaks.gb(peaks.fwd_bwd))
-            if cfg.family == "dense" and set(sizes) <= {"data", "model"}:
-                record["analytic_collectives"] = analytic_collectives(cfg, sizes, b, s)
-        ana = analytic_record(cfg, shape, kind, world,
+        record.update(run.after())
+        ana = analytic_record(cfg, shape, "train" if kind == "fl_round" else kind, world,
+                              causal_skip=args.causal_skip,
                               dp_size=sizes.get("data", 1) * sizes.get("pod", 1))
         peaks.read()
+        totals = counters[0].totals()
+        by_kind: dict = {}
+        for kinds in totals.values():
+            for k, v in kinds.items():
+                slot = by_kind.setdefault(k, {"count": 0, "bytes": 0})
+                slot["count"] += v["count"]
+                slot["bytes"] += v["bytes"]
         record.update(
             s_per_step=sum(times) / len(times), step_seconds=times,
             peak_gb=peaks.gb(peaks.all),
-            collectives=counters[0].totals(),
+            collectives=totals,
+            collective_bytes_per_device=sum(v["bytes"] for v in by_kind.values()),
+            collective_breakdown={k: v["bytes"] for k, v in by_kind.items()},
+            collective_counts={k: v["count"] for k, v in by_kind.items()},
             collectives_same_each_step=all(sig == signatures[0] for sig in
                                            signatures + [c.signature() for c in counters]),
+            **ana,
             compute_term_s=ana["analytic_flops_per_device"] / PEAK_FLOPS,
             memory_term_s=ana["analytic_bytes_per_device"] / HBM_BW,
             collective_term_s=wire_bytes(counters[0].log) / NVLINK_BW,
         )
-    finally:
-        dist.destroy_process_group()
-    print(json.dumps(record), flush=True)
     return record
+
+
+# the dtypes of the quantized wire (JAX's ``hlo_analysis.WIRE_DTYPES``: u8, s8,
+# u16, s16, pred), as the counter names them
+WIRE_DTYPES = frozenset({"uint8", "int8", "uint16", "int16", "bool"})
+
+
+def run_wire_ratio(args, dev: torch.device) -> dict:
+    """The round's pod-axis bytes in both wire modes: rank 0 of the round
+    (:func:`_fl_inputs`, clients on ``pod``) run once with the fp32 uplink
+    and once ``wire_packed``, each with the ``--downlink`` mode, each under
+    its own ``CollectiveCounter``; JAX's ``run_wire_ratio`` fields. The
+    inter-pod bytes are the counter's ``pod``-axis result bytes (JAX: the
+    HLO collectives whose replica groups cross pods): by kind, and split
+    into the wire (u8 index planes and packed sign maps) and the dense
+    rest (fp32 ranges, payloads, losses, flags) by dtype. The counter
+    names each collective's axis, so no byte goes unattributed:
+    ``*_unattributed_bytes`` is 0. ``*_wall_s`` is one round's seconds
+    (JAX's: its lower and compile). The downlink is one payload for every
+    client and moves no pod-axis bytes beyond its range's max (delta); its
+    over-the-air bytes are analytic, per client: 4 Z in fp32, Z q / 8 +
+    ceil(Z / 8) + 4 quantized at DOWNLINK_Q_BITS."""
+    from repro_torch import tree as tree_util
+    from repro_torch.dist.collectives import CollectiveCounter
+    from repro_torch.launch.mesh import mesh_label
+    from repro_torch.launch.steps import DOWNLINK_Q_BITS, make_fl_round
+    from repro_torch.models import model
+
+    cfg, shape, mesh_shape, _sizes = _setup(args, dev)
+    world = math.prod(mesh_shape)
+    with _fake_world(world):
+        mesh, mesh_s = _mesh(mesh_shape, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        peaks = _Peaks(dev)
+        fl = _fl_inputs(cfg, shape, mesh, dev, gen, args.downlink)
+        rec: dict = {"arch": args.arch, "shape": args.shape, "mesh": mesh_label(mesh),
+                     "step": "fl_round_wire_ratio", "kind": "fl_round_wire_ratio",
+                     "downlink": args.downlink, "ok": True, "world": world, "n_chips": world,
+                     "rank": 0, "note": NOT_HELD, "mesh_create_s": mesh_s,
+                     "n_clients": fl["clients"], "batch": shape.global_batch,
+                     "batch_local": fl["rows"], "seq": shape.seq_len}
+        for packed in (False, True):
+            fl_round = make_fl_round(cfg, mesh=mesh, wire_packed=packed, downlink=args.downlink)
+            _sync(dev)
+            t0 = time.perf_counter()
+            with CollectiveCounter() as c:
+                fl_round(fl["stack"], fl["batch"], fl["q_bits"], fl["weights"],
+                         uniforms=fl["uniforms"], downlink_uniforms=fl["downlink_uniforms"])
+                _sync(dev)
+            wall = time.perf_counter() - t0
+            inter = [r for r in c.log if r.axis == "pod"]
+            by_kind: dict = {}
+            for r in inter:
+                by_kind[r.kind] = by_kind.get(r.kind, 0) + r.bytes
+            wire = sum(r.bytes for r in inter if r.dtype in WIRE_DTYPES)
+            mode = "packed" if packed else "fp32"
+            rec[f"{mode}_inter_bytes"] = sum(r.bytes for r in inter)
+            rec[f"{mode}_unattributed_bytes"] = 0
+            rec[f"{mode}_inter_by_kind"] = by_kind
+            rec[f"{mode}_inter_wire_bytes"] = wire
+            rec[f"{mode}_inter_dense_bytes"] = rec[f"{mode}_inter_bytes"] - wire
+            rec[f"{mode}_wall_s"] = wall
+        peaks.read()
+        rec["peak_gb"] = peaks.gb(peaks.all)
+    # attribution must not silently degrade into the unattributed bucket
+    assert rec["fp32_inter_bytes"] > 0 and rec["packed_inter_bytes"] > 0, rec
+    assert max(rec["fp32_unattributed_bytes"], rec["packed_unattributed_bytes"]
+               ) < 0.1 * rec["fp32_inter_bytes"], rec
+    rec["inter_pod_ratio"] = rec["packed_inter_bytes"] / rec["fp32_inter_bytes"]
+    z = sum(t.numel() for t in tree_util.leaves(model.abstract_params(cfg)))
+    rec["model_dim_z"] = z
+    rec["downlink_fp32_bytes"] = 4 * z
+    if args.downlink != "off":
+        q = DOWNLINK_Q_BITS
+        rec["downlink_wire_bytes"] = (z * q) // 8 + (z + 7) // 8 + 4
+        rec["downlink_ratio"] = rec["downlink_wire_bytes"] / (4.0 * z)
+    return rec
+
+
+def _emit(rec: dict, out: Optional[str]) -> None:
+    """Print the record, append it to ``out`` as one JSON line, and mirror
+    it into the obs ledger (``REPRO_LEDGER``) as a ``record`` event."""
+    from repro_torch.obs.ledger import default_ledger
+
+    line = json.dumps(rec, default=str)
+    print(line, flush=True)
+    if out:
+        with open(out, "a") as f:
+            f.write(line + "\n")
+    default_ledger().record(f"launch.dryrun[{rec['arch']},{rec['shape']}]", rec)
+
+
+def main(argv: Optional[Sequence[str]] = None,
+         device: Optional[Union[str, torch.device]] = None) -> dict:
+    """Run the command line's dry run and return its record (also printed,
+    appended to ``--out`` and mirrored into the ledger). Raises on any
+    failure, a gate's included; :func:`cli` turns a failure into a record."""
+    args = _parser().parse_args(argv)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("dryrun: no CUDA device was found; pass device=\"cpu\"")
+    rec = run_wire_ratio(args, dev) if args.wire_ratio else _run_one(args, dev)
+    _emit(rec, args.out)
+    return rec
+
+
+def cli(argv: Optional[Sequence[str]] = None,
+        device: Optional[Union[str, torch.device]] = None) -> int:
+    """``python -m repro_torch.launch.dryrun``: :func:`main`, exit code 0;
+    on any exception the JAX dry run's failure record (``ok`` false, the
+    error and the traceback's last 4,000 characters), emitted the same
+    way, exit code 1."""
+    args = _parser().parse_args(argv)
+    try:
+        main(argv, device)
+        return 0
+    except Exception as e:  # noqa: BLE001  (a sweep wants the record)
+        _emit({"arch": args.arch, "shape": args.shape, "mesh": _mesh_arg(args), "ok": False,
+               "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-4000:]}, args.out)
+        return 1
 
 
 def _sync(dev: torch.device) -> None:
@@ -433,4 +832,4 @@ def _sync(dev: torch.device) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(cli())

@@ -22,7 +22,8 @@ Event kinds
                 (the port lowers no HLO); accepted here so its ledgers
                 validate.
 ``record``      a free-form record from a sweep; the payload is kept as-is
-                under ``"payload"``.
+                under ``"payload"``. ``launch.dryrun`` writes one per run
+                (``Ledger.record``), source ``launch.dryrun[<arch>,<shape>]``.
 ``resume``      one per segmented-run checkpoint boundary: the step (next
                 round index) and whether the state was saved
                 (``action="save"``) or restored (``action="load"``).
@@ -189,6 +190,9 @@ class Ledger:
 
     def timing(self, phase: str, seconds: float, **meta: Any) -> Optional[dict]:
         return self.write("timing", phase=phase, seconds=float(seconds), **meta)
+
+    def record(self, source: str, payload: dict, **meta: Any) -> Optional[dict]:
+        return self.write("record", source=source, payload=payload, **meta)
 
 
 def default_ledger(path: Optional[str] = None) -> Ledger:
