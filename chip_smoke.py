@@ -198,7 +198,23 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      train_512 (client 0's block, the uplink on ``pod``) and ``--wire-ratio
      --downlink quant`` (the inter-pod ratio inside WIRE_RATIO_BAND), each
      with its peak, s/step beside its roofline terms, the fake mesh's
-     creation time and its kernel launches;
+     creation time and its kernel launches; (h) after (g), the MoE's
+     all-to-all expert dispatch (``models.moe``: JAX's capacity -> expert
+     reshard): (h1) one full-width Granite-3.0 1B-A400M MoE layer in bf16
+     at B = 4 x 4,096 through ``LocalExchange`` of 4 and 16 model ranks,
+     every routing group's dispatched tensor and expert outputs bit-equal
+     to the all-reduce route's rank by rank, the output within 2^-6 of the
+     unsharded layer's largest magnitude, each route timed; (h2)
+     ``benchmarks/dryrun_sweep.py``'s ``A2A_GATED`` cells, Granite's
+     train_4k and prefill_32k at their own batches (256, 32) as rank 0 of
+     1x4x2x16 with ``--require-alltoall``: the gate holds, the
+     all-to-alls on ``model`` only, count and bytes by the formula, s/step
+     and peak; the prefill's ring step on rank 0 (B = 8, 16,384 queries
+     and keys) is a kernel row of its own, held against the plain version
+     and timed beside the seq rings' steps; (h3) ``bench_moe_alltoall``'s
+     2x8x2x16 at train_512's batch, but 1,024 positions (at 512 a routing
+     group would span the two ``seq`` shards, which the port does not route
+     yet): no all-to-all byte on ``pod`` or ``data``;
  12. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
      checked shape's times; rows of their own for the local-heads shapes
@@ -2947,6 +2963,13 @@ SEQ_RINGS = (("flash_attention_wgmma_ring_hd112_window", ZAMBA2_ARCH,
              ("flash_attention_wgmma_ring_hd64", GRANITE_ARCH, (16, 8, 64, 0, True, 0), 24),
              ("flash_attention_wgmma_ring_hd64_noncausal", SEAMLESS_ARCH,
               (16, 16, 64, 0, False, 8192), 24 * RING_N))
+# rank 0's ring step in (h2)'s prefill_32k on 1x4x2x16 (A2A_MESH): its 8 of
+# the 32 rows, 16,384 queries and keys, all 16 heads (KV 8 does not divide
+# model 16, so the ring keeps them whole), the causal diagonal step (rank
+# 1's shard is all in its future). name, arch, (B, S), (H, KV, hd, window,
+# causal, q_offset - k_offset)
+A2A_RING = ("flash_attention_wgmma_ring_hd64_b8_s16k", GRANITE_ARCH, (8, 16384),
+            (16, 8, 64, 0, True, 0))
 SEQ_RECURRENT_TOL = 1e-5      # of the largest magnitude: the fold against one scan, fp32
 
 
@@ -3183,23 +3206,26 @@ def seq_seamless_train() -> None:
 def seq_ring_kernels(report: dict) -> None:
     """Each SEQ_RINGS shape: a ring step of rank 0 in the 32k prefill
     (B = 1, 8,192 queries and keys, bf16, the fp32 partial with its lse),
-    through the wgmma route, against the plain version within FLASH_TOL;
+    and A2A_RING's (rank 0's diagonal step in (h2)'s prefill, B = 8, 16,384
+    queries and keys), through the wgmma route, against the plain version
+    within FLASH_TOL;
     kernel time, bound and SDPA's time (the causal steps' masks as the
     kernel's; the non-causal step without a mask). Seamless's non-causal
     step passes no offset to the kernel (its mask reads no position): it is
     held bit-identical to the same step through the ``OFFSET``
     instantiation, and both are timed. Then the whole non-causal ring at
     32,768 positions through ``LocalRing(4)`` against one wgmma pass
-    within FLASH_TOL["bfloat16"]. Adds the rows SEQ_RINGS names; their
-    launches come from (f3), (f4) and (f6). Timed beside the local-heads
+    within FLASH_TOL["bfloat16"]. Adds the rows SEQ_RINGS and A2A_RING
+    name; their launches come from (f3), (f4), (f6) and (h2). Timed beside
+    the local-heads
     rows, early in the run: a profiler trace late in the full run has come
     back without the kernel's device activity."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(25)
-    b, s = 1, 8192
-    for name, arch, (h, kv, hd, window, causal, off), _n in SEQ_RINGS:
+    steps = [(name, arch, (1, 8192), spec) for name, arch, spec, _n in SEQ_RINGS]
+    for name, arch, (b, s), (h, kv, hd, window, causal, off) in (*steps, A2A_RING):
         q, k, v = ((0.3 * torch.randn((b, s, heads, hd), generator=gen, device="cuda"))
                    .to(torch.bfloat16) for heads in (h, kv, kv))
         kw = dict(causal=causal, window=window, with_lse=True, out_fp32=True, q_offset=off,
@@ -3720,6 +3746,225 @@ def train_fl_round():
           f"level {level:.3e}), {share:.5f} within 1e-5; n_screened 0 on both", flush=True)
 
 
+# ------------------------------------------------ (h) the all-to-all expert dispatch
+
+A2A_MODEL = (4, 16)           # (h1): the model ranks LocalExchange emulates
+A2A_B, A2A_S = 4, 4096        # (h1): eight 512-token routing groups, C = 160
+MOE_BF16_REL = 2.0**-6        # of the largest magnitude: a bf16 MoE layer against its reference
+                              # (tests/test_torch_moe.py's bf16 bound)
+A2A_MESH = "1x4x2x16"         # (h2): benchmarks/dryrun_sweep.py's A2A_GATED mesh
+A2A_TRAFFIC_MESH = "2x8x2x16"     # (h3): benchmarks/run.py bench_moe_alltoall's mesh
+A2A_TRAFFIC_SEQ = 1024        # (h3): at train_512's 512 positions a routing group would span
+                              # seq 2's shards, which the port does not route yet: one a rank
+
+
+def _a2a_formula(cfg, rows: int, s_loc: int, m: int, passes: int) -> tuple[int, int]:
+    """The all-to-alls a step on rank 0 and their result bytes: ``passes``
+    a routing group of a layer (2 forward; a train step with full remat 6:
+    forward, recompute, backward), each of rows x E x (C / m) x D bf16
+    elements."""
+    from repro_torch.models import moe
+
+    g = moe.group_length(s_loc)
+    groups, c = s_loc // g, moe.group_capacity(g, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    n = passes * cfg.n_layers * groups
+    return n, n * rows * cfg.n_experts * (c // m) * cfg.d_model * 2
+
+
+def _a2a_line(rec: dict) -> str:
+    """A dry-run record's all-to-alls a step by axis: count and bytes."""
+    return ", ".join(f"{axis} {kinds['all-to-all']['count']} / {kinds['all-to-all']['bytes']} B"
+                     for axis, kinds in sorted(rec["collectives"].items())
+                     if "all-to-all" in kinds) or "none"
+
+
+def _expert_calls(fn):
+    """``fn()`` and the input and output of each ``moe._experts`` call it
+    makes (a routing group of one rank), in order."""
+    from repro_torch.models import moe
+
+    calls, experts = [], moe._experts
+
+    def spy(params, xe):
+        y = experts(params, xe)
+        calls.append((xe, y))
+        return y
+
+    moe._experts = spy
+    try:
+        return fn(), calls
+    finally:
+        moe._experts = experts
+
+
+@phase("all-to-all EP (h1): one full-width Granite-3.0 1B-A400M MoE layer, bf16, B=4 x 4096, "
+       "through LocalExchange(4) and LocalExchange(16) against the all-reduce route and the "
+       "unsharded layer")
+def a2a_layer() -> None:
+    """``moe.moe_apply`` of one Granite layer (d_model 1,024, 32 experts
+    top-8, d_ff 512; random bf16 weights and input from seed 0) by the
+    all-to-all route over m emulated model ranks (``moe.LocalExchange``):
+    every routing group's dispatched (B, E/m, C, D) tensor and expert
+    outputs bit-equal, rank by rank, to the all-reduce route's (each rank's
+    experts, ``moe.ExpertSlots``); its output within MOE_BF16_REL of the
+    largest magnitude of the unsharded layer's, its aux values equal. Times
+    (CUDA events) the unsharded layer and both routes' m ranks run in turn
+    on the one card; no kernel of the port runs (the MoE is torch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(GRANITE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe.moe_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers,
+                            torch.bfloat16)
+    x = torch.randn(A2A_B, A2A_S, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    groups = A2A_S // moe.group_length(A2A_S)
+    c = moe.group_capacity(moe.group_length(A2A_S), cfg.top_k, cfg.n_experts,
+                           cfg.capacity_factor)
+    _reset_all_launches()
+    with torch.no_grad():
+        want, want_aux = moe.moe_apply(params, x, **kw)
+        scale = want.float().abs().max().item()
+        whole_ms = cuda_ms(lambda: moe.moe_apply(params, x, **kw), iters=3, warmup=1)
+        for m in A2A_MODEL:
+            e_loc = cfg.n_experts // m
+            blocks = [(moe.expert_block(params, m, r),
+                       moe.ExpertSlots(r * e_loc, (r + 1) * e_loc)) for r in range(m)]
+            (out, aux), calls = _expert_calls(
+                lambda: moe.moe_apply(params, x, route=moe.LocalExchange(m), **kw))
+            parts, rank_calls = [], []
+            for p, slots in blocks:
+                (part, _aux), t = _expert_calls(lambda: moe.moe_apply(p, x, route=slots, **kw))
+                parts.append(part)
+                rank_calls.append(t)
+            require(len(calls) == groups * m and all(len(t) == groups for t in rank_calls),
+                    f"m={m}: {len(calls)} expert calls, want {groups} routing groups x {m}")
+            for g in range(groups):
+                for r in range(m):
+                    (xe, y), (ref_xe, ref_y) = calls[g * m + r], rank_calls[r][g]
+                    require(tuple(xe.shape) == (A2A_B, e_loc, c, cfg.d_model)
+                            and torch.equal(xe, ref_xe) and torch.equal(y, ref_y),
+                            f"m={m}, group {g}, rank {r}: the all-to-all route's dispatch or "
+                            "expert outputs differ from the all-reduce route's")
+            reduced = parts[0]
+            for part in parts[1:]:
+                reduced = reduced + part
+            err = (out.float() - want.float()).abs().max().item()
+            err_ar = (reduced.float() - want.float()).abs().max().item()
+            require(err <= MOE_BF16_REL * scale and err_ar <= MOE_BF16_REL * scale,
+                    f"m={m}: output max abs err {err:.3e} (all-reduce route {err_ar:.3e}) "
+                    f"above 2^-6 x {scale:.3f}")
+            require(all(torch.equal(aux[k], want_aux[k]) for k in want_aux),
+                    f"m={m}: aux {aux} vs {want_aux}")
+            del calls, rank_calls, parts
+            a2a_ms = cuda_ms(lambda: moe.moe_apply(params, x, route=moe.LocalExchange(m), **kw),
+                             iters=3, warmup=1)
+            ar_ms = cuda_ms(lambda: [moe.moe_apply(p, x, route=r, **kw) for p, r in blocks],
+                            iters=3, warmup=1)
+            print(f"(h1) LocalExchange({m}): {groups} "
+                  f"groups x {m} ranks' dispatch (B={A2A_B}, E/m={e_loc}, C={c}, "
+                  f"D={cfg.d_model}) and expert outputs bit-equal to the "
+                  f"all-reduce route's; output max abs err {err:.3e} (all-reduce route "
+                  f"{err_ar:.3e}) of the unsharded layer's, largest magnitude {scale:.3f}; aux "
+                  f"equal; the {m} ranks in turn on one card: all-to-all route {a2a_ms:.2f} "
+                  f"ms, all-reduce route {ar_ms:.2f} ms, the unsharded layer {whole_ms:.2f} ms "
+                  "(CUDA events, 3 calls)", flush=True)
+    launches = _all_launches()
+    require(not any(launches.values()), f"the MoE layer launched kernels: {launches}")
+    _release()
+
+
+@phase("all-to-all EP (h2): dryrun_sweep's A2A_GATED cells, full Granite-3.0 1B-A400M "
+       "train_4k and prefill_32k at their own batches as rank 0 of 1x4x2x16 under the fake "
+       "group, --require-alltoall")
+def a2a_gated_dryruns() -> dict:
+    """``launch.dryrun`` of the two cells ``benchmarks/dryrun_sweep.py``
+    gates on ``--require-alltoall``, at full width and depth and the
+    shapes' own batches, rank 0 of ``1x4x2x16`` (pod x data x seq x model;
+    32 experts, 2 a rank; fake group: no data moved, values not held):
+    train_4k (rank 0's 64 of 256 rows, 2,048 positions) and prefill_32k
+    (8 of 32 rows, 16,384 positions; the ring over ``seq`` through the
+    wgmma kernel). The gate holds; the all-to-alls sit on ``model`` only,
+    their count and bytes equal to :func:`_a2a_formula`; peak below 80 GB.
+    Returns the prefill's wgmma launches, all at A2A_RING's shape."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(GRANITE_ARCH)
+    out = {}
+    for shape, passes in (("train_4k", 6), ("prefill_32k", 2)):
+        _reset_all_launches()
+        rec = dryrun.main(["--arch", GRANITE_ARCH, "--shape", shape, "--mesh-shape", A2A_MESH,
+                           "--steps", "1", "--require-alltoall"])
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in _all_launches().items() if n}
+        n, nbytes = _a2a_formula(cfg, rec["batch_local"], rec["seq"] // 2, 16, passes)
+        got = rec["collectives"].get("model", {}).get("all-to-all")
+        require(rec["alltoall_count"] == n and got == {"count": n, "bytes": nbytes},
+                f"(h2) {shape}: all-to-alls {_a2a_line(rec)}, gate count "
+                f"{rec['alltoall_count']}; the formula {n} / {nbytes} B on model")
+        require(rec["peak_gb"] < 80.0 and rec["collectives_same_each_step"],
+                f"(h2) {shape}: peak {rec['peak_gb']:.2f} GB, same collectives "
+                f"{rec['collectives_same_each_step']}")
+        if shape == "prefill_32k":     # warm-up, the gates' step, 1 timed: rank 0's diagonal
+            require((rec["batch_local"], rec["seq"] // 2) == A2A_RING[2],
+                    f"(h2) prefill: rank 0's {rec['batch_local']} rows x {rec['seq'] // 2} "
+                    f"positions, not A2A_RING's {A2A_RING[2]}")
+            require(launches.get("flash_attention_wgmma") == 3 * cfg.n_layers
+                    and not launches.get("flash_attention_simt"),
+                    f"(h2) prefill launches {launches}, want {3 * cfg.n_layers} wgmma")
+            out[f"dry-run a2a {GRANITE_ARCH} prefill_32k {A2A_MESH}"] = \
+                launches["flash_attention_wgmma"]
+        else:
+            require(not launches, f"(h2) the train step launched kernels: {launches}")
+        print(f"(h2) dry run {GRANITE_ARCH} {shape} (its own global batch {rec['batch']}), "
+              f"rank 0 of {rec['world']} on "
+              f"{A2A_MESH} (mesh made in {rec['mesh_create_s']:.4f} s; fake group: values not "
+              f"held), {rec['batch_local']} rows x {rec['seq'] // 2} positions a rank, "
+              f"--require-alltoall: alltoall_count {rec['alltoall_count']}; "
+              f"{_log_on_off(rec)} s/step, peak {rec['peak_gb']:.2f} GB"
+              + (f", forward/backward peak {rec['fwd_bwd_peak_gb']:.2f} GB"
+                 if rec.get("fwd_bwd_peak_gb") is not None else "")
+              + f"; all-to-alls a step by axis {_a2a_line(rec)} (formula: {n} / {nbytes} B on "
+              f"model, {passes} a 512-token group of a layer); all collectives "
+              f"{_coll_line(rec)}; {_terms(rec)}; launches {launches}", flush=True)
+        _release()
+    return out
+
+
+@phase("all-to-all EP (h3): bench_moe_alltoall's cell, Granite-3.0 1B-A400M train_512 "
+       "(1,024 positions) as rank 0 of 2x8x2x16, the all-to-all bytes by axis")
+def a2a_traffic() -> None:
+    """``launch.dryrun`` of Granite's train step at train_512's global
+    batch of 64 (rank 0's 4 rows) on ``benchmarks/run.py``
+    ``bench_moe_alltoall``'s mesh (pod x data x seq x model; fake group),
+    at A2A_TRAFFIC_SEQ positions. Every all-to-all byte rides ``model``:
+    none on ``pod`` or ``data`` (JAX's bench asserts under 1 % inter-pod);
+    the count and bytes :func:`_a2a_formula`'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(GRANITE_ARCH)
+    rec = dryrun.main(["--arch", GRANITE_ARCH, "--shape", "train_512", "--mesh-shape",
+                       A2A_TRAFFIC_MESH, "--seq", str(A2A_TRAFFIC_SEQ), "--steps", "1",
+                       "--require-alltoall"])
+    n, nbytes = _a2a_formula(cfg, rec["batch_local"], A2A_TRAFFIC_SEQ // 2, 16, 6)
+    off_model = {axis: kinds["all-to-all"]["bytes"] for axis, kinds in rec["collectives"].items()
+                 if axis != "model" and "all-to-all" in kinds}
+    require(not off_model, f"(h3) all-to-all bytes off model: {off_model}")
+    require(rec["collectives"]["model"]["all-to-all"] == {"count": n, "bytes": nbytes},
+            f"(h3) all-to-alls {_a2a_line(rec)}, the formula {n} / {nbytes} B")
+    pod = sum(v["bytes"] for v in rec["collectives"].get("pod", {}).values())
+    print(f"(h3) dry run {GRANITE_ARCH} train_512 at {A2A_TRAFFIC_SEQ} positions (global batch "
+          f"{rec['batch']}), rank 0 of {rec['world']} on {A2A_TRAFFIC_MESH}: all-to-all bytes "
+          f"a step pod 0, data 0, seq 0, model {nbytes} ({n} all-to-alls, the formula's); all "
+          f"pod bytes {pod}; {rec['s_per_step']:.4f} s/step, peak {rec['peak_gb']:.2f} GB; "
+          f"all collectives {_coll_line(rec)}", flush=True)
+    _release()
+
 
 def main() -> int:
     import torch
@@ -3791,11 +4036,14 @@ def main() -> int:
     seq_seamless_train()
     seq_local_fold()
     mode_launches = dryrun_modes()
+    a2a_layer()
+    a2a_launches = a2a_gated_dryruns()            # Granite's seq ring at B 8 x 16,384
+    a2a_traffic()
 
     wgmma_rows = ("flash_attention_wgmma", "flash_attention_wgmma_ring_heads_on_model",
                   *(f"flash_attention_wgmma_local_heads_h{h}_kv{kv}"
                     for h, kv, *_ in LOCAL_HEADS),
-                  *(name for name, *_ in SEQ_RINGS))
+                  *(name for name, *_ in SEQ_RINGS), A2A_RING[0])
     sources = {**{n: "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu" for n in wgmma_rows},
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     replaces = {
@@ -3819,7 +4067,7 @@ def main() -> int:
                                          **ring_launches, **serve32_launches,
                                          "GroupRing n=1 (nccl)": nccl_launches["ring"],
                                          "placed serve, 1x1 (nccl)": tp_serve_launches,
-                                         **dry_launches, **seq_launches},
+                                         **dry_launches, **seq_launches, **a2a_launches},
                "flash_attention_simt": fp32_launches}
     # the model-parallel rows: the launches of the paths that take each shape
     by_path.update({
@@ -3829,7 +4077,8 @@ def main() -> int:
             k: n for k, n in dry_launches.items() if f"(H={h}/{kv})" in k}
            for h, kv, *_ in LOCAL_HEADS},
         **{name: {k: n for k, n in seq_launches.items() if arch in k}
-           for name, arch, *_ in SEQ_RINGS}})
+           for name, arch, *_ in SEQ_RINGS},
+        A2A_RING[0]: a2a_launches})
     # any kernel launched by a dry-run mode cell (none is predicted: decode attention and
     # the round's quantizer are plain torch)
     for cell, found in mode_launches.items():

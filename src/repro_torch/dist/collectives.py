@@ -25,6 +25,10 @@ forward needs a backward:
   * :func:`sum_over_model`: an all-reduce (sum) over ``model`` both ways,
     for a sum of rank partials whose downstream is rank-local (the gated
     RMSNorm's sum of squares);
+  * :func:`all_to_all`: block j of ``split_dim`` to group rank j, the
+    received blocks concatenated along ``concat_dim`` in group-rank order;
+    its backward is the reverse all-to-all (the MoE's expert dispatch and
+    combine, ``models.moe``);
   * :func:`all_gather_clients`: a plain all-gather over the client axis
     (the federated uplink), no gradient;
   * :func:`gather_raw` and :func:`reduce_scatter_raw`, the two raw ops
@@ -38,11 +42,12 @@ forward needs a backward:
 Every buffer a collective writes into comes from :func:`recv_buffer`
 (zeros under torch's fake process group, which moves no data). Each call
 records into every open :class:`CollectiveCounter`: the kind
-(``all-gather``, ``reduce-scatter``, ``all-reduce``, ``broadcast``,
-``send/recv``), the mesh axis, the dtype, the bytes and the group size.
-Bytes follow ``hlo_analysis._result_bytes``: the op's *result* bytes (an
-all-gather's gathered tensor, a reduce-scatter's shard, an all-reduce's
-whole tensor, a broadcast's tensor, a receive's buffer). The counters are
+(``all-gather``, ``reduce-scatter``, ``all-reduce``, ``all-to-all``,
+``broadcast``, ``send/recv``), the mesh axis, the dtype, the bytes and the
+group size. Bytes follow ``hlo_analysis._result_bytes``: the op's *result*
+bytes (an all-gather's gathered tensor, a reduce-scatter's shard, an
+all-reduce's whole tensor, an all-to-all's concatenated blocks, a
+broadcast's tensor, a receive's buffer). The counters are
 process-wide, not thread-local: on the card autograd runs a backward on
 its own device thread, and the backward's reduce-scatters and
 all-reduces must be counted too.
@@ -173,6 +178,21 @@ def _ar(x: torch.Tensor, group, axis: str, op=dist.ReduceOp.SUM, tag: str = "") 
     return out
 
 
+def _a2a(x: torch.Tensor, group, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Block j of x along ``split_dim`` to group rank j; the blocks
+    received, concatenated along ``concat_dim`` in group-rank order."""
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not divide "
+                         f"into {n} blocks")
+    send = torch.stack(torch.chunk(x, n, dim=split_dim))
+    recv = recv_buffer(send, send.shape, group)
+    dist.all_to_all_single(recv, send, group=group)
+    out = torch.cat(recv.unbind(0), dim=concat_dim)
+    _record("all-to-all", axis, out, n)
+    return out
+
+
 def _own_block(g: torch.Tensor, group, dim: int) -> torch.Tensor:
     n, r = dist.get_world_size(group), dist.get_rank(group)
     return torch.chunk(g, n, dim=dim)[r].contiguous()
@@ -234,6 +254,17 @@ class _ReduceBoth(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _ar(g, ctx.group, ctx.axis), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis, split_dim, concat_dim):
+        ctx.group, ctx.axis, ctx.split_dim, ctx.concat_dim = group, axis, split_dim, concat_dim
+        return _a2a(x, group, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.group, ctx.axis, ctx.concat_dim, ctx.split_dim), None, None, None, None
 
 
 def gather_fsdp(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -306,6 +337,17 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     """Megatron's *g*: all-reduce over ``model``, the identity in backward."""
     return reduce_over(x, ("model",))
+
+
+def all_to_all(x: torch.Tensor, axis: str, *, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """All-to-all over ``axis``: block j of ``split_dim`` goes to rank j of
+    the axis, and the blocks received are concatenated along ``concat_dim``
+    in rank order. Backward: the reverse all-to-all (the two dims
+    swapped)."""
+    plan = current_activation_plan()
+    if not _live(plan, axis):
+        return x
+    return _AllToAll.apply(x, plan.mesh.get_group(axis), axis, split_dim, concat_dim)
 
 
 @torch.no_grad()

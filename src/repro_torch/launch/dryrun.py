@@ -5,7 +5,8 @@ group: the memory and collective half of the JAX package's
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
         --shape train_4k [--multi-pod | --mesh-shape 2x2] [--fl-round] \\
         [--causal-skip] [--batch 2] [--seq 4096] [--steps 2] [--reduced] \\
-        [--require-seq-sharded] [--require-flash] [--out results.jsonl]
+        [--require-seq-sharded] [--require-alltoall] [--require-flash] \\
+        [--out results.jsonl]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3_8b \\
         --shape train_512 --wire-ratio [--downlink off|quant|delta]
 
@@ -70,14 +71,17 @@ the counts hold its all-gathers (K and V in training, the recurrent
 families' halos and state pairs), reduce-scatters (their backward),
 all-reduces (the gradient sums, the loss's), broadcasts and the ring's
 send/recv by kind; the analytic count stays the dense family's on
-``{data, model}``. JAX's field names come beside the port's (``step``,
+``{data, model}``. A moe family whose experts and capacity the plan puts
+on ``model`` (``models.moe``) adds its all-to-alls there, by kind, gate or
+not. JAX's field names come beside the port's (``step``,
 ``n_chips``, ``causal_skip``, the analytic terms, and the counter's bytes
 and counts by kind as ``collective_bytes_per_device``,
 ``collective_breakdown``, ``collective_counts``). Without ``fake_pg`` it
 raises: there is no other route.
 
-Two gates, with the JAX dry run's names and meanings, read the shapes one
-step materializes on the rank (``dist.shape_log``) and its collectives.
+Three gates, with the JAX dry run's names and meanings, read the shapes
+one step materializes on the rank (``dist.shape_log``) and its
+collectives.
 That step runs after the warm-up, untimed and alone under the log (the
 log's dispatch slows the step it logs), so no timed step runs
 under it:
@@ -85,6 +89,11 @@ under it:
   * ``--require-seq-sharded``: no per-rank tensor of 2 B_loc S d_model
     bytes or more still carries the full sequence length (records
     ``seq_sharded_ok``, ``full_seq_intermediates``);
+  * ``--require-alltoall``: the step issued an all-to-all on some axis
+    (the counter's records of kind ``all-to-all``; JAX counts every
+    all-to-all in its HLO): the MoE's expert dispatch where the plan
+    shards the experts and their capacity on one axis (``models.moe``).
+    Records ``alltoall_count``;
   * ``--require-flash``: ``attn_impl="flash"``, and no per-rank tensor of
     1 MiB or more carries O(S²) elements (``no_s2_scores_ok``,
     ``s2_offenders``); on a mesh whose ``seq`` axis is above 1 the ring
@@ -153,9 +162,10 @@ def wire_bytes(records) -> int:
     (result bytes R, group size n), by NCCL's ring bus-bandwidth factors
     (nccl-tests' PERFORMANCE.md): an all-gather (n-1)/n R, a reduce-scatter
     (n-1) R (its input is n R), an all-reduce 2 (n-1)/n R (a reduce-scatter
-    then an all-gather), a broadcast or send/recv R."""
+    then an all-gather), an all-to-all (n-1)/n R (the block a rank keeps
+    does not move), a broadcast or send/recv R."""
     factor = {"all-gather": lambda n: (n - 1) / n, "reduce-scatter": lambda n: n - 1,
-              "all-reduce": lambda n: 2 * (n - 1) / n}
+              "all-reduce": lambda n: 2 * (n - 1) / n, "all-to-all": lambda n: (n - 1) / n}
     return round(sum(r.bytes * factor.get(r.kind, lambda n: 1)(r.group_size)
                      for r in records))
 
@@ -321,8 +331,8 @@ def _inputs(cfg, shape, kind: str, gen: torch.Generator, dev: torch.device,
 
 
 def _gates(cfg, sizes: dict, b_loc: int, s: int, log, counter, *, seq_sharded: bool,
-           flash: bool) -> dict:
-    """The two gates on the gates' step's shape log and collectives
+           alltoall: bool, flash: bool) -> dict:
+    """The three gates on the gates' step's shape log and collectives
     (module docstring); raises ``AssertionError`` where one fails.
     ``b_loc``: the rows of the batch rank 0 holds."""
     from repro_torch.dist.shape_log import full_length_intermediates, no_s2_scores
@@ -338,6 +348,12 @@ def _gates(cfg, sizes: dict, b_loc: int, s: int, log, counter, *, seq_sharded: b
                                  f"seq={seq_sh} mesh; top: {offenders[:3]}")
             err.offenders = offenders          # every one, for a caller that compares them
             raise err
+    if alltoall:
+        n_a2a = sum(1 for r in counter.log if r.kind == "all-to-all")
+        gates["alltoall_count"] = n_a2a
+        if not n_a2a:
+            raise AssertionError("no all-to-all in the step (expected expert-sharded MoE "
+                                 f"dispatch on mesh {dict(sizes)})")
     if flash:
         offenders = no_s2_scores(log.entries, s, shards=seq_sh)
         p2p = sum(1 for r in counter.log if r.kind == "send/recv" and r.axis == "seq")
@@ -561,6 +577,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action="store_true", help="the arch's reduced config")
     ap.add_argument("--require-seq-sharded", action="store_true",
                     help="fail if a big per-rank tensor keeps the full sequence length")
+    ap.add_argument("--require-alltoall", action="store_true",
+                    help="fail unless the step issues an all-to-all (the expert-sharded MoE "
+                         "dispatch)")
     ap.add_argument("--require-flash", action="store_true",
                     help="flash attention; fail if a per-rank tensor holds O(S^2) scores, or "
                          "if a seq axis above 1 ran no ring")
@@ -652,7 +671,7 @@ def _run_one(args, dev: torch.device) -> dict:
             with CollectiveCounter() as warm:
                 run.step()                                              # warm-up
             signatures = [warm.signature()]
-            if args.require_seq_sharded or args.require_flash:
+            if args.require_seq_sharded or args.require_alltoall or args.require_flash:
                 # the gates' step: untimed, alone under the shape log
                 _sync(dev)
                 t0 = time.perf_counter()
@@ -665,6 +684,7 @@ def _run_one(args, dev: torch.device) -> dict:
                     b // (sizes.get("pod", 1) * sizes.get("data", 1)), 1)
                 record.update(_gates(cfg, sizes, b_loc, s, log, logged,
                                      seq_sharded=args.require_seq_sharded,
+                                     alltoall=args.require_alltoall,
                                      flash=args.require_flash))
             counters, times = [], []
             for _ in range(args.steps):

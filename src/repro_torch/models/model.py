@@ -64,7 +64,13 @@ its part of the ``model`` axis locally between ``copy_to_model`` and
 :func:`attention_mode`), SwiGLU columns (:func:`mlp`, every SwiGLU of
 every family), experts (:func:`ffn`), RWKV6's heads and channel-mix
 columns (``models/rwkv6.py``) and Mamba2's heads (``models/mamba2.py``);
-the vocab tables and the vlm projection are gathered at use. Heads go on
+the vocab tables and the vlm projection are gathered at use. The experts
+take one of two routes by the JAX package's rule (``models/moe.py``):
+where the plan puts each routing group's capacity on the experts' axis,
+2 all-to-alls a group of a layer forward (dispatch, combine), 2 in the
+backward and, under full remat, the forward's 2 again in the recompute;
+elsewhere no all-to-all. Both routes sum the partial outputs with 1
+all-reduce over ``model`` a layer. Heads go on
 ``model`` where H divides it (KV too, or each rank expands GQA for its
 heads); under the ring only where both do, else the heads stay
 replicated.
@@ -611,14 +617,20 @@ def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
     if cfg.family == "moe":
         cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
         mp = p["moe"]
-        experts = parallel.local_experts(cfg.n_experts, mp["wg"].shape[0])
-        if experts is None:
+        route = moe.expert_route(cfg.n_experts, mp["wg"].shape[0], y.shape[1], cfg.top_k, cf)
+        if route is None:
             return moe.moe_apply(mp, y, top_k=cfg.top_k, capacity_factor=cf)
-        # expert parallelism: every rank routes every token; the router's
-        # gradient sums the ranks' experts' parts
+        # expert parallelism: every rank routes every token, and the router's
+        # and the input's gradients sum the ranks' parts. The route is the
+        # JAX package's rule (moe.expert_route): the all-to-all route where
+        # the plan puts each group's capacity on the experts' axis (2
+        # all-to-alls a routing group forward, 2 more in the backward, and
+        # the 2 again in full remat's recompute, which runs each group to its
+        # combine), else the rank's experts' slots; either way the partial
+        # outputs are summed by 1 all-reduce over model a layer
         mp = dict(mp, router=collectives.copy_to_model(mp["router"]))
         out, aux = moe.moe_apply(mp, collectives.copy_to_model(y), top_k=cfg.top_k,
-                                 capacity_factor=cf, experts=experts)
+                                 capacity_factor=cf, route=route)
         return collectives.reduce_from_model(out), aux
     return mlp(cfg, p["mlp"], y), {}
 

@@ -20,7 +20,9 @@ forced host devices (a subprocess), held with the Adam first-step bound
 of ``tests/test_torch_train_step.py`` (``torch_replay.
 assert_adam_step_close``); the same for the reduced Zamba2-7B on ``1x2``
 against JAX's step on a ``1x2`` mesh, whose in-projection columns do not
-line up with the heads.
+line up with the heads; and the reduced Granite on ``1x4``, whose experts
+and capacity both divide ``model``: the MoE's all-to-all route
+(``models.moe``) against JAX's step, whose HLO holds an all-to-all.
 """
 import dataclasses
 import os
@@ -38,7 +40,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"1x2": 2, "2x2": 4, "1x4": 4}
 CASES = ("llama3_8b", "phi3_h40_kv10", "granite_moe_1b_a400m", "rwkv6_7b", "zamba2_7b",
          "seamless_m4t_large_v2", "internvl2_26b")
-JAX_STEPS = {"llama3_8b": "2x2", "zamba2_7b": "1x2"}    # arch: mesh of the step held to JAX's
+JAX_STEPS = {"llama3_8b": "2x2", "zamba2_7b": "1x2",     # arch: mesh of the step held to JAX's
+             "granite_moe_1b_a400m": "1x4"}
 B, S, LR = 4, 64, 3e-3
 
 _JAX_STEP = r"""
@@ -48,6 +51,7 @@ from jax.sharding import Mesh
 from repro.configs import get_reduced
 from repro.dist import sharding as shd
 from repro.dist.activations import activation_mesh
+from repro.dist.hlo_analysis import weighted_collectives
 from repro.dist.plan import make_plan
 from repro.launch import steps
 from repro.models import model
@@ -76,10 +80,12 @@ for arch, shape in zip(sys.argv[3::2], sys.argv[4::2]):
     p = jax.device_put(params, pspecs)
     st = jax.device_put(state, plan.named(shd.make_opt_specs(mesh, state, pspecs)))
     with activation_mesh(plan):
-        new, _, met = jax.jit(step)(p, st, batch)
+        compiled = jax.jit(step).lower(p, st, batch).compile()
+        new, _, met = compiled(p, st, batch)
     grads = jax.grad(lambda q: model.forward_train(cfg, q, batch)[0])(params)
     clipped, _ = clip_by_global_norm(grads, 1.0)
-    res = {"loss": np.asarray(met["loss"]), "grad_norm": np.asarray(met["grad_norm"])}
+    res = {"loss": np.asarray(met["loss"]), "grad_norm": np.asarray(met["grad_norm"]),
+           "a2a": weighted_collectives(compiled.as_text())["counts"].get("all-to-all", 0)}
     leaves = zip(jax.tree_util.tree_leaves(new), jax.tree_util.tree_leaves(clipped))
     for i, (a, c) in enumerate(leaves):
         res[f"p{i}"], res[f"c{i}"] = np.asarray(a), np.asarray(c)
@@ -122,6 +128,7 @@ def _tp_rank(rank, world, out_dir, mesh_shape):
     ``JAX_STEPS`` on their meshes, on one rank; pickled by rank."""
     from repro_torch import tree as tree_util
     from repro_torch.dist.activations import activation_mesh
+    from repro_torch.dist.collectives import CollectiveCounter
     from repro_torch.dist.placement import full_tree, place_tree
     from repro_torch.dist.plan import make_plan
     from repro_torch.launch.mesh import make_production_mesh
@@ -134,11 +141,12 @@ def _tp_rank(rank, world, out_dir, mesh_shape):
     for name in CASES:
         cfg = _cfg(name)
         placed = place_tree(plan, _params(cfg))
-        with activation_mesh(plan):
+        with activation_mesh(plan), CollectiveCounter() as c:
             loss, _, grads = value_and_grad(cfg, placed, _batch(cfg))
         same = all(g.placements == p.placements
                    for g, p in zip(tree_util.leaves(grads), tree_util.leaves(placed)))
         res[name] = (loss, full_tree(grads), same)
+        res["a2a", name] = sum(1 for r in c.log if r.kind == "all-to-all")
     for arch, shape in JAX_STEPS.items():
         if shape != mesh_shape:
             continue
@@ -239,6 +247,25 @@ def _step_matches_jax(runs, arch):
 
 def test_train_step_on_2x2_matches_jax(runs):
     _step_matches_jax(runs, "llama3_8b")
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_granite_takes_the_all_to_all_route(runs, mesh):
+    """Granite's 4 experts and its capacity (40 at S = 64) divide every
+    mesh's ``model``: 6 all-to-alls a layer (forward, remat's recompute,
+    backward); no other case issues one."""
+    ranks, _, _ = runs
+    for r in range(MESHES[mesh]):
+        for case in CASES:
+            want = 6 * _cfg(case).n_layers if case == "granite_moe_1b_a400m" else 0
+            assert ranks[mesh, r]["a2a", case] == want, case
+
+
+def test_granite_train_step_on_1x4_matches_jax(runs):
+    """The all-to-all route against JAX's step, whose HLO holds an
+    all-to-all too: route against route."""
+    _step_matches_jax(runs, "granite_moe_1b_a400m")
+    assert int(runs[2]["granite_moe_1b_a400m"]["a2a"]) > 0
 
 
 def test_zamba2_train_step_on_1x2_matches_jax(runs):
