@@ -212,9 +212,17 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      and peak; the prefill's ring step on rank 0 (B = 8, 16,384 queries
      and keys) is a kernel row of its own, held against the plain version
      and timed beside the seq rings' steps; (h3) ``bench_moe_alltoall``'s
-     2x8x2x16 at train_512's batch, but 1,024 positions (at 512 a routing
-     group would span the two ``seq`` shards, which the port does not route
-     yet): no all-to-all byte on ``pod`` or ``data``;
+     own cell, Granite's train_512 (batch 64, 512 positions: one routing
+     group across the two ``seq`` shards) as rank 0 of 2x8x2x16 with
+     ``--require-alltoall``: no all-to-all byte on ``pod`` or ``data``,
+     the all-to-alls on ``model`` by the formula, the group's dispatch
+     summed over ``seq`` three times a layer, the ``seq`` traffic by kind,
+     and the ``--require-seq-sharded`` report; (h4) one full-width bf16
+     Granite MoE layer through ``LocalSeq`` at B = 64 x 512 on 2 shards
+     and B = 4 x 4,096 on 16 (each group over two shards): router logits,
+     queue positions, keep and every group's dispatched tensor bit-equal
+     to the unsharded layer's, the output within 2^-6 of its largest
+     magnitude, both timed beside the unsharded layer;
  12. one JSON line with each kernel's launches, error and times (the flash
      rows: launches summed over their paths and listed per path, and each
      checked shape's times; rows of their own for the local-heads shapes
@@ -3754,15 +3762,15 @@ MOE_BF16_REL = 2.0**-6        # of the largest magnitude: a bf16 MoE layer again
                               # (tests/test_torch_moe.py's bf16 bound)
 A2A_MESH = "1x4x2x16"         # (h2): benchmarks/dryrun_sweep.py's A2A_GATED mesh
 A2A_TRAFFIC_MESH = "2x8x2x16"     # (h3): benchmarks/run.py bench_moe_alltoall's mesh
-A2A_TRAFFIC_SEQ = 1024        # (h3): at train_512's 512 positions a routing group would span
-                              # seq 2's shards, which the port does not route yet: one a rank
 
 
 def _a2a_formula(cfg, rows: int, s_loc: int, m: int, passes: int) -> tuple[int, int]:
     """The all-to-alls a step on rank 0 and their result bytes: ``passes``
     a routing group of a layer (2 forward; a train step with full remat 6:
     forward, recompute, backward), each of rows x E x (C / m) x D bf16
-    elements."""
+    elements. ``s_loc``: the positions of the groups the rank routes (its
+    shard where it holds whole groups; a group's length where one spans
+    the shards)."""
     from repro_torch.models import moe
 
     g = moe.group_length(s_loc)
@@ -3876,6 +3884,112 @@ def a2a_layer() -> None:
     _release()
 
 
+MOE_SEQ_SHAPES = ((64, 512, 2), (4, 4096, 16))    # (h4): (B, S, seq shards LocalSeq emulates)
+MOE_SEQ_AUX_RTOL = 1e-4      # (h4): fp32 sums of up to 32,768 tokens' values in another order
+
+
+def _slot_calls(fn):
+    """``fn()`` and each ``moe._slots`` call's router logits, queue
+    positions and keep (a routing group, or a shard's piece of one), in
+    order."""
+    from repro_torch.models import moe
+
+    slots, calls = moe._slots, []
+
+    def spy(rt, *args, **kw):
+        out = slots(rt, *args, **kw)
+        calls.append((rt.logits, out[0], out[1]))
+        return out
+
+    moe._slots = spy
+    try:
+        return fn(), calls
+    finally:
+        moe._slots = slots
+
+
+@phase("routing groups across seq shards (h4): one full-width Granite-3.0 1B-A400M MoE layer, "
+       "bf16, B=64 x 512 through LocalSeq(2) and B=4 x 4096 through LocalSeq(16), against the "
+       "unsharded layer")
+def moe_seq_layer() -> None:
+    """``moe.moe_apply`` of one Granite layer (d_model 1,024, 32 experts
+    top-8, d_ff 512; random bf16 weights and inputs from seed 0) as n
+    sequence shards in one process (``dist.seq.LocalSeq``) whose routing
+    groups cross the shards' edges: one 512-token group over 2 shards of
+    256 (train_512's group on ``seq`` 2) and eight over 16 shards (each
+    group over two). Each group's pieces, put together in shard order:
+    router logits, queue positions and keep identical to the unsharded
+    layer's; each group's dispatched (B, E, C, D) tensor bit-equal; the
+    output within MOE_BF16_REL of the unsharded output's largest
+    magnitude, the aux values within MOE_SEQ_AUX_RTOL. Times (CUDA events)
+    the unsharded layer and the n shards in turn on the one card; no kernel
+    of the port runs (the MoE is torch)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist.seq import LocalSeq
+    from repro_torch.models import moe
+
+    cfg = get_config(GRANITE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = moe.moe_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers,
+                            torch.bfloat16)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    _reset_all_launches()
+    with torch.no_grad():
+        for b, s, n in MOE_SEQ_SHAPES:
+            x = torch.randn(b, s, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+            g = moe.group_length(s)
+            c = moe.group_capacity(g, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+            ((want, want_aux), w_xes), w_slots = _slot_calls(
+                lambda: _expert_calls(lambda: moe.moe_apply(params, x, **kw)))
+            ((out, aux), xes), p_slots = _slot_calls(lambda: _expert_calls(
+                lambda: moe.moe_apply(params, x, seq=LocalSeq(n), **kw)))
+            pieces: dict = {}
+            calls = iter(p_slots)
+            for r in range(n):
+                for j, _sl, _a in moe.group_pieces(r, s // n, g):
+                    pieces.setdefault(j, []).append(next(calls))
+            groups = [[torch.cat([p[i] for p in pieces[j]], dim=1) for i in range(3)]
+                      for j in sorted(pieces)]
+            require(len(groups) == len(w_slots) == s // g and len(xes) == len(w_xes) == s // g,
+                    f"(h4) {b}x{s} on {n}: {len(groups)} groups, {len(xes)} expert calls")
+            n_logits = sum(int((got[0] != ref[0]).sum()) for got, ref in zip(groups, w_slots))
+            require(n_logits == 0, f"(h4) {b}x{s} on {n}: {n_logits} router logits differ from "
+                    "the unsharded layer's")
+            require(all(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+                        for got, ref in zip(groups, w_slots)),
+                    f"(h4) {b}x{s} on {n}: queue positions or keep differ")
+            require(all(tuple(xe.shape) == (b, cfg.n_experts, c, cfg.d_model)
+                        and torch.equal(xe, ref) for (xe, _), (ref, _) in zip(xes, w_xes)),
+                    f"(h4) {b}x{s} on {n}: a group's dispatched tensor differs")
+            kept = float(torch.cat([ref[2].flatten() for ref in w_slots]).mean())
+            scale = want.float().abs().max().item()
+            err = (out.float() - want.float()).abs().max().item()
+            require(err <= MOE_BF16_REL * scale, f"(h4) {b}x{s} on {n}: output max abs err "
+                    f"{err:.3e} above 2^-6 x {scale:.3f}")
+            aux_rel = {k: abs(aux[k].item() - v.item()) / max(abs(v.item()), 1e-30)
+                       for k, v in want_aux.items() if v.item()}
+            require(all(r <= MOE_SEQ_AUX_RTOL for r in aux_rel.values())
+                    and (aux["dropped_frac"].item() == 0) == (want_aux["dropped_frac"].item() == 0),
+                    f"(h4) {b}x{s} on {n}: aux {aux} vs {want_aux}")
+            del w_slots, w_xes, p_slots, xes, pieces, groups
+            whole_ms = cuda_ms(lambda: moe.moe_apply(params, x, **kw), iters=3, warmup=1)
+            seq_ms = cuda_ms(lambda: moe.moe_apply(params, x, seq=LocalSeq(n), **kw), iters=3,
+                             warmup=1)
+            print(f"(h4) LocalSeq({n}), B={b} x S={s}: {s // g} routing group(s) of {g}, C={c}, "
+                  f"{s // n} positions a shard: router logits, queue positions and keep "
+                  f"identical to the unsharded layer's ({kept:.6f} of the slots kept), each "
+                  f"group's dispatched (B, E, C, D) tensor bit-equal; output max abs err "
+                  f"{err:.3e} of the unsharded layer's, largest magnitude {scale:.3f}; aux "
+                  f"relative differences {aux_rel}; the {n} shards in turn on one card "
+                  f"{seq_ms:.2f} ms, the unsharded layer {whole_ms:.2f} ms (CUDA events, 3 "
+                  "calls)", flush=True)
+            del x, want, out
+            _release()
+    launches = _all_launches()
+    require(not any(launches.values()), f"the MoE layer launched kernels: {launches}")
+
+
 @phase("all-to-all EP (h2): dryrun_sweep's A2A_GATED cells, full Granite-3.0 1B-A400M "
        "train_4k and prefill_32k at their own batches as rank 0 of 1x4x2x16 under the fake "
        "group, --require-alltoall")
@@ -3935,34 +4049,77 @@ def a2a_gated_dryruns() -> dict:
     return out
 
 
-@phase("all-to-all EP (h3): bench_moe_alltoall's cell, Granite-3.0 1B-A400M train_512 "
-       "(1,024 positions) as rank 0 of 2x8x2x16, the all-to-all bytes by axis")
+A2A_GROUP_SUMS = 3            # (h3): a layer's group sums over seq: forward, recompute, backward
+
+
+@phase("all-to-all EP (h3): bench_moe_alltoall's cell, Granite-3.0 1B-A400M train_512 as "
+       "rank 0 of 2x8x2x16, one routing group across the two seq shards: the all-to-all "
+       "bytes by axis, the seq traffic by kind, the seq gate's report")
 def a2a_traffic() -> None:
-    """``launch.dryrun`` of Granite's train step at train_512's global
-    batch of 64 (rank 0's 4 rows) on ``benchmarks/run.py``
-    ``bench_moe_alltoall``'s mesh (pod x data x seq x model; fake group),
-    at A2A_TRAFFIC_SEQ positions. Every all-to-all byte rides ``model``:
-    none on ``pod`` or ``data`` (JAX's bench asserts under 1 % inter-pod);
-    the count and bytes :func:`_a2a_formula`'s."""
+    """``launch.dryrun`` of Granite's train step at train_512's own shape
+    (global batch 64: rank 0's 4 rows; 512 positions: one routing group
+    across the two ``seq`` shards, 256 positions a rank) on
+    ``benchmarks/run.py`` ``bench_moe_alltoall``'s mesh (pod x data x seq x
+    model; fake group). Every all-to-all byte rides ``model``: none on
+    ``pod`` or ``data`` (JAX's bench asserts under 1 % inter-pod); the
+    count and bytes :func:`_a2a_formula`'s for the group. The group's
+    dispatch is summed over ``seq``: A2A_GROUP_SUMS all-reduces a layer of
+    the rank's (1, 1, B, E, C/m, D) bf16 capacity block, counted apart from
+    the rest of the ``seq`` traffic, printed by kind. Then the same step
+    with ``--require-seq-sharded``: its verdict and offenders printed."""
     from repro_torch.configs import get_config
+    from repro_torch.dist.collectives import CollectiveCounter
     from repro_torch.launch import dryrun
+    from repro_torch.models import moe
 
     cfg = get_config(GRANITE_ARCH)
-    rec = dryrun.main(["--arch", GRANITE_ARCH, "--shape", "train_512", "--mesh-shape",
-                       A2A_TRAFFIC_MESH, "--seq", str(A2A_TRAFFIC_SEQ), "--steps", "1",
-                       "--require-alltoall"])
-    n, nbytes = _a2a_formula(cfg, rec["batch_local"], A2A_TRAFFIC_SEQ // 2, 16, 6)
+    argv = ["--arch", GRANITE_ARCH, "--shape", "train_512", "--mesh-shape", A2A_TRAFFIC_MESH,
+            "--steps", "1"]
+    with CollectiveCounter() as every:
+        rec = dryrun.main([*argv, "--require-alltoall"])
+    steps = 3                          # the warm-up, the gates' step and the timed one
+    s = rec["seq"]
+    g = moe.group_length(s)
+    c = moe.group_capacity(g, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    n, nbytes = _a2a_formula(cfg, rec["batch_local"], g, 16, 6)
     off_model = {axis: kinds["all-to-all"]["bytes"] for axis, kinds in rec["collectives"].items()
                  if axis != "model" and "all-to-all" in kinds}
+    require(s == 512 and (s // 2) % g, f"(h3) {s} positions: no routing group across the shards")
     require(not off_model, f"(h3) all-to-all bytes off model: {off_model}")
     require(rec["collectives"]["model"]["all-to-all"] == {"count": n, "bytes": nbytes},
             f"(h3) all-to-alls {_a2a_line(rec)}, the formula {n} / {nbytes} B")
+    block = (s // g) * rec["batch_local"] * cfg.n_experts * (c // 16) * cfg.d_model * 2
+    sums = [r for r in every.log if (r.kind, r.axis, r.bytes) == ("all-reduce", "seq", block)]
+    require(len(sums) == steps * A2A_GROUP_SUMS * cfg.n_layers and rec["collectives_same_each_step"],
+            f"(h3) {len(sums)} seq all-reduces of {block} B in {steps} steps, want "
+            f"{A2A_GROUP_SUMS} a layer each")
+    seq = rec["collectives"].get("seq", {})
     pod = sum(v["bytes"] for v in rec["collectives"].get("pod", {}).values())
-    print(f"(h3) dry run {GRANITE_ARCH} train_512 at {A2A_TRAFFIC_SEQ} positions (global batch "
-          f"{rec['batch']}), rank 0 of {rec['world']} on {A2A_TRAFFIC_MESH}: all-to-all bytes "
-          f"a step pod 0, data 0, seq 0, model {nbytes} ({n} all-to-alls, the formula's); all "
-          f"pod bytes {pod}; {rec['s_per_step']:.4f} s/step, peak {rec['peak_gb']:.2f} GB; "
-          f"all collectives {_coll_line(rec)}", flush=True)
+    print(f"(h3) dry run {GRANITE_ARCH} train_512 at its own {s} positions (global batch "
+          f"{rec['batch']}), rank 0 of {rec['world']} on {A2A_TRAFFIC_MESH}, {s // 2} "
+          f"positions a rank, one routing group of {g} across the two seq shards (C={c}): "
+          f"all-to-all bytes a step pod 0, data 0, seq 0, model {nbytes} ({n} all-to-alls, "
+          f"the formula's); the group sums a step {len(sums) // steps} all-reduces on seq of "
+          f"{block} B ({len(sums) // steps * block} B); all seq traffic a step by kind "
+          + ", ".join(f"{k} {v['count']} / {v['bytes']} B" for k, v in sorted(seq.items()))
+          + f"; all pod bytes {pod}; {rec['s_per_step']:.4f} s/step, peak "
+          f"{rec['peak_gb']:.2f} GB; all collectives {_coll_line(rec)}", flush=True)
+    _release()
+    try:
+        dryrun.main([*argv, "--require-seq-sharded"])
+        print(f"(h3) {GRANITE_ARCH} train_512 on {A2A_TRAFFIC_MESH} --require-seq-sharded: "
+              "holds", flush=True)
+    except AssertionError as e:
+        shapes: dict = {}
+        for o in e.offenders:          # count and ops of each shape
+            n_ops = shapes.setdefault(o["shape"], [0, set()])
+            n_ops[0] += 1
+            n_ops[1].add(o["op"])
+        print(f"(h3) {GRANITE_ARCH} train_512 on {A2A_TRAFFIC_MESH} --require-seq-sharded: "
+              f"fails, {len(e.offenders)} offenders (512 positions: the full length, and "
+              "Granite's d_ff) by shape, count and ops "
+              + "; ".join(f"{k} {n} {sorted(ops)}" for k, (n, ops) in shapes.items()),
+              flush=True)
     _release()
 
 
@@ -4039,6 +4196,7 @@ def main() -> int:
     a2a_layer()
     a2a_launches = a2a_gated_dryruns()            # Granite's seq ring at B 8 x 16,384
     a2a_traffic()
+    moe_seq_layer()
 
     wgmma_rows = ("flash_attention_wgmma", "flash_attention_wgmma_ring_heads_on_model",
                   *(f"flash_attention_wgmma_local_heads_h{h}_kv{kv}"

@@ -24,7 +24,8 @@ forward needs a backward:
     with an identity backward (Megatron's *g*);
   * :func:`sum_over_model`: an all-reduce (sum) over ``model`` both ways,
     for a sum of rank partials whose downstream is rank-local (the gated
-    RMSNorm's sum of squares);
+    RMSNorm's sum of squares); :func:`sum_both` the same over an explicit
+    group (a MoE routing group's dispatch summed over its ``seq`` shards);
   * :func:`all_to_all`: block j of ``split_dim`` to group rank j, the
     received blocks concatenated along ``concat_dim`` in group-rank order;
     its backward is the reverse all-to-all (the MoE's expert dispatch and
@@ -311,6 +312,15 @@ def sum_over_model(x: torch.Tensor) -> torch.Tensor:
     if not _live(plan, "model"):
         return x
     return _ReduceBoth.apply(x, plan.mesh.get_group("model"), "model")
+
+
+def sum_both(x: torch.Tensor, group, axis: str) -> torch.Tensor:
+    """All-reduce (sum) of x over ``group``, and of the gradient in
+    backward: a sum of partials that every rank then reads whole (a MoE
+    routing group's dispatch over its ``seq`` shards)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _ReduceBoth.apply(x, group, axis)
 
 
 def copy_to(x: torch.Tensor, axes) -> torch.Tensor:

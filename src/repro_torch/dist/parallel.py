@@ -350,7 +350,9 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
 
 def seq_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the sequence's shards of a per-shard mean (equal
-    positions a shard; the MoE's aux values, a mean over routing groups)."""
+    positions a shard; the MoE's aux values, a mean over routing groups, or
+    the whole sequence's on every shard where its groups cross the
+    shards). All-reduce forward, identity backward, then the division."""
     view = _VIEW.get()
     return x if view is None else _mean_over(x, view.seq_axes)
 

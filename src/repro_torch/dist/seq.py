@@ -20,7 +20,11 @@ recurrence needs only what crosses each shard's left edge:
     runs its chunk-state scan again from S_in(i).
 
 Both go through :meth:`exchange`, one all-gather of each shard's part and a
-function of the gathered stack. Two transports run the one layer code:
+function of the gathered stack. A MoE routing group that crosses the
+shards' edges (``models.moe``) takes its queue offsets and its aux sums
+through :meth:`exchange` too, and sums its pieces' partials of the
+group's dispatch with :meth:`sum_pieces`. Two transports run the one layer
+code:
 
   * :class:`GroupSeq`, this rank's shard over a ``torch.distributed`` group
     (the ``seq`` axis of the active plan): the gather is an all-gather, its
@@ -89,6 +93,19 @@ class GroupSeq(NamedTuple):
         on a new leading dim."""
         return [_Exchange.apply(f, self.idx, self.group, self.axis, *parts[0])]
 
+    def sum_pieces(self, parts: Sequence[dict], n_keys: int) -> list:
+        """``[{key: sum}]``: for each key of this shard's ``parts[0]``
+        ({key: partial}, keys in ``range(n_keys)``), the sum of every
+        shard's partial of that key. One all-reduce (sum) over the group of
+        the (n_keys, ...) stack, zeros for the keys the shard does not
+        hold; its backward all-reduces the gradient too, since every shard
+        reads the whole sum."""
+        own = parts[0]
+        zero = torch.zeros_like(next(iter(own.values())))
+        total = collectives.sum_both(torch.stack([own.get(j, zero) for j in range(n_keys)]),
+                                     self.group, self.axis)
+        return [{j: total[j] for j in own}]
+
 
 class LocalSeq:
     """The n shards of a sequence in one process (module docstring): the
@@ -113,6 +130,16 @@ class LocalSeq:
     def exchange(self, parts: Sequence[tuple], f: Callable) -> list:
         stacks = [torch.stack(list(col)) for col in zip(*parts)]
         return [f(stacks, i) for i in self.ranks]
+
+    def sum_pieces(self, parts: Sequence[dict], n_keys: int) -> list:
+        """:meth:`GroupSeq.sum_pieces` of the n shards: each key's partials
+        added in shard order, only those of the shards that hold it; the
+        shards of a key share its one sum."""
+        totals: dict = {}
+        for own in parts:
+            for j, t in own.items():
+                totals[j] = t if j not in totals else totals[j] + t
+        return [{j: totals[j] for j in own} for own in parts]
 
 
 def fold(s0: torch.Tensor, expand: Callable) -> Callable:

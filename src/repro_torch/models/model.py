@@ -39,9 +39,12 @@ ring_flash_attention``, each step through the flash kernels) where the
 JAX package's ring test holds (``attn_impl="flash"``, S above 2,048,
 ``S % (n chunk_size) == 0``) outside autograd; otherwise K and V are
 all-gathered over ``seq`` with a reduce-scatter backward and the rank's
-queries attend at their global positions. The moe family's shards hold
-whole 512-token routing groups (its aux values are averaged over the
-shards); RWKV6's token shifts and Mamba2's conv take the previous shard's
+queries attend at their global positions. The moe family's routing
+groups come from the whole sequence: where a shard holds whole groups it
+routes them alone (its aux values averaged over the shards), and where a
+group crosses a shard's edge its pieces route as one group, one queue and
+one capacity, their dispatch summed over ``seq`` (``models/moe.py``);
+RWKV6's token shifts and Mamba2's conv take the previous shard's
 last rows, and their chunked scans start from the fold of the earlier
 shards' state maps (``dist.seq``). The encdec family cuts its two
 sequences each by its own length (:class:`EncDecShards`): the encoder
@@ -367,7 +370,7 @@ _SEQ_SHARD: contextvars.ContextVar[Optional[GroupSeq]] = contextvars.ContextVar(
 
 def _seq_chunk(cfg: ModelConfig) -> int:
     """The positions a shard must hold whole multiples of: the recurrent
-    scans' chunk, the MoE's routing groups; 1 elsewhere."""
+    scans' chunk; 1 elsewhere."""
     return {"ssm": RWKV_CHUNK, "hybrid": ssd_chunk(cfg)}.get(cfg.family, 1)
 
 
@@ -409,8 +412,7 @@ def seq_shard(cfg: ModelConfig,
     :class:`EncDecShards` (``None`` where neither is cut). Where the
     plan's batch rows run over ``seq`` (the federated round's intra-client
     data axis), the sequence stays whole. Raises where the port has no
-    path: a MoE shard that splits a routing group, a recurrent shard off
-    its scan's chunk (module docstring)."""
+    path: a recurrent shard off its scan's chunk (module docstring)."""
     plan = current_activation_plan()
     if plan is None or plan.axis_size("seq") == 1:
         return None, batch
@@ -438,10 +440,6 @@ def seq_shard(cfg: ModelConfig,
         return None, batch           # not sharded: every rank runs the whole sequence
     shard, sl = cut
     n = shard.n
-    if cfg.family == "moe" and s % (n * moe.ROUTE_CHUNK):
-        raise ValueError(
-            f"a sequence-parallel MoE over {n} ranks needs S % (n * {moe.ROUTE_CHUNK}) == 0, "
-            f"so that each shard holds whole routing groups; got S={s}")
     if (s // n) % _seq_chunk(cfg):
         raise ValueError(
             f"a sequence-parallel {cfg.family} forward over {n} ranks needs each shard's "
@@ -617,9 +615,13 @@ def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
     if cfg.family == "moe":
         cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
         mp = p["moe"]
-        route = moe.expert_route(cfg.n_experts, mp["wg"].shape[0], y.shape[1], cfg.top_k, cf)
+        # the routing groups, and so the route's capacity, are the whole
+        # sequence's: in a sequence-parallel forward a group may span shards
+        shard = _SEQ_SHARD.get()
+        s = y.shape[1] * (1 if shard is None else shard.n)
+        route = moe.expert_route(cfg.n_experts, mp["wg"].shape[0], s, cfg.top_k, cf)
         if route is None:
-            return moe.moe_apply(mp, y, top_k=cfg.top_k, capacity_factor=cf)
+            return moe.moe_apply(mp, y, top_k=cfg.top_k, capacity_factor=cf, seq=shard)
         # expert parallelism: every rank routes every token, and the router's
         # and the input's gradients sum the ranks' parts. The route is the
         # JAX package's rule (moe.expert_route): the all-to-all route where
@@ -630,7 +632,7 @@ def ffn(cfg: ModelConfig, p: dict, y: torch.Tensor, *,
         # outputs are summed by 1 all-reduce over model a layer
         mp = dict(mp, router=collectives.copy_to_model(mp["router"]))
         out, aux = moe.moe_apply(mp, collectives.copy_to_model(y), top_k=cfg.top_k,
-                                 capacity_factor=cf, route=route)
+                                 capacity_factor=cf, route=route, seq=shard)
         return collectives.reduce_from_model(out), aux
     return mlp(cfg, p["mlp"], y), {}
 
@@ -1036,7 +1038,10 @@ def _forward_train(cfg: ModelConfig, params: Params, batch: dict, *, causal_skip
                 h = h[:, batch["vis_embeds"].shape[1]:, :]
         h = final_norm(cfg, params, h)
         loss = _chunked_ce(cfg, params, h, batch["labels"], batch["mask"].to(torch.float32))
-        # each shard's aux values are a mean over its routing groups
+        # each shard's aux values are a mean over its routing groups, or,
+        # where groups cross the shards, the whole sequence's on every shard:
+        # a mean over seq with an identity backward either way, whose
+        # gradient the groups' sums over seq then add up once
         aux = {k: parallel.seq_mean(v) for k, v in aux.items()}
     metrics = {"loss": loss}
     if aux:

@@ -66,11 +66,56 @@ summed in rank order), which holds the route at full width on one card.
 Under a model-parallel plan the aux losses are of the global batch
 (``dist.parallel.batch_mean``) and their gradient enters on one model rank
 (``dist.parallel.aux_grad_gate``).
+
+Routing groups across sequence shards. Under sequence parallelism
+(``moe_apply(..., seq=)``, a ``dist.seq`` transport) the groups are those
+of the whole sequence, S = n S_loc, as the JAX package forms them before
+GSPMD cuts S over ``seq``. Where each shard holds whole groups (S_loc a
+multiple of the group length), each routes its own, as without ``seq``.
+Elsewhere (S_loc below 512, or one group of the whole S) a group crosses
+a shard's edge, and shard i (positions ``[i S_loc, (i + 1) S_loc)``) holds
+a piece of each group it touches (:func:`group_pieces`). The pieces of a
+group route as the unsharded group does, with no approximation
+(:func:`_moe_apply_pieces`):
+
+  * **one queue**: each shard counts its pieces' routing slots to each
+    expert, (G, B, E) integers in fp32; the counts are gathered over
+    ``seq`` (``seq.exchange``), and a piece's queue positions start after
+    the slots of its group's pieces on the shards before it (JAX's
+    cumulative sum across the shards). Positions and ``keep`` are those
+    of the unsharded layer, against the whole group's capacity C;
+  * **one dispatched tensor**: each shard builds its pieces' partials of
+    the group's dispatch, in the route's layout (the rank's capacity
+    block (B, E, C/m, D) under the all-to-all route, its experts' queues
+    (B, e, C, D) under the all-reduce route, (B, E, C, D) without expert
+    parallelism), and the partials are summed over the shards
+    (``seq.sum_pieces``). Every element has one non-zero term, so the sum
+    is exact and bit-equal to the unsharded dispatch. On a process group
+    the sum is one all-reduce over ``seq`` of the (G, m', B, E', C', D)
+    stack (zeros for the groups the shard does not touch) a layer, and one
+    more of its gradient in the backward (every shard reads the whole
+    group's expert outputs): G B E C D / m elements in the activation
+    dtype under the all-to-all route of m ranks (Granite train_512 on
+    2x8x2x16: 1 x 4 x 32 x 10 x 1,024 bf16, 2,621,440 B), three times a
+    layer of a train step under full remat. The summed tensor then takes
+    the route unchanged;
+  * **the experts on every shard of the group**: the JAX package's
+    ``becd`` leaves C whole on ``seq``, so each of the group's shards runs
+    the group's experts (the expert FLOPs repeated on each ``seq`` rank)
+    and combines only its own tokens' slots;
+  * **the whole group's aux values**: each shard's sums over its pieces
+    (slots to each expert, router probabilities, squared log-normalizers,
+    kept slots) are summed over the shards (``seq.exchange``, (G, 2E + 2)
+    fp32, differentiable: reduce-scatter backward), so ``lb_loss``'s two
+    means, ``z_loss`` and ``dropped_frac`` are the group's, then averaged
+    over the groups. Every shard returns the same values; the train
+    forward's mean over ``seq`` (identity backward) and the sum's backward
+    count their gradient once.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -95,12 +140,24 @@ def moe_params(generator: torch.Generator, d: int, f: int, n_experts: int, n_lay
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
-              route_chunk: int = ROUTE_CHUNK, route: "Route" = None) -> tuple[torch.Tensor, dict]:
+              route_chunk: int = ROUTE_CHUNK, route: "Route" = None,
+              seq=None) -> tuple[torch.Tensor, dict]:
     """Capacity-based top-k MoE of x (B, S, D). A sequence is routed in
     groups of :func:`group_length` tokens, each with its own capacity; the
     aux values are averaged over the groups. Only one group's dispatch
     tensors are alive at a time (without autograd). ``route``: the expert
-    parallel route (:func:`expert_route`; None: every expert here)."""
+    parallel route (:func:`expert_route`; None: every expert here).
+    ``seq``: the sequence shards x runs as (a ``dist.seq`` transport: the
+    active shard's ``GroupSeq``, x its shard; ``LocalSeq(n)``, x the whole
+    sequence; module docstring), the groups taken from the whole length:
+    where each shard holds whole groups, x's own groups are those."""
+    if seq is not None:
+        xs = seq.split(x)
+        g = group_length(seq.n * xs[0].shape[1], route_chunk)
+        if xs[0].shape[1] % g:
+            outs, aux = _moe_apply_pieces(params, xs, seq, g, top_k=top_k,
+                                          capacity_factor=capacity_factor, route=route)
+            return seq.join(outs), aux
     b, s, d = x.shape
     g = group_length(s, route_chunk)
     kw = dict(top_k=top_k, capacity_factor=capacity_factor, route=route)
@@ -245,49 +302,133 @@ def _queue_positions(flat_sel: torch.Tensor) -> torch.Tensor:
     return ((torch.cumsum(sel_e, dim=-1) - sel_e) * sel_e).sum(1)
 
 
+class Routed(NamedTuple):
+    """A group's (or a piece's) routing: fp32 logits and probabilities
+    (B, S, E), the renormalized top-k gates and their experts (B, S, K),
+    and the one-hot of each routing slot's expert (B, S, K, E)."""
+    logits: torch.Tensor
+    probs: torch.Tensor
+    gate_vals: torch.Tensor
+    gate_idx: torch.Tensor
+    sel: torch.Tensor
+
+
+def _route(params: dict, x: torch.Tensor, top_k: int) -> Routed:
+    """Top-k routing of x's tokens with renormalized gates."""
+    logits, probs = _router(params, x)
+    gate_vals, gate_idx = _local_top_k(probs, top_k)              # (B,S,K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    expert_ids = torch.arange(params["router"].shape[-1], device=x.device)
+    sel = (gate_idx[..., None] == expert_ids).float()             # (B,S,K,E) one-hot
+    return Routed(logits, probs, gate_vals, gate_idx, sel)
+
+
+def _slots(rt: Routed, capacity: int, offset: Optional[torch.Tensor] = None
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each routing slot's queue position (B, S*K) and ``keep`` (B, S, K),
+    and the dispatch and combine weights (B, S, E*C) of capacity C.
+    ``offset`` (B, E): the slots of the same group that earlier shards send
+    to each expert, added to the shard's own counts (integers, exact in
+    fp32)."""
+    b, s, k, e = rt.sel.shape
+    pos_in_expert = _queue_positions(rt.sel.reshape(b, s * k, e))
+    if offset is not None:
+        pos_in_expert = pos_in_expert + torch.gather(offset, 1, rt.gate_idx.reshape(b, s * k))
+    keep = pos_in_expert < capacity                                # drop overflow
+    keepf = keep.float()
+    slot = (rt.gate_idx.reshape(b, s * k) * capacity
+            + pos_in_expert.long().clamp(max=capacity - 1)).reshape(b, s, k)
+    keepf = keepf.reshape(b, s, k)
+    disp_tokens = torch.zeros((b, s, e * capacity), dtype=torch.float32, device=rt.sel.device)
+    disp_tokens.scatter_(-1, slot, keepf)                          # (B,S,E*C)
+    combine_tok = torch.zeros_like(disp_tokens).scatter_(-1, slot, rt.gate_vals * keepf)
+    return pos_in_expert, keepf, disp_tokens, combine_tok
+
+
+def _is_exchange(route: Route) -> bool:
+    return isinstance(route, (GroupExchange, LocalExchange))
+
+
+def _expert_range(route: Route, e: int) -> tuple[int, int]:
+    return (0, e) if route is None else (route.lo, route.hi)
+
+
+def _cap_block(t: torch.Tensor, capacity: int, n: int, r: int, dtype: torch.dtype
+               ) -> torch.Tensor:
+    """Rank r's capacity columns of every expert of t (B, S, E*C): (B, S,
+    E*C/n) in ``dtype``."""
+    b, s = t.shape[:2]
+    e, cb = t.shape[-1] // capacity, capacity // n
+    return t.view(b, s, e, capacity)[..., r * cb:(r + 1) * cb].reshape(b, s, e * cb).to(dtype)
+
+
+def _dispatch(x: torch.Tensor, disp_tokens: torch.Tensor, capacity: int, route: Route) -> list:
+    """The dispatched tensors of x's tokens: under the all-to-all route each
+    emulated rank's capacity block of every expert (B, E, C/n, D) (JAX's
+    ``becd_cap``), else the rank's experts' whole queues (B, e, C, D)."""
+    b, s, d = x.shape
+    e = disp_tokens.shape[-1] // capacity
+    if _is_exchange(route):
+        n = route.n
+        if capacity % n or e % n:
+            raise ValueError(f"the all-to-all route over {n} ranks needs E ({e}) and C "
+                             f"({capacity}) to divide")
+        return [torch.matmul(_cap_block(disp_tokens, capacity, n, r, x.dtype).transpose(1, 2),
+                             x).reshape(b, e, capacity // n, d) for r in route.ranks]
+    lo, hi = _expert_range(route, e)
+    if route is not None:
+        disp_tokens = disp_tokens[..., lo * capacity:hi * capacity]
+    return [torch.matmul(disp_tokens.to(x.dtype).transpose(1, 2), x).reshape(
+        b, hi - lo, capacity, d)]
+
+
+def _expert_outputs(params: dict, xes: list, route: Route) -> list:
+    """The experts on the dispatched tensors of :func:`_dispatch`: under
+    the all-to-all route moved to the experts' ranks (JAX's ``becd``: (B,
+    E/n, C, D)), run, and moved back (``becd_cap``)."""
+    if _is_exchange(route):
+        xs = route.exchange(xes, split_dim=1, concat_dim=2)
+        ys = [_experts(route.experts(params, r), xe) for r, xe in zip(route.ranks, xs)]
+        return route.exchange(ys, split_dim=2, concat_dim=1)
+    return [_experts(params, xes[0])]
+
+
+def _combine(combine_tok: torch.Tensor, ys: list, capacity: int, route: Route,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The combine of the tokens of ``combine_tok`` (B, S, E*C) from the
+    expert outputs of :func:`_expert_outputs`; under the all-to-all route
+    ``route.join`` of the ranks' partials."""
+    b, s = combine_tok.shape[:2]
+    e = combine_tok.shape[-1] // capacity
+    if _is_exchange(route):
+        cb = capacity // route.n
+        return route.join([torch.matmul(_cap_block(combine_tok, capacity, route.n, r, dtype),
+                                        y.reshape(b, e * cb, y.shape[-1]))
+                           for r, y in zip(route.ranks, ys)])
+    lo, hi = _expert_range(route, e)
+    if route is not None:
+        combine_tok = combine_tok[..., lo * capacity:hi * capacity]
+    y = ys[0]
+    return torch.matmul(combine_tok.to(dtype), y.reshape(b, (hi - lo) * capacity, y.shape[-1]))
+
+
 def _moe_apply_dense(params: dict, x: torch.Tensor, *, top_k: int,
                      capacity_factor: float = 1.25, route: Route = None
                      ) -> tuple[torch.Tensor, dict]:
     b, s, d = x.shape
     e = params["router"].shape[-1]
-    dtype = x.dtype
-    logits, probs = _router(params, x)
-
-    # --- top-k routing with renormalized gates -------------------------
-    gate_vals, gate_idx = _local_top_k(probs, top_k)              # (B,S,K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
-
+    rt = _route(params, x, top_k)
     capacity = group_capacity(s, top_k, e, capacity_factor)
-
-    expert_ids = torch.arange(e, device=x.device)
-    sel = (gate_idx[..., None] == expert_ids).float()                 # (B,S,K,E) one-hot
-    pos_in_expert = _queue_positions(sel.reshape(b, s * top_k, e))
-    keep = pos_in_expert < capacity                                # drop overflow
-    keepf = keep.float()
-    slot = (gate_idx.reshape(b, s * top_k) * capacity
-            + pos_in_expert.long().clamp(max=capacity - 1)).reshape(b, s, top_k)
-    keepf = keepf.reshape(b, s, top_k)
-    disp_tokens = torch.zeros((b, s, e * capacity), dtype=torch.float32, device=x.device)
-    disp_tokens.scatter_(-1, slot, keepf)                          # (B,S,E*C)
-    combine_tok = torch.zeros_like(disp_tokens).scatter_(-1, slot, gate_vals * keepf)
+    _pos, keepf, disp_tokens, combine_tok = _slots(rt, capacity)
 
     # --- expert computation ---------------------------------------------
-    if isinstance(route, (GroupExchange, LocalExchange)):
-        out = _alltoall_route(params, x, disp_tokens, combine_tok, capacity, route)
-    else:                              # the rank's experts' slots (all of them unsharded)
-        lo, hi = (0, e) if route is None else (route.lo, route.hi)
-        if route is not None:
-            disp_tokens = disp_tokens[..., lo * capacity:hi * capacity]
-            combine_tok = combine_tok[..., lo * capacity:hi * capacity]
-        xe = torch.matmul(disp_tokens.to(dtype).transpose(1, 2), x).reshape(
-            b, hi - lo, capacity, d)
-        y = _experts(params, xe)
-        out = torch.matmul(combine_tok.to(dtype), y.reshape(b, (hi - lo) * capacity, d))
+    ys = _expert_outputs(params, _dispatch(x, disp_tokens, capacity, route), route)
+    out = _combine(combine_tok, ys, capacity, route, x.dtype)
 
     # --- aux losses ------------------------------------------------------
     # load balance: E * sum_e (fraction of tokens to e) * (mean router prob e)
-    logits, probs = parallel.aux_grad_gate(logits), parallel.aux_grad_gate(probs)
-    frac = parallel.batch_mean(sel.sum(2).mean(dim=(0, 1)))
+    logits, probs = parallel.aux_grad_gate(rt.logits), parallel.aux_grad_gate(rt.probs)
+    frac = parallel.batch_mean(rt.sel.sum(2).mean(dim=(0, 1)))
     mean_prob = parallel.batch_mean(probs.mean(dim=(0, 1)))
     lb_loss = e * torch.sum(frac / top_k * mean_prob)
     z_loss = parallel.batch_mean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
@@ -303,29 +444,110 @@ def _experts(params: dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.einsum("becf,efd->becd", F.silu(g) * u, params["wd"].to(dtype))
 
 
-def _alltoall_route(params: dict, x: torch.Tensor, disp_tokens: torch.Tensor,
-                    combine_tok: torch.Tensor, capacity: int, ex) -> torch.Tensor:
-    """The all-to-all route (module docstring) of one routing group over
-    ``ex``: each rank's capacity block of every expert dispatched, moved
-    to the experts' ranks, run, moved back and combined; ``ex.join`` of
-    the ranks' partials (B, S, D)."""
-    b, s, d = x.shape
-    e, n = params["router"].shape[-1], ex.n
-    if capacity % n or e % n:
-        raise ValueError(f"the all-to-all route over {n} ranks needs E ({e}) and C ({capacity}) "
-                         "to divide")
-    cb = capacity // n
+# =====================================================================
+# routing groups across sequence shards
+# =====================================================================
 
-    def block(t, r):                   # rank r's capacity columns of every expert, (B, S, E C/n)
-        return t.view(b, s, e, capacity)[..., r * cb:(r + 1) * cb].reshape(b, s, e * cb).to(x.dtype)
+def group_pieces(idx: int, s_loc: int, g: int) -> list:
+    """Shard ``idx``'s pieces of the routing groups of ``g`` tokens, the
+    shard holding global positions ``[idx S_loc, (idx + 1) S_loc)``: each
+    group j it touches, the positions of its piece in the shard and the
+    piece's first position in the group."""
+    a, b = idx * s_loc, (idx + 1) * s_loc
+    return [(j, slice(max(j * g, a) - a, min((j + 1) * g, b) - a), max(j * g, a) - j * g)
+            for j in range(a // g, (b - 1) // g + 1)]
 
-    xe_cap = [torch.matmul(block(disp_tokens, r).transpose(1, 2), x).reshape(b, e, cb, d)
-              for r in ex.ranks]                                   # JAX's becd_cap
-    xes = ex.exchange(xe_cap, split_dim=1, concat_dim=2)           # becd: (B, E/n, C, D)
-    ys = [_experts(ex.experts(params, r), xe) for r, xe in zip(ex.ranks, xes)]
-    y_cap = ex.exchange(ys, split_dim=2, concat_dim=1)             # becd_cap: (B, E, C/n, D)
-    return ex.join([torch.matmul(block(combine_tok, r), y.reshape(b, e * cb, d))
-                    for r, y in zip(ex.ranks, y_cap)])
+
+def _piece_route(params: dict, xp: torch.Tensor, g: int, a: int, top_k: int) -> Routed:
+    """The routing of a group's piece xp (B, s, D), the group's tokens ``[a,
+    a + s)``: run on xp placed at those rows of a zero (B, g, D) operand,
+    the group's own shape, then cut back to the piece. A product's kernel,
+    and the order of its sums, follow its shape: on an H100, Granite's
+    router on 4 x 256 rows gave other last bits than the same rows of its
+    4 x 512-row product in most logits, which can move a top-k pick at a
+    near tie. At the group's shape the logits, picks and gates are the
+    unsharded group's, bit for bit."""
+    s = xp.shape[1]
+    if s == g:
+        return _route(params, xp, top_k)
+    rt = _route(params, F.pad(xp, (0, 0, a, g - a - s)), top_k)
+    return Routed(*(t[:, a:a + s] for t in rt))
+
+
+def _earlier(stacks: list, idx: int) -> torch.Tensor:
+    """The sum of the shards' parts before shard ``idx`` (an exchange
+    function)."""
+    return stacks[0][:idx].sum(0)
+
+
+def _every(stacks: list, idx: int) -> torch.Tensor:
+    """The sum of every shard's part (an exchange function)."""
+    return stacks[0].sum(0)
+
+
+def _moe_apply_pieces(params: dict, xs: list, seq, g: int, *, top_k: int,
+                      capacity_factor: float, route: Route) -> tuple[list, dict]:
+    """The MoE of the held shards ``xs`` of ``seq`` whose routing groups of
+    ``g`` tokens cross the shards' edges (module docstring): one queue, one
+    capacity, one dispatched tensor and one set of aux values per group.
+    Returns each held shard's output and the aux values, alike on every
+    shard."""
+    b, s_loc, _d = xs[0].shape
+    e = params["router"].shape[-1]
+    n_groups = seq.n * s_loc // g
+    capacity = group_capacity(g, top_k, e, capacity_factor)
+    # each piece's routing; each shard's slots to each expert, by group and row
+    held, counts = [], []
+    for r, x in zip(seq.ranks, xs):
+        pieces = [(j, x[:, sl], _piece_route(params, x[:, sl], g, a, top_k))
+                  for j, sl, a in group_pieces(r, s_loc, g)]
+        cnt = x.new_zeros((n_groups, b, e), dtype=torch.float32)
+        for j, _xp, rt in pieces:
+            cnt[j] = rt.sel.sum(dim=(1, 2))
+        held.append(pieces)
+        counts.append(cnt)
+    # a piece's queue starts after the slots its group's earlier pieces hold
+    offsets = seq.exchange([(c,) for c in counts], _earlier)
+    slots, partials = [], []
+    for pieces, off in zip(held, offsets):
+        own_slots, own_parts = [], {}
+        for j, xp, rt in pieces:
+            _pos, keepf, disp_tokens, combine_tok = _slots(rt, capacity, off[j])
+            own_parts[j] = torch.stack(_dispatch(xp, disp_tokens, capacity, route))
+            own_slots.append((j, keepf, combine_tok))
+        slots.append(own_slots)
+        partials.append(own_parts)
+    # each group's dispatched tensor: its pieces' partials summed over the
+    # shards (one non-zero term an element: exact); every shard of the group
+    # runs its experts (in one process: once a group)
+    sums = seq.sum_pieces(partials, n_groups)
+    ys, outs = {}, []
+    for own_slots, own_sums in zip(slots, sums):
+        parts = []
+        for j, _keepf, combine_tok in own_slots:
+            if j not in ys:
+                ys[j] = _expert_outputs(params, list(own_sums[j].unbind(0)), route)
+            parts.append(_combine(combine_tok, ys[j], capacity, route, xs[0].dtype))
+        outs.append(torch.cat(parts, dim=1) if len(parts) > 1 else parts[0])
+    # aux values of the whole groups, from each group's sums over its tokens
+    # on every shard: slots to each expert, router probabilities, squared
+    # log-normalizers, kept slots
+    local = []
+    for pieces, own_slots in zip(held, slots):
+        rows = {}
+        for (j, _xp, rt), (_j, keepf, _c) in zip(pieces, own_slots):
+            logits, probs = parallel.aux_grad_gate(rt.logits), parallel.aux_grad_gate(rt.probs)
+            rows[j] = torch.cat([rt.sel.sum(dim=(0, 1, 2)), probs.sum(dim=(0, 1)),
+                                 (torch.logsumexp(logits, dim=-1) ** 2).sum()[None],
+                                 keepf.sum()[None]])
+        zero = torch.zeros_like(next(iter(rows.values())))
+        local.append(torch.stack([rows.get(j, zero) for j in range(n_groups)]))
+    totals = seq.exchange([(t,) for t in local], _every)[0]        # (G, 2E + 2)
+    means = parallel.batch_mean(totals / (b * g))
+    frac, mean_prob = means[:, :e], means[:, e:2 * e]
+    return outs, {"lb_loss": (e * torch.sum(frac / top_k * mean_prob, dim=-1)).mean(),
+                  "z_loss": means[:, 2 * e].mean(),
+                  "dropped_frac": (1.0 - means[:, 2 * e + 1] / top_k).mean()}
 
 
 def moe_apply_dense_fallback(params: dict, x: torch.Tensor, *, top_k: int) -> torch.Tensor:

@@ -22,9 +22,10 @@ positions, with chunked attention, and at a length off the ring's
 chunks; RWKV6 and Zamba2 with their heads on ``model`` 2 beside ``seq``
 2: the fold on the rank's heads; Seamless at 256 source frames, its
 encoder's K/V gathered, and at 256 frames with a 30-token target that
-does not divide over ``seq``: the target whole on every rank), against
-the unsharded forward; and the refusals that stay (a MoE shard that
-splits a routing group, a recurrent shard off its scan's chunk).
+does not divide over ``seq``: the target whole on every rank; the reduced
+Granite at 1,024 positions, each 512-token routing group across two
+shards), against the unsharded forward; and the refusal that stays (a
+recurrent shard off its scan's chunk).
 Tolerance: 1e-5 relative and absolute, greedy tokens equal.
 """
 import dataclasses
@@ -156,6 +157,8 @@ def _gathered_cases():
         "model_axis_zamba2": (get_reduced("zamba2_7b"), 128, (1, 1, 2, 2)),
         "seamless_gathered": (seamless, (256, 32), (1, 1, 4, 1)),
         "seamless_target_whole": (seamless, (256, 30), (1, 1, 4, 1)),   # 30 % 4 != 0
+        # two 512-token routing groups, each across two 256-position shards
+        "moe_group": (get_reduced("granite_moe_1b_a400m"), 1024, (1, 1, 4, 1)),
     }
 
 
@@ -195,7 +198,6 @@ def _seq_ranks(rank, world, out_dir):
         with activation_mesh(make_plan(m, mode="serve")):
             res["gathered", name] = tmodel.forward_logits(cfg, p, _gathered_batch(cfg, s))
     refusals = {
-        "moe_group": (get_reduced("granite_moe_1b_a400m"), 1024),   # S % (4 * 512) != 0
         "rwkv_chunk": (get_reduced("rwkv6_7b"), 128),                # 32 positions a shard
         "zamba2_chunk": (get_reduced("zamba2_7b"), 128),
     }
@@ -295,12 +297,13 @@ def test_sharded_greedy_tokens_identical(runs, arch):
 
 @pytest.mark.parametrize("name", ["granite", "rwkv6", "zamba2", "internvl2", "short", "chunked",
                                   "indivisible", "model_axis", "model_axis_zamba2",
-                                  "seamless_gathered", "seamless_target_whole"])
+                                  "seamless_gathered", "seamless_target_whole", "moe_group"])
 def test_off_ring_paths_run(runs, name):
     """The paths off the ring: the four families above, the gathered dense
-    paths, and Seamless with its encoder's K/V gathered (the source cut,
-    the target too, or whole on every rank where it does not divide)
-    against the unsharded forward."""
+    paths, Seamless with its encoder's K/V gathered (the source cut, the
+    target too, or whole on every rank where it does not divide), and
+    Granite's routing groups across shards, against the unsharded
+    forward."""
     ranks, refs = runs
     fam = {"granite": "granite_moe_1b_a400m", "rwkv6": "rwkv6_7b", "zamba2": "zamba2_7b",
            "internvl2": "internvl2_26b"}
@@ -313,8 +316,7 @@ def test_off_ring_paths_run(runs, name):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("moe_group", "whole routing groups"), ("rwkv_chunk", "scan's chunk"),
-    ("zamba2_chunk", "scan's chunk"),
+    ("rwkv_chunk", "scan's chunk"), ("zamba2_chunk", "scan's chunk"),
 ])
 def test_off_ring_paths_raise(runs, name, match):
     ranks, _refs = runs

@@ -7,7 +7,9 @@ positions (``models.model.seq_shard``).
 The five families' reduced configs: Llama-3-8B (dense; K and V gathered
 over ``seq`` with a reduce-scatter backward, GQA expanded per chunk),
 Granite-3.0 1B-A400M (moe; one 512-token routing group a shard, the aux
-values averaged over the shards), InternVL2-26B (vlm; 8 patch positions
+values averaged over the shards; and at 512 positions, one routing group
+across the two shards: one queue and capacity, the dispatch summed over
+``seq``, the aux values of the whole group), InternVL2-26B (vlm; 8 patch positions
 and 6 tokens, 7 positions a shard: shard 0 holds no text and its loss
 runs one empty chunk), RWKV6-7B (ssm; the token-shift halos and the WKV
 state fold), Zamba2-7B (hybrid; the conv halo, the SSD state fold and
@@ -23,7 +25,8 @@ relative and every gradient leaf within 1e-5 of its largest magnitude
 carried all-gathers and reduce-scatters, and every rank the same
 collectives in the same order.
 
-The reduced Llama, Zamba2 and Seamless adamw ``make_train_step`` on ``(1, 1, 2, 1)``
+The reduced Llama, Zamba2, Seamless and Granite (at 512 positions) adamw
+``make_train_step`` on ``(1, 1, 2, 1)``
 against the JAX package's jitted step on the same weights and batch on
 one host device (a subprocess; GSPMD's seq-sharded step computes the same
 function): loss and gradient norm within 1e-5 relative, the parameters
@@ -49,9 +52,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEAMLESS = "seamless_m4t_large_v2"
 # the context's tokens each (the encdec family: source frames, target tokens)
 ARCHS = {"llama3_8b": 256, "granite_moe_1b_a400m": 1024, "internvl2_26b": 6, "rwkv6_7b": 128,
-         "zamba2_7b": 128, SEAMLESS: (128, 32), "seamless_target_whole": (128, 31)}
+         "zamba2_7b": 128, SEAMLESS: (128, 32), "seamless_target_whole": (128, 31),
+         "granite_group_across": 512}
+# the cases that are not a config's own name: the config each runs
+CONFIGS = {"seamless_target_whole": SEAMLESS, "granite_group_across": "granite_moe_1b_a400m"}
 MESHES = {"1x1x2x1": (1, 1, 2, 1), "1x2x2x1": (1, 2, 2, 1)}
-JAX_STEPS = ("llama3_8b", "zamba2_7b", SEAMLESS)
+JAX_STEPS = ("llama3_8b", "zamba2_7b", SEAMLESS, "granite_group_across")
 B, LR = 2, 3e-3
 
 _JAX_STEP = r"""
@@ -64,8 +70,9 @@ from repro.models import model
 from repro.optim import adamw, clip_by_global_norm
 out, lr = sys.argv[1], float(sys.argv[2])
 mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
-for arch in sys.argv[3:]:
-    cfg = get_reduced(arch)
+for case in sys.argv[3:]:
+    arch, name = case.split("=")
+    cfg = get_reduced(name)
     data = dict(np.load(f"{out}/weights_{arch}.npz"))
     params, batch = {}, {}
     for key, arr in data.items():
@@ -95,7 +102,7 @@ def _inputs(arch):
     from repro_torch.configs import get_reduced
     from repro_torch.models import model
 
-    cfg = get_reduced(SEAMLESS if arch.startswith("seamless") else arch)
+    cfg = get_reduced(CONFIGS.get(arch, arch))
     s = ARCHS[arch]
     rng = np.random.default_rng(6)
     src = None
@@ -162,7 +169,8 @@ def runs(tmp_path_factory):
         _save(out / f"weights_{arch}.npz", params, batch)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    proc = subprocess.Popen([sys.executable, "-c", _JAX_STEP, str(out), str(LR), *JAX_STEPS],
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_STEP, str(out), str(LR),
+                             *[f"{a}={CONFIGS.get(a, a)}" for a in JAX_STEPS]],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
                             cwd=ROOT)
     try:
