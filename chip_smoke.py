@@ -305,8 +305,13 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 FL_SCOPES = ("fl_decide", "fl_local_quant", "fl_aggregate")      # the object runtime's
+# the fleet round's other layer ranges (repro_torch.sim.engine's docstring)
+FLEET_SCOPES = ("draw_inputs", "greedy_assign", "decision_terms", "gather_active",
+                "quantize_wire", "wire_aggregate", "eval_model", "round_state",
+                "results_to_host")
 SCOPES = ("kkt_solve", "evaluate_population", "fleet_local_sgd", "cuda_aggregate",
-          "cuda_quantize", "cuda_dequantize", "cuda_flash_attention") + FL_SCOPES
+          "cuda_quantize", "cuda_dequantize", "cuda_flash_attention") + FL_SCOPES \
+    + FLEET_SCOPES
 
 
 def _is_device(e) -> bool:

@@ -29,7 +29,7 @@ from repro_torch.core import quantization
 from repro_torch.core.genetic import Decision, RoundContext, SystemParams
 from repro_torch.device import exact_fp32, resolve_device
 from repro_torch.fl.client import FLClient
-from repro_torch.obs.profile import annotate as _annotate
+from repro_torch.obs.profile import scope as _scope
 from repro_torch.wireless.channel import ChannelModel
 
 Tree = Any
@@ -176,7 +176,7 @@ class FLExperiment:
         acc, loss = self.eval_fn(self.params)
         for n in range(n_rounds):
             ctx = self._context()
-            with _annotate("fl_decide"):
+            with _scope("fl_decide"):
                 dec = self.policy.decide(ctx)
             v_assigned = np.zeros(len(self.clients))
             for c, cid in enumerate(dec.assign):
@@ -187,7 +187,7 @@ class FLExperiment:
             weights = []
             d_n = float(np.sum(dec.a * self.d_sizes))
             payload = 0.0
-            with _annotate("fl_local_quant"):
+            with _scope("fl_local_quant"):
                 for i, client in enumerate(self.clients):
                     if not dec.a[i]:
                         continue
@@ -208,7 +208,7 @@ class FLExperiment:
                     payload += quantization.payload_bits(self.z, q_i)
 
             if uploads:
-                with _annotate("fl_aggregate"):
+                with _scope("fl_aggregate"):
                     # eq. 2 in the JAX order, 0 + w_0 theta_0 + w_1 theta_1 + ...,
                     # each float64 weight rounded to fp32 in the product
                     self.params = tree_util.map(

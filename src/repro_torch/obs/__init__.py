@@ -18,4 +18,4 @@ from repro_torch.obs.metrics import (  # noqa: F401
     METRIC_FIELDS, METRICS_OFF, MetricsConfig, RoundMetrics,
     decision_metrics, decision_metrics_host, metrics_to_dict,
 )
-from repro_torch.obs.profile import annotate, maybe_trace, scope  # noqa: F401
+from repro_torch.obs.profile import maybe_trace, scope  # noqa: F401

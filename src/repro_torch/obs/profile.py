@@ -8,10 +8,6 @@ the Pallas kernel scopes renamed for their CUDA ports
 (``pallas_aggregate`` -> ``cuda_aggregate``, and so on). Outside a
 profiler capture it costs one context-manager entry.
 
-``annotate(name)`` is the host-side annotation for per-round phases of a
-loop, the JAX package's second name for it: torch has one kind of range,
-so it is ``scope``.
-
 ``maybe_trace(dir)`` captures a ``torch.profiler`` trace of its block
 (host and, on the card, CUDA activity) and writes it into ``dir`` as a
 Chrome trace; ``None`` is a no-op context, so a CLI can expose
@@ -33,11 +29,6 @@ import torch
 def scope(name: str):
     """Named region for profiles: ``with scope("kkt_solve"): ...``"""
     return torch.profiler.record_function(name)
-
-
-def annotate(name: str):
-    """Host-side profiler annotation (active only during a capture)."""
-    return scope(name)
 
 
 @contextlib.contextmanager

@@ -50,6 +50,19 @@ adds per-round taps that stay on the device and are stacked into
 header, one row per round and the run's timing after every run, and a
 ``resume`` event per checkpoint saved or loaded. Both only add outputs:
 with telemetry on or off every other output is the same, bit for bit.
+
+Each layer of a round runs inside a profiler range
+(``repro_torch.obs.profile.scope``), so a ``torch.profiler`` trace gives
+every launch and every idle stretch of the device a layer: ``draw_inputs``
+(each call into the entropy source), ``greedy_assign``, ``decision_terms``
+and ``kkt_solve`` (``repro_torch.sim.policy``), ``gather_active``,
+``fleet_local_sgd``, ``quantize_wire``, ``wire_aggregate``, ``eval_model``,
+``round_state`` (the queue state before the decision, the slot compaction,
+the scatter and queue updates after the slot work) and ``results_to_host``
+(a segment's one copy to the host). The ranges are siblings, none inside
+another but the kernel's own ``cuda_aggregate`` inside ``wire_aggregate``,
+and a round is told by their order; no loop step has a range of its own.
+Outside a capture a range costs one context-manager entry.
 """
 from __future__ import annotations
 
@@ -83,6 +96,7 @@ from repro_torch.models import cnn
 from repro_torch.obs import ledger as obs_ledger
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.metrics import MetricsConfig
+from repro_torch.obs.profile import scope as _profile_scope
 from repro_torch.sim import policy as fast_policy
 from repro_torch.sim import search
 from repro_torch.sim.channel import SimChannel, draw_rates
@@ -269,13 +283,14 @@ def _stack_out(outs: list) -> dict:
     """Per-round output dicts of a segment -> one dict of (n, ...) numpy
     arrays, the telemetry taps flattened to a ``{field: (n,)}`` sub-dict
     (one copy to the host for all of them)."""
-    out = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
-           for k in outs[0] if k != "metrics"}
-    if "metrics" in outs[0]:
-        fields = obs_metrics.METRIC_FIELDS
-        taps = torch.stack([torch.stack([getattr(o["metrics"], f) for o in outs])
-                            for f in fields]).cpu().numpy()
-        out["metrics"] = dict(zip(fields, taps))
+    with _profile_scope("results_to_host"):
+        out = {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+               for k in outs[0] if k != "metrics"}
+        if "metrics" in outs[0]:
+            fields = obs_metrics.METRIC_FIELDS
+            taps = torch.stack([torch.stack([getattr(o["metrics"], f) for o in outs])
+                                for f in fields]).cpu().numpy()
+            out["metrics"] = dict(zip(fields, taps))
     return out
 
 
@@ -301,16 +316,17 @@ def _quantize_wire(u01: torch.Tensor, flat_s: torch.Tensor, q: torch.Tensor,
     Padding coordinates are exact zeros (index 0, sign 0). ``theta`` is the
     range over the real Z coordinates. Returns (idx, signs, theta).
     """
-    theta = torch.amax(torch.abs(flat_s), dim=1)                    # (S,)
-    flat_p = F.pad(flat_s, (0, zpad - flat_s.shape[1]))
-    safe = torch.where(theta > 0, theta, torch.ones_like(theta))
-    levels = sq.levels_of(torch.clamp(q, min=1))                      # (S,)
-    scaled = torch.abs(flat_p) * (levels / safe)[:, None]
-    lower = torch.floor(scaled)
-    frac = scaled - lower
-    idx = torch.minimum(lower + (u01 < frac).to(torch.float32), levels[:, None])
-    dtype = torch.uint8 if q_cap <= 8 else torch.uint16
-    return idx.to(dtype), (flat_p < 0).to(torch.uint8), theta
+    with _profile_scope("quantize_wire"):
+        theta = torch.amax(torch.abs(flat_s), dim=1)                    # (S,)
+        flat_p = F.pad(flat_s, (0, zpad - flat_s.shape[1]))
+        safe = torch.where(theta > 0, theta, torch.ones_like(theta))
+        levels = sq.levels_of(torch.clamp(q, min=1))                      # (S,)
+        scaled = torch.abs(flat_p) * (levels / safe)[:, None]
+        lower = torch.floor(scaled)
+        frac = scaled - lower
+        idx = torch.minimum(lower + (u01 < frac).to(torch.float32), levels[:, None])
+        dtype = torch.uint8 if q_cap <= 8 else torch.uint16
+        return idx.to(dtype), (flat_p < 0).to(torch.uint8), theta
 
 
 class FleetSim:
@@ -423,13 +439,14 @@ class FleetSim:
         """Masked eq.-2 aggregation over S wire planes -> (Zpad,) fp32,
         one launch of the fused dequantize + weighted-sum kernel."""
         s = idx.shape[0]
-        out = sq.aggregate(
-            idx.reshape(s, -1, LANES),
-            signs.reshape(s, -1, LANES),
-            theta,
-            w_slot,
-            torch.clamp(q_slot, min=1),
-        )
+        with _profile_scope("wire_aggregate"):
+            out = sq.aggregate(
+                idx.reshape(s, -1, LANES),
+                signs.reshape(s, -1, LANES),
+                theta,
+                w_slot,
+                torch.clamp(q_slot, min=1),
+            )
         return out.reshape(-1)
 
     def _downlink_apply(self, u01: torch.Tensor, new_flat: torch.Tensor,
@@ -460,7 +477,8 @@ class FleetSim:
         base = (rates, d_sizes, g_n, s_n, theta_max)
         if mode in ("compiled-ga", "same_size"):
             u, c = rates.shape
-            draws = self.entropy.ga_draws(ridx, u, c, self.ga_config)
+            with _profile_scope("draw_inputs"):
+                draws = self.entropy.ga_draws(ridx, u, c, self.ga_config)
             if mode == "compiled-ga":
                 return search.ga_decide(
                     draws, *base, lam1, lam2, sysp, z, self.v_weight,
@@ -506,22 +524,26 @@ class FleetSim:
         faults_on, dl_on = self.faults.enabled, self.downlink.enabled
         tap_mse = self.metrics_cfg.enabled and self.metrics_cfg.quant_mse
         x_s, y_s, n_s = gather_active(self.fleet, slots)
-        batch_idx = self.entropy.batch_indices(ridx, n_s, self.sysp.tau, self.batch_size)
+        with _profile_scope("draw_inputs"):
+            batch_idx = self.entropy.batch_indices(ridx, n_s, self.sysp.tau, self.batch_size)
         stacked, g_obs, s_obs = fleet_local_sgd(
             self.loss_fn, self.sysp.tau, self.unravel(flat), x_s, y_s, batch_idx, self.lr,
         )
         s = slots.shape[0]
         flat_s = torch.cat([leaf.reshape(s, -1) for leaf in tree_util.leaves(stacked)],
                            dim=1)                          # (S, Z)
-        u01 = self.entropy.uniforms(ridx, s, self._zpad)
+        with _profile_scope("draw_inputs"):
+            u01 = self.entropy.uniforms(ridx, s, self._zpad)
         extra = {}
         if faults_on:
-            draws = self.entropy.fault_draws(ridx, self.fleet.n_clients, s, self._zpad)
+            with _profile_scope("draw_inputs"):
+                draws = self.entropy.fault_draws(ridx, self.fleet.n_clients, s, self._zpad)
             down_u = draw_outage(draws.outage, out_state, self._fv)
             fade_hit_u, fade_mult_u = draw_fade(draws.fade, self._fv)
             flat_s = inject_burst(draws.burst, slots, flat_s, self._fv)
         if dl_on:
-            u_dl = self.entropy.downlink_uniforms(ridx, self.z)
+            with _profile_scope("draw_inputs"):
+                u_dl = self.entropy.downlink_uniforms(ridx, self.z)
         idx, signs, theta = _quantize_wire(u01, flat_s, q_slot, self.q_cap, self._zpad)
         if faults_on:
             # corruption, then the screen: a failed slot's range AND weight
@@ -562,7 +584,8 @@ class FleetSim:
             if tap_mse:
                 extra["dl_mse"] = torch.sum((new_flat - exact_flat) ** 2) / self._z_t
         if with_eval:
-            acc, loss = self.eval_fn(new_flat)
+            with _profile_scope("eval_model"):
+                acc, loss = self.eval_fn(new_flat)
         else:
             acc = loss = torch.zeros((), dtype=torch.float32, device=self.device)
         return new_flat, g_obs, s_obs, theta, acc, loss, extra
@@ -574,9 +597,11 @@ class FleetSim:
         # (U,) Markov outage state (1.0 = the client was down)
         dl_prev = carry[6] if dl_on else None
         out_state = carry[-1] if faults_on else None
-        rates = self.entropy.rates(ridx, self.channel)
-        g_n = g_sq / torch.clamp(torch.mean(g_sq), min=1e-12)
-        s_n = sigma_sq / torch.clamp(torch.mean(sigma_sq), min=1e-12)
+        with _profile_scope("draw_inputs"):
+            rates = self.entropy.rates(ridx, self.channel)
+        with _profile_scope("round_state"):
+            g_n = g_sq / torch.clamp(torch.mean(g_sq), min=1e-12)
+            s_n = sigma_sq / torch.clamp(torch.mean(sigma_sq), min=1e-12)
         mcfg = self.metrics_cfg
         # the GA's fitness taps exist only when asked for
         tap_ga = (mcfg.enabled and mcfg.ga_fitness
@@ -588,64 +613,71 @@ class FleetSim:
             dec, ga_stats = dec
         # ---- active-set compaction: everything below is on the S slots
         u = self.fleet.n_clients
-        slots = dec.slots                                  # (S,) ids, -1 pad
-        sm = slots >= 0
-        smf = sm.to(torch.float32)
-        cid = torch.clamp(slots, min=0)
-        q_slot = dec.q[cid] * sm.to(dec.q.dtype)
-        d_sizes = self.fleet.n_samples.to(torch.float32)
-        d_slot = d_sizes[cid] * smf
+        with _profile_scope("round_state"):
+            slots = dec.slots                                  # (S,) ids, -1 pad
+            sm = slots >= 0
+            smf = sm.to(torch.float32)
+            cid = torch.clamp(slots, min=0)
+            q_slot = dec.q[cid] * sm.to(dec.q.dtype)
+            d_sizes = self.fleet.n_samples.to(torch.float32)
+            d_slot = d_sizes[cid] * smf
+            if faults_on:
+                v_slot, f_slot = dec.v_assigned[cid] * smf, dec.f[cid] * smf
+            else:
+                w_slot = d_slot / torch.clamp(torch.sum(d_slot), min=1e-12)   # eq. 2 weights
         if faults_on:
             new_flat, g_obs, s_obs, theta, acc, loss, extra = self._exec_round(
                 flat, slots, q_slot, d_slot, ridx, with_eval,
-                v_slot=dec.v_assigned[cid] * smf, f_slot=dec.f[cid] * smf,
-                out_state=out_state)
-            # only delivered slots feed the estimators, and the queues get
-            # the realized terms: a failed client counts as unscheduled
-            ok = extra["ok"]
-            a_real = scatter_slots(slots, ok.to(torch.float32), u)
-            qccf = self.policy_mode in _QCCF_MODES
-            data_t, quant_t = fast_policy.realized_terms(
-                a_real, d_sizes, g_n, s_n, theta_max, dec.q, self.sysp, self.z,
-                hetero=self._hetero if qccf else None,
-                dl_term=dl_prev if qccf else None)
-            zero = torch.zeros_like(g_obs)
-            g_sq = ema_update(g_sq, scatter_slots(slots, torch.where(ok, g_obs, zero), u),
-                              a_real)
-            sigma_sq = ema_update(sigma_sq,
-                                  scatter_slots(slots, torch.where(ok, s_obs, zero), u),
-                                  a_real, floor=1e-8)
-            theta_max = torch.where(a_real > 0, scatter_slots(slots, theta, u), theta_max)
+                v_slot=v_slot, f_slot=f_slot, out_state=out_state)
         else:
-            w_slot = d_slot / torch.clamp(torch.sum(d_slot), min=1e-12)   # eq. 2 weights
             new_flat, g_obs, s_obs, theta, acc, loss, extra = self._exec_round(
                 flat, slots, q_slot, w_slot, ridx, with_eval)
-            data_t, quant_t = dec.data_term, dec.quant_term
-            g_sq = ema_update(g_sq, scatter_slots(slots, g_obs, u), dec.a)
-            sigma_sq = ema_update(sigma_sq, scatter_slots(slots, s_obs, u), dec.a, floor=1e-8)
-            theta_max = torch.where(dec.a > 0, scatter_slots(slots, theta, u), theta_max)
-        lam1 = torch.clamp(lam1 + data_t - self._eps[0], min=0.0)
-        lam2 = torch.clamp(lam2 + quant_t - self._eps[1], min=0.0)
-        out = {
-            "energy": torch.sum(dec.energy),
-            "accuracy": acc,
-            "loss": loss,
-            "n_scheduled": torch.sum(dec.a),
-            "q_levels": dec.q,
-            "latency": torch.amax(dec.latency),
-            "payload_bits": dec.payload_bits,
-            "rates": dec.v_assigned,
-            "lambda1": lam1,
-            "lambda2": lam2,
-        }
-        new_carry = (new_flat, g_sq, sigma_sq, theta_max, lam1, lam2)
-        if dl_on:
-            new_carry += (extra["dl_next"],)
-        if faults_on:
-            out.update({k: extra[k] for k in ("n_dropped", "n_timeout_real", "n_screened")})
-            new_carry += (extra["out_state"],)
-        if mcfg.enabled:
-            out["metrics"] = self._round_metrics(dec, d_sizes, extra, ga_stats)
+        with _profile_scope("round_state"):
+            if faults_on:
+                # only delivered slots feed the estimators, and the queues get
+                # the realized terms: a failed client counts as unscheduled
+                ok = extra["ok"]
+                a_real = scatter_slots(slots, ok.to(torch.float32), u)
+                qccf = self.policy_mode in _QCCF_MODES
+                data_t, quant_t = fast_policy.realized_terms(
+                    a_real, d_sizes, g_n, s_n, theta_max, dec.q, self.sysp, self.z,
+                    hetero=self._hetero if qccf else None,
+                    dl_term=dl_prev if qccf else None)
+                zero = torch.zeros_like(g_obs)
+                g_sq = ema_update(g_sq, scatter_slots(slots, torch.where(ok, g_obs, zero), u),
+                                  a_real)
+                sigma_sq = ema_update(sigma_sq,
+                                      scatter_slots(slots, torch.where(ok, s_obs, zero), u),
+                                      a_real, floor=1e-8)
+                theta_max = torch.where(a_real > 0, scatter_slots(slots, theta, u), theta_max)
+            else:
+                data_t, quant_t = dec.data_term, dec.quant_term
+                g_sq = ema_update(g_sq, scatter_slots(slots, g_obs, u), dec.a)
+                sigma_sq = ema_update(sigma_sq, scatter_slots(slots, s_obs, u), dec.a,
+                                      floor=1e-8)
+                theta_max = torch.where(dec.a > 0, scatter_slots(slots, theta, u), theta_max)
+            lam1 = torch.clamp(lam1 + data_t - self._eps[0], min=0.0)
+            lam2 = torch.clamp(lam2 + quant_t - self._eps[1], min=0.0)
+            out = {
+                "energy": torch.sum(dec.energy),
+                "accuracy": acc,
+                "loss": loss,
+                "n_scheduled": torch.sum(dec.a),
+                "q_levels": dec.q,
+                "latency": torch.amax(dec.latency),
+                "payload_bits": dec.payload_bits,
+                "rates": dec.v_assigned,
+                "lambda1": lam1,
+                "lambda2": lam2,
+            }
+            new_carry = (new_flat, g_sq, sigma_sq, theta_max, lam1, lam2)
+            if dl_on:
+                new_carry += (extra["dl_next"],)
+            if faults_on:
+                out.update({k: extra[k] for k in ("n_dropped", "n_timeout_real", "n_screened")})
+                new_carry += (extra["out_state"],)
+            if mcfg.enabled:
+                out["metrics"] = self._round_metrics(dec, d_sizes, extra, ga_stats)
         return new_carry, out
 
     def _round_metrics(self, dec, d_sizes, extra: dict, ga_stats) -> obs_metrics.RoundMetrics:

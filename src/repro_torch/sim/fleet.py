@@ -67,18 +67,19 @@ def gather_active(fleet: Fleet, slots: torch.Tensor):
     axis S; padding slots gather client 0 and are masked downstream. On a
     sharded fleet every rank of its group must call it with the same slots
     (module docstring)."""
-    cid = torch.clamp(slots, min=0)
-    if fleet.group is None:
-        return fleet.x[cid], fleet.y[cid], fleet.n_samples[cid]
-    lo = fleet.client_offset
-    own = (cid >= lo) & (cid < lo + fleet.x.shape[0])
-    rows = torch.where(own, cid - lo, torch.zeros_like(cid))
-    x_bits = fleet.x.view(torch.int32)[rows]
-    x_bits = torch.where(own.reshape((-1,) + (1,) * (x_bits.ndim - 1)), x_bits, 0)
-    y_s = torch.where(own[:, None], fleet.y[rows], 0)
-    collectives.all_reduce(x_bits, fleet.group, "data")
-    collectives.all_reduce(y_s, fleet.group, "data")
-    return x_bits.view(torch.float32), y_s, fleet.n_samples[cid]
+    with _profile_scope("gather_active"):
+        cid = torch.clamp(slots, min=0)
+        if fleet.group is None:
+            return fleet.x[cid], fleet.y[cid], fleet.n_samples[cid]
+        lo = fleet.client_offset
+        own = (cid >= lo) & (cid < lo + fleet.x.shape[0])
+        rows = torch.where(own, cid - lo, torch.zeros_like(cid))
+        x_bits = fleet.x.view(torch.int32)[rows]
+        x_bits = torch.where(own.reshape((-1,) + (1,) * (x_bits.ndim - 1)), x_bits, 0)
+        y_s = torch.where(own[:, None], fleet.y[rows], 0)
+        collectives.all_reduce(x_bits, fleet.group, "data")
+        collectives.all_reduce(y_s, fleet.group, "data")
+        return x_bits.view(torch.float32), y_s, fleet.n_samples[cid]
 
 
 def scatter_slots(slots: torch.Tensor, obs: torch.Tensor, n_clients: int) -> torch.Tensor:

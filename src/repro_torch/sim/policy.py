@@ -44,21 +44,22 @@ RANGE_BITS = 32.0
 
 def greedy_assign(rates: torch.Tensor) -> torch.Tensor:
     """(U, C) rates -> (C,) channel->client ids (-1 = unused), on the
-    device with no host round trip."""
+    device with no host round trip. One profiler range over all C steps."""
     u, c = rates.shape
     dev = rates.device
-    assign = torch.full((c,), -1, dtype=torch.int64, device=dev)
-    row_free = torch.ones((u,), dtype=torch.bool, device=dev)
-    col_free = torch.ones((c,), dtype=torch.bool, device=dev)
-    neg_inf = torch.tensor(-math.inf, dtype=rates.dtype, device=dev)
-    for _ in range(min(u, c)):
-        masked = torch.where(row_free[:, None] & col_free[None, :], rates, neg_inf)
-        flat = torch.argmax(masked).reshape(1)   # first maximum, row-major
-        i, ch = flat // c, flat % c
-        assign.index_copy_(0, ch, i)
-        row_free.index_fill_(0, i, False)
-        col_free.index_fill_(0, ch, False)
-    return assign
+    with _profile_scope("greedy_assign"):
+        assign = torch.full((c,), -1, dtype=torch.int64, device=dev)
+        row_free = torch.ones((u,), dtype=torch.bool, device=dev)
+        col_free = torch.ones((c,), dtype=torch.bool, device=dev)
+        neg_inf = torch.tensor(-math.inf, dtype=rates.dtype, device=dev)
+        for _ in range(min(u, c)):
+            masked = torch.where(row_free[:, None] & col_free[None, :], rates, neg_inf)
+            flat = torch.argmax(masked).reshape(1)   # first maximum, row-major
+            i, ch = flat // c, flat % c
+            assign.index_copy_(0, ch, i)
+            row_free.index_fill_(0, i, False)
+            col_free.index_fill_(0, ch, False)
+        return assign
 
 
 def greedy_assign_host(rates: np.ndarray) -> np.ndarray:
@@ -350,55 +351,59 @@ def finish_decision(
     ``v_assigned`` and ``a0`` (the GA's batched fitness). ``dl_term`` (the
     quantized downlink's previous-round error term, ``None`` with the
     downlink off) is added to the quant term, so the lambda2 queue sees
-    the server->client error; it is the same for every assignment."""
+    the server->client error; it is the same for every assignment. The
+    terms before and after the KKT run in ``decision_terms`` profiler
+    ranges, the KKT in its own ``kkt_solve`` range."""
     u = d_sizes.shape[0]
-    qmax = (v_assigned * sysp.t_max
-            - sysp.tau_e * sysp.gamma * d_sizes * v_assigned / sysp.f_max
-            - z - RANGE_BITS) / z
-    a = a0 & (qmax >= 1.0)
-    af = a.to(torch.float32)
+    with _profile_scope("decision_terms"):
+        qmax = (v_assigned * sysp.t_max
+                - sysp.tau_e * sysp.gamma * d_sizes * v_assigned / sysp.f_max
+                - z - RANGE_BITS) / z
+        a = a0 & (qmax >= 1.0)
+        af = a.to(torch.float32)
 
-    zero = torch.zeros_like(d_sizes)
-    d_n = torch.sum(af * d_sizes, dim=-1)
-    w_round = torch.where(a, af * d_sizes / torch.clamp(d_n, min=1e-12)[..., None], zero)
-    w_full = d_sizes / torch.sum(d_sizes)
+        zero = torch.zeros_like(d_sizes)
+        d_n = torch.sum(af * d_sizes, dim=-1)
+        w_round = torch.where(a, af * d_sizes / torch.clamp(d_n, min=1e-12)[..., None], zero)
+        w_full = d_sizes / torch.sum(d_sizes)
 
     with _profile_scope("kkt_solve"):
         q_int, f_int, feas, q_hat = solve_kkt(
             v_assigned, w_round, d_sizes, theta_max, lam2, sysp, z, v_weight,
             q_cap=q_cap,
         )
-    a = a & feas
-    af = a.to(torch.float32)
-    q = torch.where(a, q_int, torch.zeros_like(q_int))
-    f = torch.where(a, f_int, zero)
+    with _profile_scope("decision_terms"):
+        a = a & feas
+        af = a.to(torch.float32)
+        q = torch.where(a, q_int, torch.zeros_like(q_int))
+        f = torch.where(a, f_int, zero)
 
-    t_com = (z * q.to(torch.float32) + z + RANGE_BITS) / torch.clamp(v_assigned, min=1e-6)
-    t_cmp = sysp.tau_e * sysp.gamma * d_sizes / torch.clamp(f, min=1.0)
-    energy = torch.where(
-        a,
-        sysp.tau_e * sysp.alpha * sysp.gamma * d_sizes * f**2 + sysp.p_tx * t_com,
-        zero,
-    )
-    latency = torch.where(a, t_cmp + t_com, zero)
+        t_com = (z * q.to(torch.float32) + z + RANGE_BITS) / torch.clamp(v_assigned, min=1e-6)
+        t_cmp = sysp.tau_e * sysp.gamma * d_sizes / torch.clamp(f, min=1.0)
+        energy = torch.where(
+            a,
+            sysp.tau_e * sysp.alpha * sysp.gamma * d_sizes * f**2 + sysp.p_tx * t_com,
+            zero,
+        )
+        latency = torch.where(a, t_cmp + t_com, zero)
 
-    consts = sysp.bound_constants()
-    dt = data_term(consts, af, w_full, w_round, g_sq, sigma_sq, hetero)
-    qt = quant_term(consts, w_round, z, theta_max, torch.clamp(q, min=1))
-    if dl_term is not None:
-        qt = qt + dl_term
-    payload = torch.sum(torch.where(a, z * q.to(torch.float32) + z + RANGE_BITS, zero),
-                        dim=-1)
-    # drop the channels of clients that failed the feasibility gate
-    kept = (assign >= 0) & torch.gather(a, -1, torch.clamp(assign, 0, u - 1))
-    assign_kept = torch.where(kept, assign, torch.full_like(assign, -1))
-    return FastDecision(
-        assign=assign_kept, slots=compact_slots(assign_kept, u),
-        a=a.to(torch.int64), q=q, f=f,
-        v_assigned=torch.where(a, v_assigned, zero), energy=energy,
-        latency=latency, data_term=dt, quant_term=qt, payload_bits=payload,
-        q_cont=q_hat,
-    )
+        consts = sysp.bound_constants()
+        dt = data_term(consts, af, w_full, w_round, g_sq, sigma_sq, hetero)
+        qt = quant_term(consts, w_round, z, theta_max, torch.clamp(q, min=1))
+        if dl_term is not None:
+            qt = qt + dl_term
+        payload = torch.sum(torch.where(a, z * q.to(torch.float32) + z + RANGE_BITS, zero),
+                            dim=-1)
+        # drop the channels of clients that failed the feasibility gate
+        kept = (assign >= 0) & torch.gather(a, -1, torch.clamp(assign, 0, u - 1))
+        assign_kept = torch.where(kept, assign, torch.full_like(assign, -1))
+        return FastDecision(
+            assign=assign_kept, slots=compact_slots(assign_kept, u),
+            a=a.to(torch.int64), q=q, f=f,
+            v_assigned=torch.where(a, v_assigned, zero), energy=energy,
+            latency=latency, data_term=dt, quant_term=qt, payload_bits=payload,
+            q_cont=q_hat,
+        )
 
 
 def decide(
@@ -417,7 +422,8 @@ def decide(
 ) -> FastDecision:
     """One decision round: greedy channels, then :func:`finish_decision`."""
     assign = greedy_assign(rates)
-    v_assigned, a0 = participation_from_assign(assign, rates)
+    with _profile_scope("decision_terms"):
+        v_assigned, a0 = participation_from_assign(assign, rates)
     return finish_decision(
         assign, v_assigned, a0, d_sizes, g_sq, sigma_sq, theta_max, lam2,
         sysp, z, v_weight, q_cap=q_cap, hetero=hetero, dl_term=dl_term,

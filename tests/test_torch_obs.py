@@ -535,7 +535,7 @@ def test_maybe_trace_writes_a_chrome_trace(tmp_path):
         pass
     d = tmp_path / "trace"
     with tprofile.maybe_trace(str(d)):
-        with tprofile.annotate("round"), tprofile.scope("kkt_solve"):
+        with tprofile.scope("round"), tprofile.scope("kkt_solve"):
             torch.ones(4).sum()
     (trace,) = list(d.iterdir())
     names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
