@@ -20,7 +20,14 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      port never calls it). ``quantize`` and ``dequantize`` run their
      4-element kernels on aligned planes and their one-element kernels on
      views off alignment (x 4 bytes off, idx 3 bytes off), all bit-equal,
-     beside an empty kernel's device time (the launch floor).
+     beside an empty kernel's device time (the launch floor). The
+     decision's KKT kernel (``qccf_kkt_kernel``) against its plain twin at
+     a round of the benchmark cell (U = 1,024, 128 clients on a channel)
+     and at a GA population of 32 such rounds, (P, U) = (32, 1,024), at
+     lam 0, 20 and 500: levels, feasibility and case codes equal, f and
+     q_hat bit-equal; the grid's share of clients from the case codes; the
+     kernel's device time beside the launch floor, the wrapper's host time
+     and the twin's time.
      Flash attention is checked in bf16 (the wgmma kernel) and fp32 (the
      SIMT kernel, cp.async loads) at Llama-3-8B's serve shape, StarCoder2-7B's
      heads (g = 9) with its 4096 window at S = 8192, a non-causal ragged
@@ -578,6 +585,93 @@ def kernels_vs_plain(zpad: int, wire_m: int):
     return report
 
 
+KKT_CHANNELS = 128                             # the benchmark cell's C
+# (report row, population P or None for one fleet)
+KKT_SHAPES = (("qccf_kkt", None), ("qccf_kkt_population", 32))
+
+
+def _gap(got, want) -> float:
+    """Largest |got - want| in float64 (0 where both hold the same value,
+    infinities and NaNs included)."""
+    import torch
+
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    return float(torch.where(same, 0.0, (got.double() - want.double()).abs()).max())
+
+
+def _empty_kernel_ms() -> float:
+    import torch
+    from repro_torch.kernels import build
+
+    lib = build.library("stochastic_quant")
+    dev, stream = torch.cuda.current_device(), build.stream(torch.device("cuda"))
+    return kernel_ms(lambda: build.check("stochastic_quant", "empty", lib.sq_empty(dev, stream)),
+                     "empty_kernel")
+
+
+@phase("the decision's KKT kernel vs its plain twin on the card")
+def kkt_vs_plain(empty_ms: float | None = None) -> dict:
+    """Rows ``qccf_kkt`` (U = 1,024) and ``qccf_kkt_population`` (32 x
+    1,024) of the kernel table: the kernel's device time (profiler), its
+    bound the launch floor (an empty kernel's device time: the work is a
+    latency chain, not bytes or operations), the wrapper's host time per
+    call, the plain twin's time (CUDA events around back-to-back calls)."""
+    import time
+
+    import torch
+    from repro_torch.kernels import kkt
+
+    # the card tests' inputs (no JAX): the cell's SystemParams, Z and V
+    sys.path.insert(0, str(ROOT / "tests"))
+    import kkt_inputs as ki
+
+    empty_ms = _empty_kernel_ms() if empty_ms is None else empty_ms
+    rows = {}
+    for name, p in KKT_SHAPES:
+        arrays = (ki.fleet(FEMNIST_U, KKT_CHANNELS, 33) if p is None
+                  else ki.population(p, FEMNIST_U, KKT_CHANNELS, 33))
+        v, w, d, theta = ki.tensors(arrays, "cuda")
+        shape = f"U={FEMNIST_U}" if p is None else f"P x U={p} x {FEMNIST_U}"
+        err = 0.0
+        for lam_v in (0.0, 20.0, 500.0):
+            args = (v, w, d, theta, ki.lam_tensor(lam_v, "cuda"), ki.SYSP, ki.Z, ki.V_WEIGHT)
+            kkt.reset_launches()
+            got = kkt.solve_kkt(*args)
+            require(kkt.launches["kkt"] == 1, f"{name}: {kkt.launches['kkt']} launches a call")
+            want = kkt.solve_kkt_plain(*args)
+            torch.cuda.synchronize()
+            # the row's error: the largest gap of f and q_hat over the three lam
+            err = max(err, _gap(got[1], want[1]), _gap(got[3], want[3]))
+            for label, g, wt in zip(("q", "f", "feasible", "q_hat", "case"), got, want):
+                same = (torch.equal(g.view(torch.int32), wt.view(torch.int32))
+                        if g.dtype == torch.float32 else torch.equal(g, wt))
+                require(same, f"{name} lam {lam_v}: {label} differs from the plain twin in "
+                              f"{int((g != wt).sum())} clients")
+            codes = torch.bincount(got[4].reshape(-1).long(), minlength=7)[1:].tolist()
+            print(f"{name} ({shape}) lam {lam_v}: bit-equal to the plain twin; case codes "
+                  f"1..6 {codes}, grid {codes[5] / got[4].numel():.4f} of the clients, "
+                  f"feasible {int(got[2].sum())}")
+        args = (v, w, d, theta, ki.lam_tensor(20.0, "cuda"), ki.SYSP, ki.Z, ki.V_WEIGHT)
+        call = lambda: kkt.solve_kkt(*args)           # noqa: E731
+        ms = kernel_ms(call, "qccf_kkt_kernel", iters=50)
+        call_ms = cuda_ms(call, 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            call()
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: kkt.solve_kkt_plain(*args), 5, warmup=1)
+        print(f"timing {name} ({shape}, lam 20): kernel {ms * 1e3:.2f} us (profiler), "
+              f"wrapper call {call_ms * 1e3:.2f} us (events), host {host_us:.2f} us a call, "
+              f"launch floor {empty_ms * 1e3:.2f} us (empty_kernel), plain twin "
+              f"{plain_ms * 1e3:.2f} us (events)")
+        rows[name] = dict(shape=shape, max_abs_err=err, ms=ms, call_ms=call_ms,
+                          host_us=host_us, plain_ms=plain_ms, bound_ms=empty_ms,
+                          bound_by="launch floor (empty_kernel)")
+    return rows
+
+
 @phase("main path: 5 QCCF rounds, FEMNIST U=1024 C=8")
 def main_path():
     import numpy as np
@@ -613,6 +707,8 @@ def main_path():
     require(bool((res.n_scheduled > 0).all()), "a round scheduled no client")
     require(launches["aggregate"] == ROUNDS,
             f"aggregate launched {launches['aggregate']} times in {ROUNDS} rounds")
+    require(launches["kkt"] == ROUNDS,
+            f"the KKT kernel launched {launches['kkt']} times in {ROUNDS} rounds")
     print(f"launches in the main path: {launches}")
     return sim, launches
 
@@ -706,8 +802,16 @@ def policies(sim):
             t_max = psim.sysp.t_max
             require(bool((res.latency <= t_max * (1 + 1e-5)).all()),
                     f"GA: latency {res.latency.max():.6e} above t_max {t_max}")
+        # the KKT runs in the GA's fitness (one launch a generation) and its
+        # winner's record, in compiled-ga and in same_size's search at the
+        # mean size; the other baselines decide in closed form
+        ga = mode in ("compiled-ga", "same_size")
+        kkt_want = (psim.ga_config.generations + 1 if ga else 0) * POLICY_ROUNDS
+        require(launches["kkt"] == kkt_want,
+                f"{mode}: the KKT kernel launched {launches['kkt']} times, want {kkt_want}")
         out[mode] = dict(s_per_round=sec, scheduled=res.n_scheduled.tolist(),
-                         aggregate_per_round=launches["aggregate"] / POLICY_ROUNDS)
+                         aggregate_per_round=launches["aggregate"] / POLICY_ROUNDS,
+                         kkt=launches["kkt"])
         if mode == "compiled-ga":
             ga_sim = psim
         else:
@@ -1778,17 +1882,20 @@ def _simt_bf16_beside(q, k, v, kw, want, want_lse, bound_ms, sdpa_ms):
 
 def _reset_all_launches():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kkt
     from repro_torch.kernels import stochastic_quant as sq
 
     sq.reset_launches()
     fa.reset_launches()
+    kkt.reset_launches()
 
 
 def _all_launches() -> dict:
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kkt
     from repro_torch.kernels import stochastic_quant as sq
 
-    return {**sq.launches, **fa.launches}
+    return {**sq.launches, **fa.launches, **kkt.launches}
 
 
 def param_count_correction(cfg) -> int:
@@ -4137,13 +4244,14 @@ def main() -> int:
     zpad = 1984 * 128              # FEMNIST Z = 246,590 in 64-row tiles
     wire_m = 2048                  # FEMNIST Z in 256-row tiles of 128 lanes
     report = kernels_vs_plain(zpad, wire_m)
+    report.update(kkt_vs_plain(report["quantize"]["empty_ms"]))
     report.update(flash_vs_plain())
     local_heads(report)
     seq_ring_kernels(report)
     flash_offsets(report)
     ring_launches = ring_32k(report)
     sim, main_launches = main_path()
-    policies(sim)
+    policy_runs = policies(sim)
     telemetry(sim)
     scenarios(sim)
     numeric_scope(sim)
@@ -4208,13 +4316,16 @@ def main() -> int:
                     for h, kv, *_ in LOCAL_HEADS),
                   *(name for name, *_ in SEQ_RINGS), A2A_RING[0])
     sources = {**{n: "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu" for n in wgmma_rows},
-               "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               **{n: "src/repro_torch/kernels/csrc/qccf_kkt.cu" for n, _ in KKT_SHAPES}}
     replaces = {
         "aggregate": "src/repro/kernels/stochastic_quant.py:172",
         "quantize": "src/repro/kernels/stochastic_quant.py:49",
         "dequantize": "src/repro/kernels/stochastic_quant.py:97",
         **{n: "src/repro/kernels/flash_attention.py:183" for n in wgmma_rows},
         "flash_attention_simt": "src/repro/kernels/flash_attention.py:183",
+        # no Pallas kernel: the JAX package's solve_kkt is jnp that XLA fuses
+        **{n: "none (src/repro/sim/policy.py solve_kkt, jnp)" for n, _ in KKT_SHAPES},
     }
     # each kernel's launches in the runs of the paths that take it: the
     # FEMNIST rounds (unsharded, and sharded in the NCCL world of one), the
@@ -4231,7 +4342,10 @@ def main() -> int:
                                          "GroupRing n=1 (nccl)": nccl_launches["ring"],
                                          "placed serve, 1x1 (nccl)": tp_serve_launches,
                                          **dry_launches, **seq_launches, **a2a_launches},
-               "flash_attention_simt": fp32_launches}
+               "flash_attention_simt": fp32_launches,
+               "qccf_kkt": {"femnist greedy": main_launches["kkt"]},
+               "qccf_kkt_population": {f"femnist {mode}": policy_runs[mode]["kkt"]
+                                       for mode in ("compiled-ga", "same_size")}}
     # the model-parallel rows: the launches of the paths that take each shape
     by_path.update({
         "flash_attention_wgmma_ring_heads_on_model": {

@@ -66,7 +66,18 @@ LIBRARIES = {
         # hd -> dynamic shared memory of one CTA, bytes
         "faw_shared_bytes": (_INT,),
     }),
+    "qccf_kkt": ("kkt_error_string", {
+        # v, w, d, theta, lam, n, n_v, n_w, n_d, n_theta, consts (host fp32
+        # array, kkt.CONSTANTS), n_consts, grid_n, q, f, feasible, q_hat,
+        # case, device, stream
+        "qccf_kkt": (*(_PTR,) * 5, *(_I64,) * 5, _PTR, _I64, _INT, *(_PTR,) * 5, _INT, _PTR),
+    }),
 }
+# the fleet round launches both, so the first use of either builds the pair
+# in one build(): a cold set-up waits for the longer nvcc run, not the sum.
+# The pair fails together too: a qccf_kkt that does not compile makes
+# library("stochastic_quant") raise, on paths that never solve the KKT
+FLEET_LIBRARIES = ("stochastic_quant", "qccf_kkt")
 
 
 def find_nvcc() -> str:
@@ -138,8 +149,8 @@ def build(*names: str) -> dict[str, tuple[Path, float, str]]:
 def library(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with every entry point's
     ``argtypes``/``restype`` declared (an undeclared pointer would be cut to
-    32 bits)."""
-    path = build(name)[name][0]
+    32 bits). Either of :data:`FLEET_LIBRARIES` is built with the other."""
+    path = build(*(FLEET_LIBRARIES if name in FLEET_LIBRARIES else (name,)))[name][0]
     lib = ctypes.CDLL(str(path))
     error_fn, signatures = LIBRARIES[name]
     for fn_name, argtypes in signatures.items():

@@ -9,7 +9,8 @@ The greedy path:
   3. the 5-case KKT walk of ``repro_torch.core.kkt.solve_continuous``,
      vectorised over U in fp32 (Case 2 by the closed-form depressed cubic,
      Case 5 by 80 bisection halvings, a 512-point grid fallback), then
-     Theorem-3 integerization clamped to ``q_cap``.
+     Theorem-3 integerization clamped to ``q_cap``: one CUDA kernel on the
+     card, its plain torch twin on the CPU (``repro_torch.kernels.kkt``).
 
 Steps 2-3 (``finish_decision``) take any assignment, or a (P, C)
 population of them along a leading axis: the GA's fitness
@@ -33,10 +34,10 @@ import torch
 
 from repro_torch.core import bounds, kkt
 from repro_torch.core.genetic import Decision, SystemParams
+from repro_torch.kernels import kkt as kkt_kernel
 from repro_torch.kernels.stochastic_quant import levels_of
 from repro_torch.obs.profile import scope as _profile_scope
 
-LN2 = math.log(2.0)
 RANGE_BITS = 32.0
 
 
@@ -115,53 +116,6 @@ def compact_slots_host(assign: np.ndarray, n_clients: int) -> np.ndarray:
     return assign[order[:s]].astype(np.int64)
 
 
-def _s_of_q(v, d, q, sysp: SystemParams, z: int):
-    """Latency-tight frequency S(q), inf when the deadline is unmeetable."""
-    slack = v * sysp.t_max - (z * q + z + RANGE_BITS)
-    f_req = v * sysp.tau_e * sysp.gamma * d / torch.clamp(slack, min=1e-30)
-    return torch.where(slack > 0, torch.clamp(f_req, min=sysp.f_min),
-                       torch.full_like(f_req, math.inf))
-
-
-def _latency(v, d, f, q, sysp: SystemParams, z: int):
-    return sysp.tau_e * sysp.gamma * d / f + (z * q + z + RANGE_BITS) / v
-
-
-def _j3(v, w, d, theta, lam, q, f, sysp: SystemParams, z: int, v_weight: float):
-    levels = torch.pow(2.0, q) - 1.0
-    quant = lam * w * z * sysp.lipschitz * theta**2 / (8.0 * levels**2)
-    cmp_e = v_weight * sysp.tau_e * sysp.alpha * sysp.gamma * d * f**2
-    com_e = sysp.p_tx * v_weight * z * q / v
-    return quant + cmp_e + com_e
-
-
-def _g_of_q(q, lam, w, theta, sysp: SystemParams):
-    """G(q) = 2^q ln2 lam w L theta^2 / (4 (2^q - 1)^3), 0 past q = 60
-    (fp32 overflow guard, as in the JAX module)."""
-    y = torch.pow(2.0, torch.clamp(q, max=60.0))
-    g = y * LN2 * lam * w * sysp.lipschitz * theta**2 / (
-        4.0 * torch.clamp(y - 1.0, min=1e-30) ** 3
-    )
-    return torch.where(q > 60.0, torch.zeros_like(g), g)
-
-
-def _cbrt(x):
-    """Real cube root; torch has no cbrt and ``x ** (1/3)`` is NaN for x < 0."""
-    return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
-
-
-def _case2_cubic(a4):
-    """Largest positive real root of y^3 - A4 y - A4 = 0, both branches
-    (Cardano where the discriminant is nonnegative, else trigonometric)."""
-    a4 = torch.clamp(a4, min=1e-30)
-    disc = a4**2 / 4.0 - a4**3 / 27.0
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    y_card = _cbrt(a4 / 2.0 + sq) + _cbrt(a4 / 2.0 - sq)
-    arg = torch.clamp(1.5 * torch.sqrt(3.0 / a4), -1.0, 1.0)
-    y_trig = 2.0 * torch.sqrt(a4 / 3.0) * torch.cos(torch.arccos(arg) / 3.0)
-    return torch.where(disc >= 0.0, y_card, y_trig)
-
-
 def solve_kkt(
     v: torch.Tensor,       # (U,) assigned uplink rate
     w: torch.Tensor,       # (U,) round weights a_i D_i / D^n
@@ -177,106 +131,11 @@ def solve_kkt(
     """Vectorised eq. 41/42: returns (q int, f, feasible, q_cont) per
     client, walking the host solver's cases in its priority order (1, 2, 4,
     3, 5, grid fallback). Elementwise, so ``v``, ``w``, ``d`` and ``theta``
-    may carry a leading population axis, (P, U)."""
-    p, V = sysp.p_tx, v_weight
-    L = sysp.lipschitz
-    v_safe = torch.clamp(v, min=1e-6)
-
-    qmax = (v_safe * sysp.t_max
-            - sysp.tau_e * sysp.gamma * d * v_safe / sysp.f_max
-            - z - RANGE_BITS) / z
-    feasible = qmax >= 1.0
-
-    # Case 1: C8' tight (q = 1).
-    pre1 = p * V - 0.5 * v_safe * w * L * lam * theta**2 * LN2 >= 0.0
-    f1 = _s_of_q(v_safe, d, 1.0, sysp, z)
-    ok1 = pre1 & (f1 <= sysp.f_max)
-
-    # Case 2: latency loose, f = f_min, q from the depressed cubic.
-    a4 = v_safe * w * L * lam * theta**2 * LN2 / (4.0 * p * V)
-    q2 = torch.log2(1.0 + _case2_cubic(a4))
-    ok2 = (a4 > 0.0) & (q2 > 1.0) & (
-        _latency(v_safe, d, sysp.f_min, q2, sysp, z) < sysp.t_max
-    )
-
-    # Cases 4/3: latency tight, f pinned at a bound (host checks 4 first).
-    def pinned(f_pin):
-        slack = v_safe * sysp.t_max - v_safe * sysp.tau_e * sysp.gamma * d / f_pin
-        q_pin = (slack - z - RANGE_BITS) / z
-        kappa1 = v_safe * _g_of_q(q_pin, lam, w, theta, sysp) - p * V
-        return q_pin, kappa1
-
-    q4, kap4 = pinned(sysp.f_min)
-    ok4 = (q4 > 1.0) & (kap4 >= 0.0) & (kap4 <= 2.0 * V * sysp.alpha * sysp.f_min**3)
-    q3, kap3 = pinned(sysp.f_max)
-    ok3 = (q3 > 1.0) & (kap3 >= 0.0) & (kap3 >= 2.0 * V * sysp.alpha * sysp.f_max**3)
-
-    # Case 5: interior — bisection on h(q) over (1, qmax), 80 halvings.
-    def h_of(q):
-        den = torch.clamp(v_safe * sysp.t_max - (z * q + z + RANGE_BITS), min=1e-30)
-        f = v_safe * sysp.tau_e * sysp.gamma * d / den
-        return (v_safe * _g_of_q(q, lam, w, theta, sysp) / V
-                - p - 2.0 * sysp.alpha * f**3)
-
-    lo = torch.full_like(v_safe, 1.0 + 1e-9)
-    hi0 = qmax - 1e-9
-    bracket = (lam > 0.0) & (qmax > 1.0) & (hi0 > lo) \
-        & (h_of(lo) >= 0.0) & (h_of(hi0) <= 0.0)
-    hi = torch.maximum(hi0, lo)
-    for _ in range(80):
-        mid = 0.5 * (lo + hi)
-        up = h_of(mid) > 0.0
-        lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
-    q5 = 0.5 * (lo + hi)
-    f5 = _s_of_q(v_safe, d, q5, sysp, z)
-    ok5 = bracket & (q5 > 1.0) & (sysp.f_min < f5) & (f5 < sysp.f_max)
-
-    # Fallback: dense grid over feasible q. The points are iota * (1/(n-1))
-    # in fp32, which is what jnp.linspace computes; torch.linspace differs
-    # in the last ulp of some points, enough to move a grid argmin.
-    span = torch.clamp(qmax, min=1.0) - 1.0
-    unit = torch.arange(grid_n, dtype=torch.float32, device=v.device) * (1.0 / (grid_n - 1))
-    qs = 1.0 + span[..., None] * unit                                     # (..., U, G)
-    fs = _s_of_q(v_safe[..., None], d[..., None], qs, sysp, z)
-    js = torch.where(
-        fs <= sysp.f_max,
-        _j3(v_safe[..., None], w[..., None], d[..., None], theta[..., None],
-            lam, qs, fs, sysp, z, v_weight),
-        torch.full_like(fs, math.inf),
-    )
-    q0 = torch.take_along_dim(qs, torch.argmin(js, dim=-1)[..., None], dim=-1)[..., 0]
-
-    # Priority select (host order: 1, 2, 4, 3, 5, fallback).
-    q_hat = q0
-    q_hat = torch.where(ok5, q5, q_hat)
-    q_hat = torch.where(ok3, q3, q_hat)
-    q_hat = torch.where(ok4, q4, q_hat)
-    q_hat = torch.where(ok2, q2, q_hat)
-    q_hat = torch.where(ok1, torch.ones_like(q_hat), q_hat)
-
-    # Theorem 3 integerization, clamped to the wire format's q_cap.
-    q_hat = torch.clamp(q_hat, 1.0, float(q_cap))
-    q_lo = torch.clamp(torch.floor(q_hat), min=1.0)
-    q_hi = torch.clamp(torch.ceil(q_hat), min=1.0)
-
-    def j_of(qq):
-        f = _s_of_q(v_safe, d, qq, sysp, z)
-        # fp32 tolerance: q at the exact qmax boundary gives f == f_max up
-        # to rounding (the f64 host solver accepts it); clamp back into C5.
-        ok = (f <= sysp.f_max * (1.0 + 1e-5))
-        f = torch.clamp(f, max=sysp.f_max)
-        lat = _latency(v_safe, d, f, qq, sysp, z)
-        ok = ok & (lat <= sysp.t_max * (1.0 + 1e-5))
-        j = _j3(v_safe, w, d, theta, lam, qq, f, sysp, z, v_weight)
-        return torch.where(ok, j, torch.full_like(j, math.inf)), f
-
-    j_lo, f_lo = j_of(q_lo)
-    j_hi, f_hi = j_of(q_hi)
-    take_hi = j_hi < j_lo  # ties keep floor, as the host's sorted scan does
-    q_int = torch.where(take_hi, q_hi, q_lo)
-    f_int = torch.where(take_hi, f_hi, f_lo)
-    feasible = feasible & torch.isfinite(torch.where(take_hi, j_hi, j_lo))
-    return q_int.to(torch.int64), f_int, feasible, q_hat
+    may carry a leading population axis, (P, U). On the card one launch of
+    ``repro_torch.kernels.kkt``'s kernel, on the CPU its plain twin."""
+    q_int, f_int, feasible, q_hat, _case = kkt_kernel.solve_kkt(
+        v, w, d, theta, lam, sysp, z, v_weight, q_cap=q_cap, grid_n=grid_n)
+    return q_int, f_int, feasible, q_hat
 
 
 # --------------------------------------------------------- bound terms

@@ -270,7 +270,9 @@ def baseline_same_size(
     latency re-accounted with the true sizes. Deadline-missers escalate to
     f_max; clients still late then time out. Heterogeneity-blind.
     ``with_stats`` also returns the search's taps, as :func:`ga_decide`."""
-    fake_d = torch.mean(d_sizes).expand_as(d_sizes)
+    # a tensor of its own, not a stride-0 view: the KKT kernel reads
+    # contiguous inputs
+    fake_d = torch.mean(d_sizes).expand_as(d_sizes).contiguous()
     fd = ga_decide(draws, rates, fake_d, g_sq, sigma_sq, theta_max, lam1, lam2,
                    sysp, z, v_weight, cfg=cfg, q_cap=q_cap, with_stats=with_stats)
     if with_stats:
