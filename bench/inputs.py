@@ -2,7 +2,7 @@
 every random draw of a round.
 
 Both sides read them: the program through its entropy seam
-(``bench.harness.BenchEntropy``) and ``init_params``, the plain reference
+(``bench.drivers.fleet.BenchEntropy``) and ``init_params``, the plain reference
 (``bench.reference``) directly. Every draw is keyed by (seed, round, kind)
 on a generator of the device it is made on, so a draw does not depend on
 the order in which a round asks for its draws, and two calls of the same

@@ -1,13 +1,14 @@
-"""The round's model operations (``bench.counts.cnn_flops``) over the
-untraced round time, as a share of the card's fp32 peak, in % (the fleet
-runs in full fp32: TF32 off)."""
+"""The round's model operations (the cell's driver's ``round_flops``) over
+the untraced round time, as a share of the card's peak at the precision
+the configuration states (the driver's ``FLOP_PEAK``), in %. None where
+the driver counts no operations or the card is not in ``peaks.json``."""
 from bench.counts import peaks
-from bench.counts.cnn_flops import round_flops
 
 
 def read(ctx):
-    peak = peaks.of(ctx["device_kind"])
-    if peak is None:
+    driver, peak = ctx["driver"], peaks.of(ctx["device_kind"])
+    round_flops = getattr(driver, "round_flops", None)
+    if round_flops is None or peak is None:
         return None
     flops = round_flops(ctx["config"], ctx["traffic"])
-    return 100.0 * flops / ctx["untraced_round_s"] / peak["fp32_flop_per_s"]
+    return 100.0 * flops / ctx["untraced_round_s"] / peak[driver.FLOP_PEAK]

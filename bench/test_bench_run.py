@@ -105,5 +105,28 @@ def test_tf32_control_is_not_correct(cuda):
 
     harness.environment()
     spec = harness.cell_spec("femnist_qccf_c128", ROOT)
-    nums, _ = harness.judge(spec, SEED, calibrate.control_outputs(spec, SEED, cuda), cuda)
+    driver = harness.load_driver(spec)
+    nums, _ = driver.judge(spec, SEED, calibrate.control_outputs(spec, SEED, cuda), cuda)
     assert not check.correct(nums), nums
+
+
+def test_flips_count_the_wire_indices_that_differ(tiny_spec):
+    """``calibrate.flips``: none where the program and the float64
+    reference round every index alike (the tiny task on the CPU), many
+    where local SGD hands back stale models."""
+    import contextlib
+
+    from bench import calibrate, faults
+    from bench.drivers import fleet as driver
+    from bench.reference.data import FleetData
+
+    dev = torch.device("cpu")
+    data = FleetData(tiny_spec["config"])
+    for fault, differ in ((contextlib.nullcontext, False), (faults.stale_step, True)):
+        sim = driver.build(tiny_spec, SEED, dev)
+        planes = []
+        with calibrate.program_wire(planes), fault():
+            run = driver.outputs(sim, driver.call(sim, tiny_spec["traffic"]))
+        got = calibrate.flips(tiny_spec, SEED, run, planes, dev, data)
+        assert len(got) == tiny_spec["traffic"]["rounds_per_call"]
+        assert (sum(r[0] for r in got) > 0) == differ, got

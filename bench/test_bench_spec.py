@@ -55,20 +55,57 @@ def test_cell_resolves_its_files(cell):
     assert cell["chips"] == 1 and 1 <= len(cell["why"]) <= 200
     spec = harness.cell_spec(cell["name"], ROOT)
     assert spec["config"]["name"] == cell["config"]
-    assert {"policy", "n_channels", "rounds_per_call", "eval"} <= set(spec["traffic"])
-    assert (BENCH / "reference" / f"policy_{spec['traffic']['policy']}.py").is_file()
-    assert set(spec["limits"]["limits"]) == {"rounds_off", "loss_err", "model_err",
-                                             "below_precision"}
     assert spec["config"]["below_precision"]
+    assert spec["limits"]["limits"] and "below_precision" in spec["limits"]["limits"]
     names = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in names and len(names) >= 2 and spec["per_layer"]
     for m in spec["per_layer"]:
         assert callable(__import__(f"bench.metrics.{m['name']}", fromlist=["read"]).read)
+    # what only this kind of cell has to hold: bench/drivers/<driver>.py
+    harness.load_driver(spec).check_files(spec)
+
+
+@pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda w: w["name"])
+def test_every_metric_with_a_cell_list_names_cells_that_exist(cell):
+    """A cell reports every metric without a ``workloads`` key and each
+    whose list holds it; every listed cell exists."""
+    from bench import harness
+
+    cells = {w["name"] for w in SPEC["workloads"]}
+    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert set(m.get("workloads", cells)) <= cells, m["name"]
+    spec = harness.cell_spec(cell["name"], ROOT)
+    want = {m["name"] for m in SPEC["per_layer"] if cell["name"] in m.get("workloads", cells)}
+    assert {m["name"] for m in spec["per_layer"]} == want
+
+
+FLEET_FILE_FAULTS = {
+    "traffic without a policy": lambda s: s["traffic"].pop("policy"),
+    "a policy with no reference": lambda s: s["traffic"].update(policy="nowhere"),
+    "a limit renamed": lambda s: s["limits"]["limits"].update(
+        model_gap=s["limits"]["limits"].pop("model_err")),
+    "a tolerance left out": lambda s: s["limits"]["tolerances"].pop("v_err"),
+    "a parameter count off": lambda s: s["config"].update(z=s["config"]["z"] + 1),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FLEET_FILE_FAULTS))
+def test_fleet_check_files_refuses_a_broken_file(fault):
+    import copy
+
+    from bench import harness
+    from bench.drivers import fleet
+
+    spec = copy.deepcopy(harness.cell_spec(SPEC["workloads"][0]["name"], ROOT))
+    fleet.check_files(spec)
+    FLEET_FILE_FAULTS[fault](spec)
+    with pytest.raises(ValueError):
+        fleet.check_files(spec)
 
 
 def test_every_config_is_used_and_states_its_size():
-    from bench import inputs
-
+    """Each configuration names its driver, whose ``check_files`` holds its
+    stated size (``test_cell_resolves_its_files``)."""
     used = {w["config"] for w in SPEC["workloads"]}
     for c in SPEC["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
@@ -76,7 +113,7 @@ def test_every_config_is_used_and_states_its_size():
         assert c["file"].startswith("bench/")
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
-        assert inputs.param_count(cfg["model"]) == cfg["z"]
+        assert NAME.match(cfg["driver"]) and (BENCH / "drivers" / f"{cfg['driver']}.py").is_file()
 
 
 def test_names_units_and_bounds():
@@ -111,6 +148,7 @@ def test_parameter_counts_by_hand():
 def test_flop_and_byte_counts_by_hand():
     from bench.counts.cnn_flops import forward_flops, round_flops, train_flops
     from bench.counts.wire_bytes import aggregate_bytes
+    from bench.drivers import fleet
 
     cfg = json.loads((BENCH / "configs" / "femnist_cnn.json").read_text())
     # 2 x (28*28*25*1*32), 2 x (14*14*25*32*64), 2 x 3136*62
@@ -119,6 +157,9 @@ def test_flop_and_byte_counts_by_hand():
     assert train_flops(cfg["model"]) == 3 * fwd - 1_254_400 == 63_886_592
     traffic = {"n_channels": 128, "eval": True}
     assert round_flops(cfg, traffic) == 128 * 6 * 32 * 63_886_592 + 1024 * fwd
+    assert fleet.round_flops(cfg, dict(traffic, n_channels=32)) == 32 * 6 * 32 * 63_886_592 \
+        + 1024 * fwd
+    assert fleet.FLOP_PEAK == "fp32_flop_per_s"
     # u8 index and sign planes of 128 clients, 128 coefficients, the fp32 model
     assert aggregate_bytes(cfg, traffic) == 128 * 246590 * 2 + 4 * 128 + 4 * 246590
     # 2 x (32*32*25*3*64), 2 x (16*16*25*64*64), 2 x (1024*384 + 384*192 + 192*10)

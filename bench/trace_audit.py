@@ -11,7 +11,7 @@ shared clock (how many of the ranges' spans on the device's timeline start
 before the host record they come from, paired by the record's id) and the
 least time from a launch call to its operation's start early and late in
 the call (the two clocks' drift), and the top idle gaps. Not part of a
-run: it builds the cell as ``bench/run.py`` does and exits non-zero
+run: it builds the cell through its driver as ``bench/run.py`` does and exits non-zero
 without a card.
 """
 from __future__ import annotations
@@ -79,18 +79,19 @@ def audit(workload: str, seed: int) -> dict:
 
     spec = harness.cell_spec(workload)
     traffic = spec["traffic"]
-    rounds = traffic["rounds_per_call"]
+    driver = harness.load_driver(spec)
+    rounds = driver.rounds_per_call(traffic)
     with torch.autograd.set_multithreading_enabled(False):
-        sim = harness.build(spec, seed, torch.device("cuda"))
-        harness.warm(sim, traffic)
+        state = driver.build(spec, seed, torch.device("cuda"))
+        driver.warm(state, traffic)
         t = time.perf_counter()
-        harness.call(sim, traffic)
+        driver.call(state, traffic)
         untraced = (time.perf_counter() - t) / rounds
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             with record_function(WINDOW):
-                harness.call(sim, traffic)
+                driver.call(state, traffic)
             traced = (time.perf_counter() - t) / rounds
     events = prof.events()
     view = TraceView(events, rounds)
