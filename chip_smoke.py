@@ -27,7 +27,12 @@ Phases, each timed and printed on its own line; any failure exits non-zero:
      lam 0, 20 and 500: levels, feasibility and case codes equal, f and
      q_hat bit-equal; the grid's share of clients from the case codes; the
      kernel's device time beside the launch floor, the wrapper's host time
-     and the twin's time.
+     and the twin's time. The grouped expert kernels (``moe_rows_gemm``,
+     ``moe_wgrad_gemm``) at granite-4.0-h-small's MoE layer as the model
+     cell runs it (D 4,096, F 768, 9 of 72 experts, top-10 over 4,096
+     tokens): each form a layer step takes against its per-expert float64
+     product, timed beside the bound and the per-expert ``torch.matmul``,
+     and one layer's forward and backward launching 6 and 3 of them.
      Flash attention is checked in bf16 (the wgmma kernel) and fp32 (the
      SIMT kernel, cp.async loads) at Llama-3-8B's serve shape, StarCoder2-7B's
      heads (g = 9) with its 4096 window at S = 8192, a non-causal ragged
@@ -670,6 +675,141 @@ def kkt_vs_plain(empty_ms: float | None = None) -> dict:
                           host_us=host_us, plain_ms=plain_ms, bound_ms=empty_ms,
                           bound_by="launch floor (empty_kernel)")
     return rows
+
+
+# granite-4.0-h-small's MoE layer as the model cell runs it (one client's
+# 4,096 tokens, experts 0-8 of 72 held, top-10): D, F, experts, held, k, T
+MOE_SHAPE = (4096, 768, 72, (0, 9), 10, 4096)
+
+
+@phase("the grouped expert kernels vs per-expert products on the card, at the model cell's "
+       "shapes")
+def moe_grouped_vs_plain() -> tuple[dict, dict]:
+    """Rows ``moe_rows_gemm`` and ``moe_wgrad_gemm`` of the kernel table, at
+    the MoE layer of the model cell (``MOE_SHAPE``: D 4,096, F 768, 9 of 72
+    experts held, top-10 over 4,096 tokens, routed by ``dropless_route``
+    with the port's init: some 5,000 rows). Every form a layer step takes
+    (``_GroupedSwiGLU``): gate and up from token-indexed rows, down from
+    sorted rows, the transposed products of backward and their accumulate;
+    the weight gradients from indexed and from sorted rows. Each against
+    its per-expert product in float64 on the same inputs, within 1e-5 of
+    the largest entry (fp32 sums of 4,096 or 768 terms in index order); the
+    kernel's device time (profiler) beside the bound (2 R K N operations at
+    the fp32 peak, or bytes) and the per-expert fp32 ``torch.matmul``'s
+    (events). Then one layer of the dropless MoE at those shapes, forward
+    and backward, its launches counted from 0: 6 rows products and 3
+    weight gradients. Returns (rows, each kernel's launches in that
+    layer)."""
+    import torch
+    from repro_torch.kernels import moe_grouped
+    from repro_torch.models import moe
+
+    d, f, n_exp, held, top_k, t = MOE_SHAPE
+    gen = torch.Generator().manual_seed(35)
+    p = {k: v.cuda() for k, v in moe.share_params(gen, d, f, n_exp, held).items()}
+    x = torch.randn(t, d, generator=gen).cuda()
+    rt = moe.dropless_route(p["router"], x, top_k, held)
+    seg, rows = rt.seg, rt.rows
+    bounds = seg.tolist()
+    routed = bounds[-1]
+    n = held[1] - held[0]
+    r = rows.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(36)
+    h = torch.randn(r, f, device="cuda", generator=g)
+    dy = torch.randn(r + 1, d, device="cuda", generator=g)
+    wg, wd = p["wg"], p["wd"]
+
+    def per_expert(a, rws, b, transpose=False, dtype=torch.float64):
+        """The rows of each expert by a plain product; past the last, 0."""
+        out = torch.zeros((r, b.shape[1] if transpose else b.shape[2]), dtype=dtype,
+                          device="cuda")
+        for e in range(n):
+            lo, hi = bounds[e], bounds[e + 1]
+            src = (a[lo:hi] if rws is None else a[rws[lo:hi]]).to(dtype)
+            out[lo:hi] = src @ (b[e].T if transpose else b[e]).to(dtype)
+        return out
+
+    def per_expert_wgrad(a, rws, b, dtype=torch.float64):
+        return torch.stack([(a[bounds[e]:bounds[e + 1]] if rws is None
+                             else a[rws[bounds[e]:bounds[e + 1]]]).to(dtype).T
+                            @ b[bounds[e]:bounds[e + 1]].to(dtype) for e in range(n)])
+
+    def gap(got, want) -> float:
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        return err
+
+    # (name, kernel call, float64 product, fp32 per-expert product, K, N)
+    rows_forms = (
+        ("gate, token-indexed rows, D -> F",
+         lambda: moe_grouped.rows_gemm(x, rows, wg, seg, torch.empty((r, f), device="cuda")),
+         lambda: per_expert(x, rows, wg), lambda: per_expert(x, rows, wg, dtype=torch.float32),
+         d, f),
+        ("down, sorted rows, F -> D",
+         lambda: moe_grouped.rows_gemm(h, None, wd, seg, torch.empty((r, d), device="cuda")),
+         lambda: per_expert(h, None, wd), lambda: per_expert(h, None, wd, dtype=torch.float32),
+         f, d),
+        ("backward, D -> F on the transposed down weight",
+         lambda: moe_grouped.rows_gemm(dy, None, wd, seg, torch.empty((r, f), device="cuda"),
+                                       transpose_b=True),
+         lambda: per_expert(dy, None, wd, True),
+         lambda: per_expert(dy, None, wd, True, torch.float32), d, f),
+        ("backward, F -> D on the transposed gate weight, accumulated onto its first product",
+         lambda: moe_grouped.rows_gemm(h, None, wg, seg, moe_grouped.rows_gemm(
+             h, None, wg, seg, torch.empty((r, d), device="cuda"), transpose_b=True),
+             transpose_b=True, accumulate=True),
+         lambda: 2 * per_expert(h, None, wg, True),
+         lambda: per_expert(h, None, wg, True, torch.float32), f, d),
+    )
+    wgrad_forms = (
+        ("weight gradient from token-indexed rows, D x F",
+         lambda: moe_grouped.wgrad_gemm(x, rows, h, seg),
+         lambda: per_expert_wgrad(x, rows, h),
+         lambda: per_expert_wgrad(x, rows, h, torch.float32), d, f),
+        ("weight gradient from sorted rows, F x D",
+         lambda: moe_grouped.wgrad_gemm(h, None, dy[:r], seg),
+         lambda: per_expert_wgrad(h, None, dy[:r]),
+         lambda: per_expert_wgrad(h, None, dy[:r], torch.float32), f, d),
+    )
+    out = {}
+    for name, kernel, forms in (("moe_rows_gemm", "moe_rows_gemm_kernel", rows_forms),
+                                ("moe_wgrad_gemm", "moe_wgrad_gemm_kernel", wgrad_forms)):
+        shapes = {}
+        for label, call, want_fn, plain, k_dim, n_dim in forms:
+            moe_grouped.reset_launches()
+            got = call()
+            require(moe_grouped.launches[name] == (2 if "accumulated" in label else 1),
+                    f"{name} {label}: {moe_grouped.launches}")
+            want = want_fn()
+            got_rows = got if name == "moe_wgrad_gemm" else got[:routed]
+            want_rows = want if name == "moe_wgrad_gemm" else want[:routed]
+            err = gap(got_rows, want_rows)
+            require(err <= 1e-5, f"{name} {label}: gap {err:.3g} of the largest entry")
+            ms = kernel_ms(call, kernel, iters=20)       # a launch: one product
+            plain_ms = cuda_ms(plain, 10)
+            flops = 2.0 * routed * k_dim * n_dim
+            byts = 4.0 * (routed * (k_dim + n_dim) + n * k_dim * n_dim)
+            b_ms, b_by = bound(byts, flops)
+            print(f"{name} ({label}; {routed} routed rows over {n} experts, seg {bounds}): "
+                  f"max gap {err:.3g} of the largest entry (float64 per-expert product); "
+                  f"kernel {ms * 1e3:.1f} us (profiler), bound {b_ms * 1e3:.1f} us ({b_by}, "
+                  f"{100 * b_ms / ms:.1f} %), per-expert fp32 torch.matmul "
+                  f"{plain_ms * 1e3:.1f} us (events)", flush=True)
+            shapes[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+        first = next(iter(shapes.values()))
+        out[name] = dict(first, shapes=shapes, library_ms=None)
+    # one layer of the dropless MoE, forward and backward, launches from 0
+    leaves = {k: v.requires_grad_(True) for k, v in p.items()}
+    xl = x[None].clone().requires_grad_(True)
+    moe_grouped.reset_launches()
+    y, _loads = moe.dropless_apply(leaves, xl, top_k=top_k, held=held)
+    torch.autograd.grad(y.sum(), [xl] + list(leaves.values()))
+    torch.cuda.synchronize()
+    layer = dict(moe_grouped.launches)
+    require(layer == {"moe_rows_gemm": 6, "moe_wgrad_gemm": 3},
+            f"one MoE layer's forward and backward launched {layer}")
+    print(f"one dropless MoE layer at the model cell's shapes, forward and backward: {layer}")
+    return out, layer
 
 
 @phase("main path: 5 QCCF rounds, FEMNIST U=1024 C=8")
@@ -1882,20 +2022,21 @@ def _simt_bf16_beside(q, k, v, kw, want, want_lse, bound_ms, sdpa_ms):
 
 def _reset_all_launches():
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kkt
+    from repro_torch.kernels import kkt, moe_grouped
     from repro_torch.kernels import stochastic_quant as sq
 
     sq.reset_launches()
     fa.reset_launches()
     kkt.reset_launches()
+    moe_grouped.reset_launches()
 
 
 def _all_launches() -> dict:
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kkt
+    from repro_torch.kernels import kkt, moe_grouped
     from repro_torch.kernels import stochastic_quant as sq
 
-    return {**sq.launches, **fa.launches, **kkt.launches}
+    return {**sq.launches, **fa.launches, **kkt.launches, **moe_grouped.launches}
 
 
 def param_count_correction(cfg) -> int:
@@ -4245,6 +4386,8 @@ def main() -> int:
     wire_m = 2048                  # FEMNIST Z in 256-row tiles of 128 lanes
     report = kernels_vs_plain(zpad, wire_m)
     report.update(kkt_vs_plain(report["quantize"]["empty_ms"]))
+    moe_rows, moe_layer = moe_grouped_vs_plain()
+    report.update(moe_rows)
     report.update(flash_vs_plain())
     local_heads(report)
     seq_ring_kernels(report)
@@ -4317,7 +4460,8 @@ def main() -> int:
                   *(name for name, *_ in SEQ_RINGS), A2A_RING[0])
     sources = {**{n: "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu" for n in wgmma_rows},
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu",
-               **{n: "src/repro_torch/kernels/csrc/qccf_kkt.cu" for n, _ in KKT_SHAPES}}
+               **{n: "src/repro_torch/kernels/csrc/qccf_kkt.cu" for n, _ in KKT_SHAPES},
+               **{n: "src/repro_torch/kernels/csrc/moe_grouped.cu" for n in moe_layer}}
     replaces = {
         "aggregate": "src/repro/kernels/stochastic_quant.py:172",
         "quantize": "src/repro/kernels/stochastic_quant.py:49",
@@ -4326,6 +4470,9 @@ def main() -> int:
         "flash_attention_simt": "src/repro/kernels/flash_attention.py:183",
         # no Pallas kernel: the JAX package's solve_kkt is jnp that XLA fuses
         **{n: "none (src/repro/sim/policy.py solve_kkt, jnp)" for n, _ in KKT_SHAPES},
+        # no Pallas kernel: the JAX package's MoE is the capacity route's einsums
+        **{n: "none (src/repro/models/moe.py, the capacity route's einsums)"
+           for n in moe_layer},
     }
     # each kernel's launches in the runs of the paths that take it: the
     # FEMNIST rounds (unsharded, and sharded in the NCCL world of one), the
@@ -4345,7 +4492,9 @@ def main() -> int:
                "flash_attention_simt": fp32_launches,
                "qccf_kkt": {"femnist greedy": main_launches["kkt"]},
                "qccf_kkt_population": {f"femnist {mode}": policy_runs[mode]["kkt"]
-                                       for mode in ("compiled-ga", "same_size")}}
+                                       for mode in ("compiled-ga", "same_size")},
+               **{name: {"granite-4.0-h-small MoE layer, forward and backward": n}
+                  for name, n in moe_layer.items()}}
     # the model-parallel rows: the launches of the paths that take each shape
     by_path.update({
         "flash_attention_wgmma_ring_heads_on_model": {

@@ -28,6 +28,7 @@ def record(seed: int) -> dict:
     import torch
 
     from bench import harness
+    from bench.drivers import fleet
     from repro_torch.kernels import kkt
 
     spec = harness.cell_spec(WORKLOAD)
@@ -40,10 +41,10 @@ def record(seed: int) -> dict:
         return out
 
     with torch.autograd.set_multithreading_enabled(False):
-        sim = harness.build(spec, seed, torch.device("cuda"))
-        harness.warm(sim, spec["traffic"])
+        sim = fleet.build(spec, seed, torch.device("cuda"))
+        fleet.warm(sim, spec["traffic"])
         with mock.patch.object(kkt, "solve_kkt", spy):
-            harness.call(sim, spec["traffic"])
+            fleet.call(sim, spec["traffic"])
     counts = {"on a channel": [0] * 6, "unassigned": [0] * 6}
     differ = []
     for i, (args, kwargs, got) in enumerate(seen):

@@ -72,6 +72,13 @@ LIBRARIES = {
         # case, device, stream
         "qccf_kkt": (*(_PTR,) * 5, *(_I64,) * 5, _PTR, _I64, _INT, *(_PTR,) * 5, _INT, _PTR),
     }),
+    "moe_grouped": ("mg_error_string", {
+        # a, a_rows (or null), b, seg, c, lda, b strides (expert, k, n), ldc,
+        # experts, k, n, accumulate, row tiles, device, stream
+        "moe_rows_gemm": (*(_PTR,) * 5, *(_I64,) * 5, *(_INT,) * 4, _I64, _INT, _PTR),
+        # a, a_rows (or null), b, seg, c, lda, ldb, experts, k, n, device, stream
+        "moe_wgrad_gemm": (*(_PTR,) * 5, _I64, _I64, *(_INT,) * 3, _INT, _PTR),
+    }),
 }
 # the fleet round launches both, so the first use of either builds the pair
 # in one build(): a cold set-up waits for the longer nvcc run, not the sum.

@@ -21,7 +21,10 @@ routing's scatter and cumsum do not batch over a client dim, and K is small
 on one device. Every stochastic draw comes in as an argument (one fp32
 uniform tensor per client per leaf for the uplink, one per leaf for the
 downlink), or is drawn from the caller's generator in that order, uplink
-before downlink, a gate that is off drawing nothing.
+before downlink, a gate that is off drawing nothing. Drawn, a client's
+uplink uniforms are made just before its wire and dropped after it, so
+one client's set is alive at a time (the same draws, in the same order,
+as drawing every client's first).
 
 With a mesh, the round puts one client on each rank of ``client_axis``,
 as the JAX package's ``lower_fl_round`` lays it out: the client stack is
@@ -61,6 +64,7 @@ from repro_torch.dist.parallel import _is_dtensor, spec_of
 from repro_torch.dist.plan import MeshPlan, PartitionSpec as P, make_plan, mesh_coord
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import forward_train
+from repro_torch.obs.profile import scope
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 
 Tree = Any
@@ -204,7 +208,8 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
                   client_axis: str = "pod") -> Callable:
     """One FL communication round (paper Fig. 1 steps 3-5) over K stacked
     clients: ``fl_round(client_params, batch, q_bits, weights, *,
-    uniforms=None, downlink_uniforms=None, generator=None)``.
+    uniforms=None, downlink_uniforms=None, generator=None,
+    client_metrics=None)``.
 
     ``client_params`` leaves are (K, ...); ``batch`` leaves (K, B_local,
     ...); ``q_bits`` (K,) integer levels; ``weights`` (K,) fp32 eq.-2
@@ -212,7 +217,11 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
     uniforms, one tensor per leaf in leaf order; ``downlink_uniforms`` one
     per leaf at the unstacked shape; either is drawn from ``generator``
     when not given. Returns ``(stacked params, mean local loss, theta_max
-    (K,))``, and a trailing ``n_screened`` with ``screen``.
+    (K,))``, and a trailing ``n_screened`` with ``screen``. A list passed as
+    ``client_metrics`` gets each client's ``forward_train`` metrics,
+    ``grad_norm`` (L,), each leaf's gradient norm, and ``update_norm``
+    (L,), each leaf's norm of the step it took, new - start (leaf order),
+    in client order, on the device.
 
     ``wire_packed``: the uplink carries u8 magnitude indexes, a sign bitmap
     (:func:`pack_signs`) and one fp32 range a client, q clamped to 8; the
@@ -233,12 +242,18 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
     if downlink not in DOWNLINK_MODES:
         raise ValueError(f"downlink mode {downlink!r} not in {DOWNLINK_MODES}")
 
-    def local_step(params, batch):
-        loss, _, grads = value_and_grad(cfg, params, batch, remat=True)
+    def local_step(params, batch, norms=False):
+        loss, metrics, grads = value_and_grad(cfg, params, batch, remat=True)
         with torch.no_grad():
+            if norms:
+                metrics = dict(metrics, grad_norm=_leaf_norms(tree_util.leaves(grads)))
             new = tree_util.map(lambda p, g: (p - lr * g.to(torch.float32)).to(p.dtype),
                                 params, grads)
-        return new, loss
+            if norms:
+                metrics["update_norm"] = _leaf_norms(
+                    n.float() - p.float()
+                    for n, p in zip(tree_util.leaves(new), tree_util.leaves(params)))
+        return new, loss, metrics
 
     if mesh is not None:
         return _fl_round_ranks(fl_plan(mesh, client_axis), client_axis, local_step,
@@ -246,7 +261,8 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
 
     @torch.no_grad()
     def fl_round(client_params, batch, q_bits, weights, *, uniforms=None,
-                 downlink_uniforms=None, generator: Optional[torch.Generator] = None):
+                 downlink_uniforms=None, generator: Optional[torch.Generator] = None,
+                 client_metrics: Optional[list] = None):
         key_paths = tree_util.paths(client_params)
         c_leaves = tree_util.leaves(client_params)
         n_clients = c_leaves[0].shape[0]
@@ -256,18 +272,27 @@ def make_fl_round(cfg: ModelConfig, *, lr: float = 1e-3, wire_packed: bool = Fal
         shapes = [tuple(leaf.shape[1:]) for leaf in c_leaves]
         news, losses = [], []
         for k in range(n_clients):
-            new, loss = local_step(tree_util.map(lambda t: t[k], client_params),
-                                   {name: v[k] for name, v in batch.items()})
+            with scope("fl_local_step"):
+                new, loss, metrics = local_step(tree_util.map(lambda t: t[k], client_params),
+                                                {name: v[k] for name, v in batch.items()},
+                                                norms=client_metrics is not None)
             news.append(tree_util.leaves(new))
             losses.append(loss)
-        if uniforms is None:
-            uniforms = [_draw(shapes, generator, dev, "uniforms") for _ in range(n_clients)]
-        if wire_packed:
-            agg, n_screened, theta_max = _packed_uplink(news, shapes, q_bits, weights, uniforms,
-                                                        screen)
-        else:
-            agg, n_screened, theta_max = _fp32_uplink(news, key_paths, q_bits, weights,
-                                                      uniforms, screen)
+            if client_metrics is not None:
+                client_metrics.append(metrics)
+
+        def uniforms_of(k):
+            # drawn just before client k's wire: one client's set alive at a time
+            return uniforms[k] if uniforms is not None else _draw(shapes, generator, dev,
+                                                                  "uniforms")
+
+        with scope("fl_uplink"):
+            if wire_packed:
+                agg, n_screened, theta_max = _packed_uplink(news, shapes, q_bits, weights,
+                                                            uniforms_of, screen)
+            else:
+                agg, n_screened, theta_max = _fp32_uplink(news, key_paths, q_bits, weights,
+                                                          uniforms_of, screen)
         if downlink == "off":
             stacked = [g[None].expand(c.shape).to(c.dtype) for g, c in zip(agg, c_leaves)]
         else:
@@ -327,7 +352,7 @@ def _fl_round_ranks(plan: MeshPlan, client_axis: str, local_step, wire_packed: b
         cuts = [plan.local_slice(sp, shp, coord) for sp, shp in zip(specs, shapes)]
         c_loc = [t.to_local() for t in stacks]                   # (1, ...) the rank's shard
         with activation_mesh(plan):
-            new, loss = local_step(
+            new, loss, _ = local_step(
                 tree_util.from_leaves(key_paths, [client_leaf(c, t) for c, t in zip(c_loc, stacks)]),
                 {name: v[k_rank] for name, v in batch.items()})
         new = [t.to_local() for t in tree_util.leaves(new)]
@@ -376,17 +401,24 @@ def _fl_round_ranks(plan: MeshPlan, client_axis: str, local_step, wire_packed: b
     return fl_round
 
 
-def _fp32_uplink(news, key_paths, q_bits, weights, uniforms, screen):
+def _leaf_norms(tensors) -> torch.Tensor:
+    """(L,) fp32: each tensor's 2-norm, one tensor alive at a time."""
+    return torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors])
+
+
+def _fp32_uplink(news, key_paths, q_bits, weights, uniforms_of, screen):
     """``core.quantization.quantize_pytree`` per client (the dequantized
-    uploads), then the eq.-2 sum in client order."""
+    uploads; ``uniforms_of(k)``, client k's uniforms, asked for in client
+    order), then the eq.-2 sum in client order."""
     quantized, tmaxes = [], []
     for k, leaves in enumerate(news):
-        tq, tmax = quantize_pytree(uniforms[k], tree_util.from_leaves(key_paths, leaves),
+        tq, tmax = quantize_pytree(uniforms_of(k), tree_util.from_leaves(key_paths, leaves),
                                    int(q_bits[k]))
         quantized.append(tree_util.leaves(tq))
         tmaxes.append(tmax)
     theta_max = torch.stack(tmaxes)
-    return _fp32_sum(quantized, theta_max, weights, screen) + (theta_max,)
+    with scope("fl_aggregate"):
+        return _fp32_sum(quantized, theta_max, weights, screen) + (theta_max,)
 
 
 def _fp32_sum(quantized, theta_max, weights, screen, ok_reduce=None):
@@ -429,18 +461,20 @@ def _client_wire(leaves, uniforms, level, tmax):
     return wire
 
 
-def _packed_uplink(news, shapes, q_bits, weights, uniforms, screen):
+def _packed_uplink(news, shapes, q_bits, weights, uniforms_of, screen):
     """The wire format: per client u8 indexes against its global range and
-    a packed sign bitmap; the screen on the ranges and planes; the
+    a packed sign bitmap (``uniforms_of(k)``, client k's uniforms, asked
+    for in client order); the screen on the ranges and planes; the
     dequantize and eq.-2 sum of the unpacked planes, in client order."""
     levels = _levels(torch.clamp(q_bits, max=8))
     wires, tmaxes = [], []
     for k, leaves in enumerate(news):
         tmax = _stacked_max_abs(leaves).to(torch.float32)
-        wires.append(_client_wire(leaves, uniforms[k], levels[k], tmax))
+        wires.append(_client_wire(leaves, uniforms_of(k), levels[k], tmax))
         tmaxes.append(tmax)
     theta_max = torch.stack(tmaxes)
-    return _packed_sum(wires, shapes, theta_max, levels, weights, screen) + (theta_max,)
+    with scope("fl_aggregate"):
+        return _packed_sum(wires, shapes, theta_max, levels, weights, screen) + (theta_max,)
 
 
 def _packed_sum(wires, shapes, theta_max, levels, weights, screen, ok_reduce=None):

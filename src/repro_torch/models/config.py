@@ -2,6 +2,8 @@
 
 A copy of ``repro.models.config`` (field for field, the same analytic
 parameter counts), except that ``activation_dtype`` is a ``torch.dtype``.
+:class:`HybridMoeConfig` is the port's own: the ``hybrid_moe`` family
+(Granite-4.0-H), which the JAX package does not have.
 """
 from __future__ import annotations
 
@@ -118,6 +120,68 @@ class ModelConfig:
         d, ff = self.d_model, self.d_ff
         dense_like = self.param_count() - self.n_layers * 3 * d * ff * self.n_experts
         return int(dense_like + self.n_layers * 3 * d * ff * self.top_k)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoeConfig(ModelConfig):
+    """The ``hybrid_moe`` family (``granitemoehybrid``): every layer is a
+    mixer (Mamba-2 or NoPE GQA attention, by ``layer_types``, each layer its
+    own weights), then a top-k MoE of ``d_ff``-wide SwiGLU experts beside
+    one shared SwiGLU expert of width ``shared_ff``. The router has
+    ``n_experts`` outputs; the layer holds experts ``experts_held`` = (lo,
+    hi) of them (all when empty) and computes their part of the result.
+    Routing drops no token. The multipliers are the published ones: the
+    embeddings times ``embedding_multiplier``, each residual branch times
+    ``residual_multiplier``, attention scores times
+    ``attention_multiplier`` (in place of 1/sqrt(hd)), logits divided by
+    ``logits_scaling``."""
+    layer_types: tuple = ()          # "mamba" | "attention", one per layer (at least n_layers)
+    shared_ff: int = 0
+    experts_held: tuple = ()
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
+    conv_bias: bool = True
+
+    @property
+    def held(self) -> tuple[int, int]:
+        """(lo, hi): the experts this layer holds."""
+        return tuple(self.experts_held) if self.experts_held else (0, self.n_experts)
+
+    @property
+    def n_held(self) -> int:
+        lo, hi = self.held
+        return hi - lo
+
+    @property
+    def kinds(self) -> tuple:
+        """The mixer of each of the ``n_layers`` layers."""
+        return tuple(self.layer_types[:self.n_layers])
+
+    def param_count(self) -> int:
+        """Every parameter held: the layers (mixer, norms, router, held
+        experts, shared expert) and the tied vocabulary table."""
+        d, hd, din, n = self.d_model, self.hd, self.d_inner, self.ssm_state
+        h_ssm = self.n_ssm_heads
+        conv_ch = din + 2 * n
+        mamba = (d * (2 * din + 2 * n + h_ssm) + 4 * conv_ch + (conv_ch if self.conv_bias else 0)
+                 + 3 * h_ssm + din + din * d)
+        attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+        ffn = d * self.n_experts + self.n_held * 3 * d * self.d_ff + 3 * d * self.shared_ff
+        total = sum((mamba if k == "mamba" else attn) + ffn + 2 * d for k in self.kinds)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return int(total + emb + d)
+
+    def active_param_count(self) -> int:
+        """Parameters a token's matrix products read: the held experts at
+        the share of the top-k picks that land on them (k n_held / E
+        expert passes a token), the embedding table as the unembedding."""
+        d = self.d_model
+        routed = self.n_held * 3 * d * self.d_ff
+        passes = self.top_k * self.n_held / self.n_experts
+        return int(self.param_count() - len(self.kinds) * routed
+                   + len(self.kinds) * passes * 3 * d * self.d_ff)
 
 
 @dataclasses.dataclass(frozen=True)

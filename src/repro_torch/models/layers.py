@@ -146,14 +146,17 @@ def dense_attention(
     q_positions: Optional[torch.Tensor] = None,
     k_positions: Optional[torch.Tensor] = None,
     q_offset: int = 0, head_map: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Full-materialization attention. q: (B,S,H,hd), k/v: (B,T,KV,hd);
-    query i at ``q_offset + i`` unless ``q_positions`` says otherwise."""
+    query i at ``q_offset + i`` unless ``q_positions`` says otherwise;
+    scores times ``scale`` (default 1/sqrt(hd))."""
     s, h, hd = q.shape[1], q.shape[2], q.shape[3]
     t = k.shape[1]
     k = _expand_kv(k, h, head_map)
     v = _expand_kv(v, h, head_map)
-    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     qp = (q_positions if q_positions is not None
           else torch.arange(q_offset, q_offset + s, device=q.device))
     kp = k_positions if k_positions is not None else torch.arange(t, device=q.device)
@@ -171,9 +174,10 @@ def chunked_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk: int, causal: bool = True, window: int = 0,
     causal_skip: bool = False, q_offset: int = 0,
-    head_map: Optional[torch.Tensor] = None,
+    head_map: Optional[torch.Tensor] = None, scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Online-softmax attention over KV chunks, O(S * chunk) live memory.
+    """Online-softmax attention over KV chunks, O(S * chunk) live memory;
+    scores times ``scale`` (default 1/sqrt(hd)).
 
     ``causal_skip`` visits each query chunk's ``kv_block_range`` only;
     without it every chunk scans all KV chunks (masked ones included), as
@@ -189,7 +193,7 @@ def chunked_attention(
         raise ValueError(f"chunked_attention: T={t} is not a multiple of chunk={chunk}")
     nk = t // chunk
     qc = chunk if s % chunk == 0 else math.gcd(s, chunk)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     dev = q.device
     outs = []
     for qi in range(s // qc):

@@ -41,10 +41,13 @@ CONV_K = 4  # depthwise causal conv width
 
 
 def mamba2_params(gen: torch.Generator, d: int, d_inner: int, d_state: int, head_dim: int,
-                  n_layers: int = 1, dtype: torch.dtype = torch.float32) -> dict:
+                  n_layers: int = 1, dtype: torch.dtype = torch.float32,
+                  conv_bias: bool = False) -> dict:
+    """``conv_bias`` adds the conv's bias ``conv_b`` (Granite-4.0-H's
+    ``mamba_conv_bias``; Zamba2's conv has none), drawn after the rest."""
     n_heads = d_inner // head_dim
     f32 = dict(dtype=torch.float32, device=gen.device)
-    return {
+    p = {
         # in_proj -> [z (gate), x, B, C, dt]
         "w_in": layers.dense_init((d, 2 * d_inner + 2 * d_state + n_heads), 0.02, gen, dtype),
         "conv": layers.dense_init((CONV_K, d_inner + 2 * d_state), 0.5, gen, dtype),
@@ -55,6 +58,9 @@ def mamba2_params(gen: torch.Generator, d: int, d_inner: int, d_state: int, head
                                    dtype),
         "norm": layers.rmsnorm_params(d_inner, gen.device),
     }
+    if conv_bias:
+        p["conv_b"] = layers.dense_init((d_inner + 2 * d_state,), 0.1, gen, dtype)
+    return p
 
 
 def _split_proj(proj: torch.Tensor, d_inner: int, d_state: int):
@@ -67,11 +73,13 @@ def _split_proj(proj: torch.Tensor, d_inner: int, d_state: int):
 
 
 def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
-                carry: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv. x: (B,T,C); kernel: (K,C); carry: (B,K-1,C).
-    Returns (y, new carry). The K shifted products are summed in x's dtype
-    in the JAX code's order (each product and partial sum rounded there),
-    then SiLU: not ``conv1d``, which would accumulate in fp32."""
+                carry: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: (B,T,C); kernel: (K,C); carry: (B,K-1,C);
+    bias (C,) or None. Returns (y, new carry). The K shifted products are
+    summed in x's dtype in the JAX code's order (each product and partial
+    sum rounded there), the bias added last, then SiLU: not ``conv1d``,
+    which would accumulate in fp32."""
     k = kernel.shape[0]
     if carry is None:
         carry = x.new_zeros((x.shape[0], k - 1, x.shape[-1]))
@@ -79,6 +87,8 @@ def causal_conv(x: torch.Tensor, kernel: torch.Tensor,
     ker = kernel.to(x.dtype)
     t = x.shape[1]
     y = sum(xp[:, i:i + t, :] * ker[i] for i in range(k))
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     return F.silu(y), xp[:, -(k - 1):, :]
 
 
@@ -192,7 +202,8 @@ def mamba2_apply(params: dict, x: torch.Tensor, *, d_inner: int, d_state: int, h
     t = x.shape[1]
     tp, z, conv_in, dt = _in_proj(params, x, **dims)
     conv_out, conv_carry = causal_conv(conv_in, _conv_kernel(params, tp),
-                                       None if state is None else state["conv"])
+                                       None if state is None else state["conv"],
+                                       params.get("conv_b"))
     p, z, xh, b_in, c_in, dt = _heads(params, tp, z, conv_out, dt, **dims)
     s0 = (x.new_zeros(xh.shape[:1] + (xh.shape[2], d_state, head_dim), dtype=torch.float32)
           if state is None else state["ssm"])
@@ -273,7 +284,8 @@ def _mamba2_seq(params: dict, x: torch.Tensor, state: Optional[dict], chunk: int
     carries = dseq.halo(seq, [conv_in for _, _, conv_in, _ in projs], k - 1, first)
     shards, convs = [], []
     for (tp, z, conv_in, dt), carry in zip(projs, carries):
-        conv_out, conv_carry = causal_conv(conv_in, _conv_kernel(params, tp), carry)
+        conv_out, conv_carry = causal_conv(conv_in, _conv_kernel(params, tp), carry,
+                                           params.get("conv_b"))
         p, z, xh, b_in, c_in, dt = _heads(params, tp, z, conv_out, dt, **dims)
         shards.append((p, tp, z, xh, ssd_parts(xh, dt, p["a_log"].float(), b_in, c_in, chunk)))
         convs.append(conv_carry)

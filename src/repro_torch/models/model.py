@@ -8,7 +8,13 @@ vlm (InternVL2: projected patch embeddings prepended to the text), encdec
 cross-attention), ssm (RWKV6: ``models/rwkv6.py`` time mix and channel
 mix) and hybrid (Zamba2: ``models/mamba2.py`` blocks with one
 weight-shared, window-bounded attention + MLP block applied every
-``attn_every`` layers). Layers are stacked on a leading L axis, as in the
+``attn_every`` layers), and the port's own hybrid_moe (Granite-4.0-H,
+:class:`~repro_torch.models.config.HybridMoeConfig`: each layer a Mamba-2
+or NoPE GQA mixer with weights of its own, then the dropless MoE over the
+experts the layer holds, ``moe.dropless_apply``, beside a shared SwiGLU
+expert; its Mamba-2 and attention layers stacked apart, ``mamba_layers``
+and ``attn_layers``, run in ``layer_types`` order). Layers are stacked on
+a leading L axis, as in the
 JAX package, so its parameter pytree carries over leaf for leaf
 (:func:`params_from_numpy`); the layer loop is a Python loop over the
 stacked tensors, each split once per forward (:func:`unstack`, one
@@ -58,6 +64,13 @@ the encoder's. The last position's logits, a prefill's recurrent states
 and its cache rows come from the shards that hold them: every rank
 leaves with the same.
 
+The hybrid_moe family runs on one device: under a plan, or with DTensor
+parameters, its entry points raise (:func:`_one_device`). Its layers open
+the profiler ranges ``mamba_mixer``, ``attention_mixer``, ``moe_route``,
+``moe_experts`` and ``shared_expert`` in the forward, and again around
+each region's backward (``obs.profile.ranged``), so a trace gives each layer's
+backward its name too.
+
 Model parallelism (``dist.parallel``): under a plan with parameters placed
 as DTensors (``dist.placement``), every entry point takes the rank's local
 shards (:func:`parallel.enter`), each layer gathers its FSDP-sharded
@@ -82,6 +95,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 import threading
 from typing import NamedTuple, Optional, Union
 
@@ -98,11 +112,14 @@ from repro_torch.dist.ring import GroupRing, ring_flash_attention
 from repro_torch.dist.seq import GroupSeq
 from repro_torch.models import layers, mamba2, moe, rwkv6
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.profile import ranged
 
 Params = dict
 CE_CHUNK = 1024
 DENSE_ATTN_MAX_SEQ = 2048  # above this, use the chunked online-softmax path
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+PORT_FAMILIES = ("hybrid_moe",)  # the port's own, beside the JAX package's six
+HYBRID_MOE_DENSE_BYTES = 1 << 32   # the hybrid_moe family's dense attention scores, at most
 RWKV_CHUNK = 64            # the chunked WKV's chunk and gate, fixed as in the JAX code
 
 
@@ -138,6 +155,34 @@ def _mamba_layer_params(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dty
         "ln": layers.rmsnorm_params(cfg.d_model, gen.device),
         "mamba": mamba2.mamba2_params(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
                                       cfg.ssm_head_dim, cfg.n_layers, dtype),
+    }
+
+
+def _hybrid_moe_ffn_params(cfg, gen: torch.Generator, dtype: torch.dtype) -> dict:
+    return {
+        "ln2": layers.rmsnorm_params(cfg.d_model, gen.device),
+        "moe": moe.share_params(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.held,
+                                cfg.n_layers, dtype),
+        "shared": layers.swiglu_params(gen, cfg.d_model, cfg.shared_ff, cfg.n_layers, dtype),
+    }
+
+
+def _hybrid_moe_mamba_params(cfg, gen: torch.Generator, dtype: torch.dtype) -> dict:
+    return {
+        "ln1": layers.rmsnorm_params(cfg.d_model, gen.device),
+        "mamba": mamba2.mamba2_params(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                      cfg.ssm_head_dim, cfg.n_layers, dtype,
+                                      conv_bias=cfg.conv_bias),
+        **_hybrid_moe_ffn_params(cfg, gen, dtype),
+    }
+
+
+def _hybrid_moe_attn_params(cfg, gen: torch.Generator, dtype: torch.dtype) -> dict:
+    return {
+        "ln1": layers.rmsnorm_params(cfg.d_model, gen.device),
+        "attn": layers.attention_params(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                        dtype),
+        **_hybrid_moe_ffn_params(cfg, gen, dtype),
     }
 
 
@@ -194,7 +239,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     leaf one layer at a time, its path naming the stack) and returns the
     part to keep: ``dist.placement.init_params_local`` keeps a rank's
     shards, the draws unchanged."""
-    if cfg.family not in FAMILIES:
+    if cfg.family not in FAMILIES + PORT_FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
     dev = resolve_device(device)
     dtype = cfg.activation_dtype if param_dtype is None else param_dtype
@@ -233,6 +278,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                                             cfg.hd, dtype),
             "mlp": layers.swiglu_params(gen, cfg.d_model, cfg.d_ff, cfg.n_layers, dtype),
         })
+    elif fam == "hybrid_moe":
+        kinds = cfg.kinds
+        for top, kind, fn in (("mamba_layers", "mamba", _hybrid_moe_mamba_params),
+                              ("attn_layers", "attention", _hybrid_moe_attn_params)):
+            if kind in kinds:
+                params[top] = _stack_layers(fn, cfg, gen, dtype, kinds.count(kind), cut, top)
     else:
         params["layers"] = _stack_layers(_dense_layer_params, cfg, gen, dtype, cfg.n_layers, cut)
     if fam == "vlm":
@@ -518,21 +569,27 @@ def _ring_path(cfg: ModelConfig, x: torch.Tensor, n: int) -> bool:
 
 def _attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: int, causal_skip: bool, q_offset: int = 0,
-            head_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+            head_map: Optional[torch.Tensor] = None,
+            scale: Optional[float] = None,
+            dense_max_seq: int = DENSE_ATTN_MAX_SEQ) -> torch.Tensor:
     """The JAX package's dispatch by the keys' length T: dense at T <=
-    2,048 or T off the chunk, else flash (``attn_impl="flash"``) or
-    chunked attention; queries at ``q_offset`` onwards."""
+    ``dense_max_seq`` (2,048) or T off the chunk, else flash
+    (``attn_impl="flash"``) or chunked attention; queries at ``q_offset``
+    onwards, scores times ``scale`` (default 1/sqrt(hd); the flash kernels
+    take only that)."""
     t = k.shape[1]
-    if t <= DENSE_ATTN_MAX_SEQ or t % cfg.chunk_size != 0:
+    if t <= dense_max_seq or t % cfg.chunk_size != 0:
         return layers.dense_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                                      head_map=head_map)
+                                      head_map=head_map, scale=scale)
     if cfg.attn_impl == "flash":
+        if scale is not None:
+            raise ValueError("flash attention takes no score scale but 1/sqrt(hd)")
         if head_map is not None:
             k, v = k.index_select(2, head_map), v.index_select(2, head_map)
         return layers.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return layers.chunked_attention(q, k, v, chunk=cfg.chunk_size, causal=causal, window=window,
                                     causal_skip=causal_skip, q_offset=q_offset,
-                                    head_map=head_map)
+                                    head_map=head_map, scale=scale)
 
 
 def attention_mode(cfg: ModelConfig, p: dict, *, ring: bool = False) -> tuple[str, dict]:
@@ -779,6 +836,73 @@ def _forward_hybrid(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
     return x, {}
 
 
+def _one_device(cfg: ModelConfig, params: Params) -> None:
+    """The hybrid_moe family runs on one device: no plan, no DTensor."""
+    if cfg.family in PORT_FAMILIES and (current_activation_plan() is not None or any(
+            parallel._is_dtensor(t) for t in tree_util.leaves(params))):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family has no sharding rule (dist.sharding) and "
+            "no expert-parallel exchange for its expert share; run it on one device, "
+            "outside activation_mesh, with plain tensors")
+
+
+def _hybrid_moe_attention(cfg, p: dict, x: torch.Tensor):
+    """GQA self-attention with no position embedding (NoPE) and the
+    configured score scale (``attention_multiplier``). Dense while the
+    (B, H, S, S) fp32 scores take at most ``HYBRID_MOE_DENSE_BYTES`` (at
+    4,096 positions a dozen launches where the chunked path's online
+    softmax takes some 4,000 a pass, and about as much memory in
+    backward), else chunked."""
+    q, k, v = (_proj_heads(x, p[w]) for w in ("wq", "wk", "wv"))
+    b, s, h, _ = q.shape
+    o = _attend(cfg, q, k, v, causal=True, window=cfg.sliding_window, causal_skip=False,
+                scale=cfg.attention_multiplier or None,
+                dense_max_seq=math.isqrt(HYBRID_MOE_DENSE_BYTES // (4 * b * h)))
+    return _merge_heads(o, p["wo"])
+
+
+def shared_expert(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The hybrid_moe family's shared SwiGLU expert, on every token."""
+    return layers.swiglu(p, x)
+
+
+def _hybrid_moe_block(cfg, p: dict, x: torch.Tensor, kind: str
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One hybrid_moe layer: x + r mixer(norm(x)), then + r (held experts'
+    part + shared expert)(norm(x)), r the residual multiplier. Returns (x,
+    the held experts' loads (n,))."""
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        chunk, t = cfg.chunk_size, h.shape[1]
+        a = ranged("mamba_mixer", lambda z: mamba2.mamba2_apply(
+            p["mamba"], z, d_inner=cfg.d_inner, d_state=cfg.ssm_state,
+            head_dim=cfg.ssm_head_dim, chunk=chunk, chunked=t % chunk == 0 and t > 1)[0], h)
+    else:
+        a = ranged("attention_mixer",
+                    lambda z: _hybrid_moe_attention(cfg, p["attn"], z), h)
+    x = x + a * cfg.residual_multiplier
+    h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    m, loads = moe.dropless_apply(p["moe"], h, top_k=cfg.top_k, held=cfg.held)
+    m = m + ranged("shared_expert", lambda z: shared_expert(p["shared"], z), h)
+    return x + m * cfg.residual_multiplier, loads
+
+
+def _forward_hybrid_moe(cfg, params: Params, x: torch.Tensor, *,
+                        remat: bool = False) -> tuple[torch.Tensor, dict]:
+    """The layers in ``layer_types`` order, each recomputed in backward with
+    ``remat``; aux: the held experts' routed slots and largest load, by
+    layer (fp32 counts)."""
+    stacks = {kind: iter(unstack(params, top)) for kind, top in
+              (("mamba", "mamba_layers"), ("attention", "attn_layers")) if top in params}
+    loads = []
+    for kind in cfg.kinds:
+        step = _remat(lambda h, lp, kind=kind: _hybrid_moe_block(cfg, lp, h, kind), remat)
+        x, ld = step(x, next(stacks[kind]))
+        loads.append(ld)
+    loads = torch.stack(loads)
+    return x, {"moe_routed": loads.sum(-1), "moe_max_load": loads.amax(-1)}
+
+
 def _forward_encoder(cfg: ModelConfig, params: Params, src: torch.Tensor, *,
                      remat: bool = False) -> torch.Tensor:
     """The encdec family's encoder: non-causal self-attention over the
@@ -886,6 +1010,8 @@ def embed_inputs(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tensor:
     ``batch["vis_embeds"]`` (B, n_vis, D) in front of them."""
     dtype = cfg.activation_dtype
     x = layers.embed(embed_table(params), batch["tokens"], dtype)
+    if cfg.family == "hybrid_moe":
+        x = x * cfg.embedding_multiplier
     if cfg.family == "vlm":
         w = parallel.whole(params["vis_proj"]["w"], ("vis_proj", "w"))
         vis = torch.matmul(batch["vis_embeds"].to(dtype), w.to(dtype))
@@ -920,6 +1046,7 @@ def forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tenso
     and gets the same logits. Under a model-parallel plan (``params`` as
     DTensors, ``dist.placement``) every rank computes with its shards and
     gets the same logits."""
+    _one_device(cfg, params)
     view, params, batch = parallel.enter(cfg, params, batch)
     with parallel.holding(view):
         return _forward_logits(cfg, params, batch)
@@ -936,7 +1063,10 @@ def _forward_logits(cfg: ModelConfig, params: Params, batch: dict) -> torch.Tens
         else:
             h, _ = _decoder_stack(cfg, params, embed_inputs(cfg, params, batch))
     h = final_norm(cfg, params, h[:, -1:, :])
-    return from_last_shard(layers.unembed(head_table(cfg, params), h)[:, 0, :], shard)
+    logits = layers.unembed(head_table(cfg, params), h)[:, 0, :]
+    if cfg.family == "hybrid_moe":
+        logits = logits / cfg.logits_scaling
+    return from_last_shard(logits, shard)
 
 
 def _decoder_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
@@ -947,6 +1077,8 @@ def _decoder_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
     if cfg.family == "hybrid":
         kw.pop("remat_policy", None)
         return _forward_hybrid(cfg, params, x, **kw)
+    if cfg.family == "hybrid_moe":
+        return _forward_hybrid_moe(cfg, params, x, remat=kw.get("remat", False))
     return _forward_dense(cfg, params, x, **kw)
 
 
@@ -955,10 +1087,14 @@ def _decoder_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
 # =====================================================================
 
 def _ce_chunk(table: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
-              mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+              mask: torch.Tensor, logits_scaling: float = 1.0
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """One chunk's masked NLL sum and mask sum, fp32: the chunk's logits
-    (``layers.unembed``), logsumexp minus the gold logit."""
+    (``layers.unembed``, divided by ``logits_scaling`` where it is not 1),
+    logsumexp minus the gold logit."""
     logits = layers.unembed({"table": table}, h)                  # (chunk, V) fp32
+    if logits_scaling != 1.0:
+        logits = logits / logits_scaling
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = (logz - gold) * mask
@@ -986,6 +1122,7 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor, labels: torch
     if s % max(chunk, 1):
         chunk = s
     step = _remat(_ce_chunk, True)
+    scaling = cfg.logits_scaling if cfg.family == "hybrid_moe" else 1.0
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     denom = torch.zeros((), dtype=torch.float32, device=h.device)
     # a shard with no text positions (the vlm prefix's) runs one empty chunk:
@@ -993,7 +1130,7 @@ def _chunked_ce(cfg: ModelConfig, params: Params, h: torch.Tensor, labels: torch
     for c0 in range(0, s, chunk) if s else (0,):
         for r in range(h.shape[0]):
             nll, m = step(table, h[r, c0:c0 + chunk], labels[r, c0:c0 + chunk],
-                          mask[r, c0:c0 + chunk])
+                          mask[r, c0:c0 + chunk], scaling)
             total = total + nll
             denom = denom + m
     total, denom = parallel.batch_sum(total), parallel.batch_sum(denom)
@@ -1014,6 +1151,7 @@ def forward_train(cfg: ModelConfig, params: Params, batch: dict, *,
     rank passes the global batch, keeps its rows and returns the global
     batch's loss; the gradients of the DTensor leaves come back as DTensors
     with their placements."""
+    _one_device(cfg, params)
     view, params, batch = parallel.enter(cfg, params, batch, train=True)
     with parallel.holding(view):
         return _forward_train(cfg, params, batch, causal_skip=causal_skip, remat=remat,
@@ -1044,7 +1182,7 @@ def _forward_train(cfg: ModelConfig, params: Params, batch: dict, *, causal_skip
         # gradient the groups' sums over seq then add up once
         aux = {k: parallel.seq_mean(v) for k, v in aux.items()}
     metrics = {"loss": loss}
-    if aux:
-        loss = loss + 0.01 * aux.get("lb_loss", 0.0) + 1e-3 * aux.get("z_loss", 0.0)
-        metrics.update(aux)
+    if "lb_loss" in aux:
+        loss = loss + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    metrics.update(aux)
     return loss, metrics

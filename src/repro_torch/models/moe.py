@@ -63,6 +63,18 @@ the mesh axis, and :class:`LocalExchange`, the m ranks emulated in one
 process (the whole parameters, each rank's experts sliced; the partials
 summed in rank order), which holds the route at full width on one card.
 
+The dropless route (:func:`dropless_apply`, the ``hybrid_moe`` family):
+the router takes the top-k of its E logits and softmaxes those k (the
+published ``granitemoehybrid`` gating); every (token, slot) pair whose
+expert the layer holds is computed, none dropped. The layer holds experts
+``[lo, hi)`` of E (a share of an expert-parallel deployment, or all of
+them) and returns their part of the result. The pairs are sorted by held
+expert on the device (:func:`dropless_route`) and the experts run as
+grouped products over their rows (``kernels.moe_grouped``: one launch a
+product on the card, the counts never read by the host); the combine and
+the backward's sums are gathers over fixed slots, so a call's numbers do
+not depend on the schedule.
+
 Under a model-parallel plan the aux losses are of the global batch
 (``dist.parallel.batch_mean``) and their gradient enters on one model rank
 (``dist.parallel.aux_grad_gate``).
@@ -122,7 +134,9 @@ import torch.nn.functional as F
 
 from repro_torch.dist import collectives, parallel
 from repro_torch.dist.activations import current_activation_plan, expert_dispatch_active
+from repro_torch.kernels import moe_grouped
 from repro_torch.models import layers
+from repro_torch.obs.profile import ranged, scope
 
 
 ROUTE_CHUNK = 512   # tokens a routing group holds, each with its own capacity
@@ -566,3 +580,125 @@ def moe_apply_dense_fallback(params: dict, x: torch.Tensor, *, top_k: int) -> to
     u = torch.einsum("bsd,edf->bsef", x, params["wu"].to(dtype))
     y = torch.einsum("bsef,efd->bsed", F.silu(g) * u, params["wd"].to(dtype))
     return torch.einsum("bse,bsed->bsd", gates.to(dtype), y)
+
+
+# =====================================================================
+# the dropless route over a share of the experts
+# =====================================================================
+
+def share_params(generator: torch.Generator, d: int, f: int, n_experts: int,
+                 held: tuple[int, int], n_layers: int = 1,
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """A layer's router over all ``n_experts`` and the ``held`` = (lo, hi)
+    experts' SwiGLU weights, at :func:`moe_params`' scales."""
+    n = held[1] - held[0]
+    return {
+        "router": layers.dense_init((d, n_experts), 0.02, generator, dtype),
+        "wg": layers.dense_init((n, d, f), 0.02, generator, dtype),
+        "wu": layers.dense_init((n, d, f), 0.02, generator, dtype),
+        "wd": layers.dense_init((n, f, d), 0.02 / max(1.0, (2 * n_layers) ** 0.5),
+                                generator, dtype),
+    }
+
+
+class DroplessRoute(NamedTuple):
+    """The routing of T tokens onto the held experts: the top-k gates (T, K)
+    fp32 with 0 where the slot's expert is not held; each sorted row's slot
+    (t k + j) and token t (R,); the rows' offsets by held expert ``seg``
+    (n + 1,); each slot's sorted row ``pos`` (T, K), R (a zero row) where
+    its expert is not held; the held experts' loads (n,)."""
+    gates: torch.Tensor
+    slots: torch.Tensor
+    rows: torch.Tensor
+    seg: torch.Tensor
+    pos: torch.Tensor
+    loads: torch.Tensor
+
+
+def dropless_route(router: torch.Tensor, x: torch.Tensor, top_k: int,
+                   held: tuple[int, int]) -> DroplessRoute:
+    """Route x (T, D): fp32 logits of x's operands, the top-k logits
+    softmaxed, the held experts' slots sorted by expert (stable: token
+    order within an expert). R = T min(k, n) rows hold every held slot
+    whatever the loads; rows past the last held slot are never read."""
+    lo, hi = held
+    n = hi - lo
+    t = x.shape[0]
+    logits = torch.matmul(x.float(), router.to(x.dtype).float())
+    vals, idx = torch.topk(logits, top_k, dim=-1)
+    gates = layers._softmax(vals)
+    mine = (idx >= lo) & (idx < hi)
+    key = torch.where(mine, idx - lo, n).reshape(-1)
+    order = torch.sort(key, stable=True).indices
+    loads = (key[:, None] == torch.arange(n, device=x.device)).sum(0)
+    seg = F.pad(torch.cumsum(loads, 0), (1, 0))
+    r = t * min(top_k, n)
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(),
+                                                                  device=x.device))
+    pos = torch.where(mine, inv.view(t, top_k), r)
+    slots = order[:r]
+    return DroplessRoute(gates * mine, slots, torch.div(slots, top_k, rounding_mode="floor"),
+                         seg, pos, loads)
+
+
+class _GroupedSwiGLU(torch.autograd.Function):
+    """The held experts' SwiGLU over their sorted rows and the combine,
+    ``out[t] = sum_k gates[t, k] y[pos[t, k]]`` (fp32). Backward: the
+    combine's gather read backwards through ``slots`` (each sorted row is
+    one slot), the products' transposes and weight gradients as grouped
+    products, and x's gradient as the gather-sum of its slots' rows."""
+
+    @staticmethod
+    def forward(ctx, x, gates, wg, wu, wd, slots, rows, seg, pos):
+        r = rows.shape[0]
+        f, d = wg.shape[2], x.shape[1]
+        dev = x.device
+        g = moe_grouped.rows_gemm(x, rows, wg, seg, torch.empty((r, f), device=dev))
+        u = moe_grouped.rows_gemm(x, rows, wu, seg, torch.empty((r, f), device=dev))
+        h = F.silu(g) * u
+        y = torch.empty((r + 1, d), device=dev)
+        y[r].zero_()
+        moe_grouped.rows_gemm(h, None, wd, seg, y)
+        out = (gates[..., None] * y[pos]).sum(1)
+        ctx.save_for_backward(x, gates, wg, wu, wd, slots, rows, seg, pos, g, u, h, y)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        with scope("moe_experts"):
+            x, gates, wg, wu, wd, slots, rows, seg, pos, g, u, h, y = ctx.saved_tensors
+            r, d = rows.shape[0], x.shape[1]
+            dev = x.device
+            dout = dout.float()
+            dgates = (dout[:, None, :] * y[pos]).sum(-1)
+            # each sorted row is one slot: its gate times its token's gradient
+            # (0 past the held slots, whose gates are 0)
+            dy = gates.reshape(-1)[slots][:, None] * dout[rows]
+            dwd = moe_grouped.wgrad_gemm(h, None, dy, seg)
+            dh = moe_grouped.rows_gemm(dy, None, wd, seg, torch.empty_like(g),
+                                       transpose_b=True)
+            sg = torch.sigmoid(g)
+            du = dh * (g * sg)
+            dg = dh * u * (sg * (1 + g * (1 - sg)))
+            dwg = moe_grouped.wgrad_gemm(x, rows, dg, seg)
+            dwu = moe_grouped.wgrad_gemm(x, rows, du, seg)
+            dxs = torch.empty((r + 1, d), device=dev)
+            dxs[r].zero_()
+            moe_grouped.rows_gemm(dg, None, wg, seg, dxs, transpose_b=True)
+            moe_grouped.rows_gemm(du, None, wu, seg, dxs, transpose_b=True, accumulate=True)
+            dx = dxs[pos].sum(1)
+        return dx, dgates, dwg, dwu, dwd, None, None, None, None
+
+
+def dropless_apply(params: dict, x: torch.Tensor, *, top_k: int, held: tuple[int, int]
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The held experts' part of the dropless top-k MoE of x (B, S, D), in
+    x's dtype, and the held experts' loads (n,) (routed slots, fp32)."""
+    b, s, d = x.shape
+    xr = x.reshape(b * s, d)
+    rt = ranged("moe_route", lambda z: dropless_route(params["router"], z, top_k, held), xr)
+    with scope("moe_experts"):
+        out = _GroupedSwiGLU.apply(xr.float(), rt.gates, params["wg"].float(),
+                                   params["wu"].float(), params["wd"].float(), rt.slots, rt.rows,
+                                   rt.seg, rt.pos)
+    return out.reshape(b, s, d).to(x.dtype), rt.loads.float()
